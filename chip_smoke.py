@@ -8,20 +8,31 @@ threedgrut_torch/csrc/ into build/ on first use). Imports nothing of JAX.
 Phases, each of which fails the run on a miss:
 
   1. device: name, count, power limit; TF32 off for matmuls and cuDNN;
-  2. build: the three kernels (B3 cull_masks, B4 expand_keys, B1
-     tile_raster_fwd) in parallel, with nvcc's register/smem/spill report;
+  2. build: the five sources (B3 cull_masks, B4 expand_keys, B1
+     tile_raster_fwd, B2 tile_raster_bwd, B5/B6 segment_sum) in parallel,
+     with nvcc's register/smem/spill report;
   3. golden: the card's render of the golden scene against the JAX
      reference's stored frame (threedgrut_torch/golden/);
   4. parity: api.render on the card (kernels) against api.render on the CPU
-     (the plain versions) at 100k Gaussians, 400x400, both visibility modes;
-  5. main path: api.render at full width (1M Gaussians of the benchmark
-     scene, SH degree 3, 800x800), 5 orbit frames plus one hit-visibility
-     frame, with the launch counts of every kernel read around it;
-  6. kernels: each kernel against its plain version on the card at the
-     main path's shapes (B3, B4 and every TileBinning field exactly equal),
-     timed with CUDA events beside its bound;
-  7. profile: one full-width frame under torch.profiler, for the device's
-     busy share and the time of each render stage.
+     (the plain versions) at 100k Gaussians, 400x400, both visibility
+     modes; then one Trainer.train_step on the card against the same step on
+     the CPU from the same parameters (loss, image, gradients, updated
+     parameters, moments), on the fused path's compact branch (B6) and
+     its dense fallback (B5), and on the two-stage path (B5);
+  5. forward main path: api.render at full width (1M Gaussians of the
+     benchmark scene, SH degree 3, 800x800), 5 orbit frames plus one
+     hit-visibility frame, with the launch counts read around it;
+  6. train main path: Trainer.train_step at full width (bench.py's scene,
+     camera and Config defaults), 6 steps, the last with
+     walk_compact_fraction=0 (the dense branch, B5); losses, step ms,
+     rays/s, peak memory, launch counts, and a bench.py-shaped JSON line;
+  7. kernels: each kernel against its plain version on the card at the
+     main paths' shapes (B3, B4 and every TileBinning field exactly equal;
+     B1 and B2 within stated tolerances with equal zero patterns; B5, B6
+     within the f32 summation bound), timed with CUDA events beside its
+     bound and, for B5 and B6, one PyTorch call computing the same sums;
+  8. profile: one full-width frame and one full-width train step under
+     torch.profiler, for the device's busy share and the time per stage.
 
 The line before the last holds the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. A failed phase prints FAIL and exits 1.
@@ -52,6 +63,15 @@ PEAK_BYTES_S = 3.35e12
 FLOP_POWER_TEST = 50
 FLOP_EXPAND_SLOT = 65
 FLOP_PAIR = 75
+# B2 (csrc/tile_raster_bwd.cu): the pair math (FLOP_PAIR) per (pixel,
+# walked slot); per live pair (w > 0) the gradient chain (108 operations)
+# and the 16 adds that sum its row over the tile (warps with no live lane
+# skip the reduction).
+FLOP_REDUCE = 16
+FLOP_CHAIN = 108
+# The reference CUDA system's train step on an RTX 5090 (BASELINE.md): the
+# one outside yardstick for the fwd+bwd+Adam rays/s.
+BASELINE_RAYS_PER_S = 8.66e7
 
 MAIN_N = 1_000_000
 MAIN_RES = (800, 800)
@@ -59,6 +79,8 @@ MAIN_CAP = 2917888
 PARITY_N = 100_000
 PARITY_RES = (400, 400)
 PARITY_CAP = 1 << 20
+TRAIN_STEPS = 6
+NCH_F = 16          # adds per summed row (16 channels) in B5 and B6
 
 
 def fail(msg: str) -> None:
@@ -86,23 +108,22 @@ def bound_ms(nbytes: float, flops: float):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def profile_frame(api, params, cam, T, cap, dev):
-    """One full-width frame under torch.profiler. From the trace's device
-    timeline: the busy time (union of kernel, memcpy and memset intervals)
-    and idle share over the frame's wall time, device time per render stage
-    (the span of its "3dgut.*" label on the device timeline), host time per
-    stage, and the top kernels. The
+def profile_run(fn, prefixes):
+    """fn() once (warm) and once under torch.profiler. From the trace's
+    device timeline: the busy time (union of kernel, memcpy and memset
+    intervals) and idle share over the run's wall time, device time per
+    stage (the span of each record_function label with one of `prefixes`
+    on the device timeline), host time per stage, and the top kernels. The
     trace is kept in build/chip_smoke_trace.json."""
     from torch.profiler import ProfilerActivity, profile
-    with torch.no_grad():
-        render_retry(api, params, cam, T, MAIN_RES, cap, dev)   # warm
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            render_retry(api, params, cam, T, MAIN_RES, cap, dev)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     path = out_dir / "chip_smoke_trace.json"
@@ -116,17 +137,25 @@ def profile_frame(api, params, cam, T, cap, dev):
         if b > end:
             busy += b - max(a, end)
             end = b
-    by_kernel, stage_span, stage_host = {}, {}, {}
+    by_kernel, stage_span, stage_host, window = {}, {}, {}, {}
     for e in events:
         if e.get("cat") == "kernel":
             k = e["name"][:70]
             by_kernel[k] = by_kernel.get(k, 0.0) + e.get("dur", 0) / 1e3
         name = e.get("name", "")
-        if name.startswith("3dgut."):
+        if name.startswith(tuple(prefixes)):
             if e.get("cat") == "gpu_user_annotation":
                 stage_span[name] = stage_span.get(name, 0.0) + e["dur"] / 1e3
+                lo, hi = window.get(name, (math.inf, -math.inf))
+                window[name] = (min(lo, e["ts"]), max(hi, e["ts"] + e["dur"]))
             elif e.get("cat") == "user_annotation":
                 stage_host[name] = stage_host.get(name, 0.0) + e["dur"] / 1e3
+    if "train.loss" in window and "train.adam" in window:
+        # The backward's kernels are launched by autograd's device thread,
+        # outside the "train.backward" range of the calling thread: its
+        # device span is the gap between the loss's end and Adam's start.
+        stage_span["train.backward (loss end to adam start)"] = (
+            window["train.adam"][0] - window["train.loss"][1]) / 1e3
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
     return {"wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
             "device_idle_share": 1.0 - busy / 1e3 / wall_ms,
@@ -134,6 +163,108 @@ def profile_frame(api, params, cam, T, cap, dev):
                                    if e.get("cat") == "kernel"),
             "stage_device_span_ms": stage_span, "stage_host_ms": stage_host,
             "top_kernels_ms": dict(top)}
+
+
+class OneView:
+    """A dataset of one training view (the Trainer's dataset protocol)."""
+
+    def __init__(self, view, scene_extent: float):
+        self.view, self.scene_extent = view, scene_extent
+
+    def __len__(self):
+        return 1
+
+    def __getitem__(self, idx):
+        return self.view
+
+
+def train_setup(fields, res, cap, gt, dev, walk_compact_fraction=0.625,
+                low_precision_grads=True):
+    """A Trainer on `dev` over one view from bench.py's camera, with
+    Config() defaults but SH degree 3 from the first step (bench.py's)."""
+    from threedgrut_torch.cameras import example_camera, look_at
+    from threedgrut_torch.config import Config
+    from threedgrut_torch.datasets.protocols import View
+    from threedgrut_torch.model.gaussians import from_numpy
+    from threedgrut_torch.trainer import Trainer
+    cfg = Config()
+    cfg.render.isect_capacity = cap
+    cfg.render.walk_compact_fraction = walk_compact_fraction
+    cfg.render.low_precision_grads = low_precision_grads
+    cfg.model.progressive_sh_interval = 0
+    T = look_at(np.array([0.0, -4.0, 1.0], np.float32),
+                np.zeros(3, np.float32), np.array([0.0, 0.0, 1.0],
+                                                  np.float32))
+    view = View(T_to_world=T, camera=example_camera(res, dev),
+                resolution=res, rgb_gt=gt)
+    trainer = Trainer(cfg, OneView(view, 4.0),
+                      params=from_numpy(fields, device=dev), device=dev)
+    return trainer, view
+
+
+def train_parity(dev, tag):
+    """One train step on the card and on the CPU from the same parameters,
+    f32 gradients, on each way the gradient reduction can go. Tolerances:
+    loss rtol 1e-4; image values beyond atol 2e-4 + rtol 1e-4 on at most
+    0.1% of them; gradients, first moments (0.1 g), the |g| implied by the
+    second moments and the updated parameters within golden.rows_agree
+    (1e-4 x max for gradients and moments, 1e-6 x max for the parameters,
+    compared where |g| clears 2e-4 x max: Adam's first step is lr sign(g));
+    the visibility on all but 0.1% of the particles."""
+    from threedgrut_torch import golden
+    from threedgrut_torch.model.gaussians import bench_scene
+    from threedgrut_torch.ops import cuda_build
+    fields = bench_scene(PARITY_N, seed=0, specular_std=0.1)
+    gt = np.random.default_rng(0).uniform(
+        0, 1, (PARITY_RES[1], PARITY_RES[0], 3)).astype(np.float32)
+    # The fused path's compact branch (B6); the fused path with a walk
+    # capacity of one window, which the walk exceeds, so its backward falls
+    # back to the dense unsort (B5); and the two-stage path (B5).
+    b5, b6 = "segment_sum_rows", "segment_sum_rows_by_ids"
+    for frac, kernel, other in ((0.625, b6, b5), (256 / PARITY_CAP, b5, b6),
+                                (0.0, b5, b6)):
+        runs = {}
+        for device in (dev, "cpu"):
+            tr, view = train_setup(fields, PARITY_RES, PARITY_CAP, gt,
+                                   device, frac, low_precision_grads=False)
+            cuda_build.launches.clear()
+            aux = tr.train_step(view)
+            runs[device] = (tr, aux, dict(cuda_build.launches))
+        (tg, ag, lg), (tc, ac, _) = runs[dev], runs["cpu"]
+        if (lg.get(kernel, 0) != 1 or lg.get(other, 0) != 0
+                or lg.get("tile_raster_bwd", 0) != 1):
+            fail(f"train parity (walk_compact_fraction={frac}) did not run "
+                 f"B2 and {kernel} once and {other} never: {lg}")
+        rep = {"loss": (float(ag["terms"]["total"]),
+                        float(ac["terms"]["total"]))}
+        ok = abs(rep["loss"][0] - rep["loss"][1]) <= 1e-4 * abs(rep["loss"][1])
+        d = (ag["pred"].cpu() - ac["pred"]).abs()
+        loose = int((d > 2e-4 + 1e-4 * ac["pred"].abs()).sum())
+        rep["image"] = {"max_abs": float(d.max()), "loose": loose}
+        ok &= loose <= max(1, math.floor(1e-3 * d.numel()))
+        for f, gc in ac["grads"].items():
+            gg = ag["grads"][f].cpu()
+            r1, o1 = golden.rows_agree(gg, gc, 1e-4)
+            r2, o2 = golden.rows_agree(tg.opt_state.exp_avg[f],
+                                       tc.opt_state.exp_avg[f], 1e-4)
+            r3, o3 = golden.rows_agree(
+                (tg.opt_state.exp_avg_sq[f].cpu() / 1e-3).sqrt(),
+                (tc.opt_state.exp_avg_sq[f] / 1e-3).sqrt(), 1e-4)
+            clear = gc.abs() > 2e-4 * float(gc.abs().max())
+            pc = getattr(tc.params, f).detach()
+            pg = torch.where(clear, getattr(tg.params, f).detach().cpu(), pc)
+            r4, o4 = golden.rows_agree(pg, pc, 1e-6)
+            rep[f] = {"grad": r1, "m": r2, "v": r3, "param": r4}
+            ok &= o1 and o2 and o3 and o4
+        dv = int((ag["visibility"].cpu() != ac["visibility"]).sum())
+        rep["visibility_diff"] = dv
+        ok &= dv <= max(1, math.floor(1e-3 * ac["visibility"].numel()))
+        print(f"train step card vs CPU, {PARITY_N} Gaussians {PARITY_RES}, "
+              f"walk_compact_fraction={frac} ({kernel}): {json.dumps(rep)} "
+              f"{tag}", flush=True)
+        if not ok:
+            fail(f"the train step on the card disagrees with the plain path "
+                 f"(walk_compact_fraction={frac})")
 
 
 def orbit_T(k: int) -> np.ndarray:
@@ -156,6 +287,200 @@ def render_retry(api, params, cam, T, res, cap, dev, **kw):
         cap *= 2
         print(f"isect overflow: capacity -> {cap}", flush=True)
     fail("overflow persists after 8 doublings")
+
+
+def train_main_path(dev, tag):
+    """TRAIN_STEPS Trainer.train_step calls at full width on bench.py's
+    scene (no specular), camera, zero ground truth and Config() defaults;
+    the last step takes the dense branch (walk_compact_fraction=0, B5).
+    Fails unless every value is finite, the loss falls from the first step
+    to the last, and every kernel was launched."""
+    from threedgrut_torch.model.gaussians import bench_scene
+    from threedgrut_torch.ops import cuda_build
+    gt = np.zeros((MAIN_RES[1], MAIN_RES[0], 3), np.float32)
+    tr, view = train_setup(bench_scene(MAIN_N, seed=0), MAIN_RES, MAIN_CAP,
+                           gt, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.launches.clear()
+    step_ms, losses = [], []
+    for k in range(TRAIN_STEPS):
+        if k == TRAIN_STEPS - 1:
+            tr.cfg.render.walk_compact_fraction = 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aux = tr.train_step(view)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(aux["terms"]["total"]))
+        finite = all(bool(torch.isfinite(x).all()) for x in
+                     [aux["pred"], *aux["grads"].values(),
+                      *(getattr(tr.params, f) for f in aux["grads"])])
+        if not (finite and math.isfinite(losses[-1])):
+            fail(f"train step {k + 1}: a value is not finite")
+        if bool(aux["overflow"]):
+            fail(f"train step {k + 1} overflowed its capacity")
+        print(f"train step {k + 1}: loss {losses[-1]:.6f} psnr "
+              f"{float(aux['psnr']):.4f} visible "
+              f"{int(aux['visibility'].sum())} {step_ms[-1]:.3f} ms "
+              f"walk_compact_fraction "
+              f"{tr.cfg.render.walk_compact_fraction} {tag}", flush=True)
+    tr.cfg.render.walk_compact_fraction = 0.625
+    launches = dict(cuda_build.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"train main path launches: {launches}", flush=True)
+    for kname in cuda_build.KERNELS:
+        if launches.get(kname, 0) <= 0:
+            fail(f"kernel {kname} was not launched on the train main path")
+    if not losses[-1] < losses[0]:
+        fail(f"the loss did not fall: {losses}")
+    ms = float(np.median(step_ms[1:5]))
+    rays_s = MAIN_RES[0] * MAIN_RES[1] / (ms / 1e3)
+    print(json.dumps({
+        "metric": "rays_per_s_fwd_bwd_1M_gaussians", "value": rays_s,
+        "unit": "rays/s/chip", "vs_baseline": rays_s / BASELINE_RAYS_PER_S,
+        "backend": "cuda", "device": torch.cuda.get_device_name(0),
+        "n_gaussians": MAIN_N, "resolution": list(MAIN_RES),
+        "iters": 4, "isect_capacity": tr.isect_capacity,
+        "isect_overflow": False, "step_ms": ms,
+        "max_memory_allocated_gib": peak}), flush=True)
+    return tr, view, launches, dict(step_ms=ms, rays_per_s=rays_s,
+                                    peak_gib=peak)
+
+
+def backward_records(tr, view, launches, tag):
+    """B2, B5 and B6 against their plain versions on the card, on the
+    inputs the train main path gives them: the compositor's output
+    cotangent of the loss at full width, B2's per-slot gradients, and the
+    unsorted rows of the dense (B5) and compact (B6) branches."""
+    from threedgrut_torch.model import losses
+    from threedgrut_torch.ops import (fused_raster, segment_sum, sorted_gather,
+                                      tile_raster)
+    from threedgrut_torch.render import gut
+    from threedgrut_torch.trainer import render_params, walk_capacity_for
+    from threedgrut_torch.cameras import pose_from_matrix
+    dev = tr.device
+    cap, res = tr.isect_capacity, view.resolution
+    cam = view.camera
+    pose = pose_from_matrix(torch.as_tensor(view.T_to_world, device=dev))
+    gt = torch.as_tensor(view.rgb_gt, device=dev)
+    with torch.no_grad():
+        _, binning, packed, grid = gut.prepare_packed(
+            *render_params(tr.params), cam, pose, res, cap)
+        n = packed.shape[0]
+        idx = binning.sorted_particle_idx
+        data = packed[torch.clamp(idx, max=n - 1).long()]
+        rays = gut.packed_world_rays(cam, pose, grid)
+    fwd = (data, binning.tile_starts, binning.tile_ends, rays, 2, 1e-4,
+           0.0113, 1.0 / 255.0, 0.99, False)
+    out, _ = tile_raster._launch(*fwd, False, False)
+    live = float(tile_raster._launch(*fwd, True, False)[0][:, 6].sum())
+    o = out.clone().requires_grad_(True)
+    img = gut.tile_unpack(o, grid)[:res[1], :res[0]]
+    loss, _ = losses.total_loss(img[..., 0:3], gt)
+    g_out = torch.autograd.grad(loss, o)[0].contiguous()
+    b2_in = fwd[:4] + (out, g_out) + fwd[4:] + (False,)
+    records = []
+
+    # B2
+    k2 = tile_raster._launch_backward(*b2_in)
+    p2 = tile_raster.tile_composite_backward_plain(*b2_in)
+    nz_k, nz_p = k2.abs().sum(1) > 0, p2.abs().sum(1) > 0
+    d2 = (k2 - p2).abs()
+    col = p2.abs().amax(0)
+    within = bool((d2 <= 1e-5 * col + 1e-30).all())
+    print(f"B2: max |kernel - plain| {float(d2.max()):.3e}; per-column "
+          f"max |plain| {col.tolist()}; nonzero slots {int(nz_k.sum())} "
+          f"kernel, {int(nz_p.sum())} plain", flush=True)
+    if not (torch.equal(nz_k, nz_p) and within):
+        fail("B2 disagrees with its plain version (tolerance 1e-5 x each "
+             "column's max, zero pattern exact)")
+    walked = int(out[:, 7, 0].sum())
+    ntiles = rays.shape[0]
+    b2_bound = bound_ms(ntiles * 8 * 256 * 4 * 3 + ntiles * 8
+                        + walked * 64 * 2,
+                        FLOP_PAIR * 256 * walked
+                        + (FLOP_CHAIN + FLOP_REDUCE) * live)
+    print(f"B2 walked slots {walked}, live pairs {live:.0f} {tag}",
+          flush=True)
+    records.append(dict(
+        name="tile_raster_bwd", route="cuda",
+        source="threedgrut_torch/csrc/tile_raster_bwd.cu",
+        replaces="threedgrut_tpu/ops/pallas/tile_raster.py:1269",
+        launches=launches["tile_raster_bwd"], launches_forward=0,
+        max_abs_err=float(d2.max()),
+        ms=cuda_ms(lambda: tile_raster._launch_backward(*b2_in), 10),
+        plain_ms=cuda_ms(
+            lambda: tile_raster.tile_composite_backward_plain(*b2_in), 1,
+            warmup=0),
+        bound_ms=b2_bound[0], bound_by=b2_bound[1], library_ms=None))
+
+    def sums_record(name, kernel, plain, args, lengths, n_rows, nbytes,
+                    library):
+        got, want = kernel(*args), plain(*args)
+        bound = segment_sum.f32_sum_bound(
+            plain(args[0].abs(), *args[1:]), lengths, want)
+        err = float((got - want).abs().max())
+        nz_k, nz_p = (got != 0).any(1), (want != 0).any(1)
+        print(f"{name}: max |kernel - plain| {err:.3e}; longest segment "
+              f"{int(lengths.max())} rows; rows summed {n_rows}; particles "
+              f"with a nonzero gradient {int(nz_k.sum())} kernel, "
+              f"{int(nz_p.sum())} plain {tag}", flush=True)
+        if not bool(((got - want).abs() <= bound).all()):
+            fail(f"{name} disagrees with its plain version beyond the f32 "
+                 f"summation bound")
+        if not torch.equal(nz_k, nz_p):
+            fail(f"{name}: the particles with a nonzero gradient differ "
+                 f"from its plain version's")
+        b = bound_ms(nbytes, NCH_F * n_rows)
+        return dict(
+            name=name, route="cuda",
+            source="threedgrut_torch/csrc/segment_sum.cu",
+            replaces=("threedgrut_tpu/ops/pallas/segment_sum.py:202"
+                      if name == "segment_sum_rows" else
+                      "threedgrut_tpu/ops/pallas/segment_sum.py:96"),
+            launches=launches[name], launches_forward=0, max_abs_err=err,
+            ms=cuda_ms(lambda: kernel(*args), 20),
+            plain_ms=cuda_ms(lambda: plain(*args), 3),
+            bound_ms=b[0], bound_by=b[1], library_ms=cuda_ms(library, 20))
+
+    # B5: the dense branch's rows, sorted and rounded as in training.
+    prec = "bf16" if tr.cfg.render.low_precision_grads else "f32"
+    with torch.no_grad():
+        _, rows = sorted_gather.sort_rows(idx, k2, prec)
+        ends = binning.particle_ends[:n].contiguous()
+        ec = torch.clamp(ends, max=cap)
+        lengths = torch.diff(ec, prepend=ec.new_zeros(1))
+        total = int(ec[-1])
+        seg_data, seg_len = rows[:total], lengths.to(torch.int64)
+    records.append(sums_record(
+        "segment_sum_rows", segment_sum.segment_sum_rows,
+        segment_sum.segment_sum_rows_plain, (rows, ends), lengths, total,
+        total * 64 + n * 4 + n * 64,
+        lambda: torch.segment_reduce(seg_data, "sum", lengths=seg_len,
+                                     axis=0, unsafe=True)))
+
+    # B6: the compact branch's rows.
+    wc = walk_capacity_for(tr.cfg, cap)
+    walked_rows = fused_raster.compact_walked(out, binning.tile_starts, idx,
+                                              k2, wc, n)
+    if walked_rows is None:
+        fail("the walked windows do not fit walk_capacity at full width")
+    with torch.no_grad():
+        sid6, rows6 = sorted_gather.sort_rows(*walked_rows, prec)
+        lengths6 = torch.bincount(sid6.long(), minlength=n + 1)[:n]
+        kept = int((sid6 < n).sum())
+        acc = torch.zeros((n + 1, 16), device=dev)
+        ids_l = torch.clamp(sid6, max=n).long()
+    # Filler rows (id n) fall in no segment and are never read.
+    records.append(sums_record(
+        "segment_sum_rows_by_ids",
+        lambda g, i: segment_sum.segment_sum_rows_by_ids(g, i, n),
+        lambda g, i: segment_sum.segment_sum_rows_by_ids_plain(g, i, n),
+        (rows6, sid6), lengths6, kept,
+        kept * 64 + rows6.shape[0] * 4 + n * 64,
+        lambda: acc.index_add_(0, ids_l, rows6)))
+    return records
 
 
 def main() -> int:
@@ -222,8 +547,9 @@ def main() -> int:
             og, _ = render_retry(api, p_gpu, example_camera(PARITY_RES, dev),
                                  T0, PARITY_RES, PARITY_CAP, dev,
                                  hit_visibility=hv)
-            oc, _ = render_retry(api, p_cpu, example_camera(PARITY_RES),
-                                 T0, PARITY_RES, PARITY_CAP, "cpu",
+            oc, _ = render_retry(api, p_cpu,
+                                 example_camera(PARITY_RES, "cpu"), T0,
+                                 PARITY_RES, PARITY_CAP, "cpu",
                                  hit_visibility=hv)
             rep, ok = golden.compare(og, oc)
             print(f"api.render card vs CPU, {PARITY_N} Gaussians "
@@ -232,8 +558,9 @@ def main() -> int:
             if not ok:
                 fail("api.render on the card disagrees with the plain path")
     del p_gpu, p_cpu
+    train_parity(dev, tag)
 
-    # ---- 5. main path at full width --------------------------------------
+    # ---- 5. forward main path at full width ------------------------------
     fields = bench_scene(MAIN_N, seed=0, specular_std=0.1)
     params = from_numpy(fields, device=dev)
     cam = example_camera(MAIN_RES, dev)
@@ -253,12 +580,12 @@ def main() -> int:
             torch.cuda.synchronize()
             frames_ms.append((time.perf_counter() - t0) * 1e3)
             outs.append(out)
-    launches = dict(cuda_build.launches)
+    fwd_launches = dict(cuda_build.launches)
     peak_mem = torch.cuda.max_memory_allocated()
-    print(f"main path launches: {launches}", flush=True)
-    for kname in cuda_build.KERNELS:
-        if launches.get(kname, 0) <= 0:
-            fail(f"kernel {kname} was not launched on the main path")
+    print(f"forward main path launches: {fwd_launches}", flush=True)
+    for kname, (_, stage) in cuda_build.KERNELS.items():
+        if stage == "forward" and fwd_launches.get(kname, 0) <= 0:
+            fail(f"kernel {kname} was not launched on the forward main path")
     for k, out in enumerate(outs):
         for fld in ("rgb", "opacity", "depth", "transmittance", "hit_count"):
             x = getattr(out, fld)
@@ -274,7 +601,10 @@ def main() -> int:
               f"coverage {cover:.4f} visible {nvis} "
               f"rgb mean {float(out.rgb.mean()):.5f} {tag}", flush=True)
 
-    # ---- 6. kernels vs plain versions at the main path's shapes -----------
+    # ---- 6. train main path at full width --------------------------------
+    tr, view, train_launches, train_rec = train_main_path(dev, tag)
+
+    # ---- 7. kernels vs plain versions at the main paths' shapes ----------
     pose = pose_from_matrix(torch.as_tensor(orbit_T(0), device=dev))
     with torch.no_grad():
         acts = (params.get_positions(), params.get_rotation(),
@@ -311,7 +641,8 @@ def main() -> int:
         name="cull_masks", route="cuda",
         source="threedgrut_torch/csrc/cull_masks.cu",
         replaces="threedgrut_tpu/ops/pallas/expand.py:407",
-        launches=launches["cull_masks"], max_abs_err=float(err3),
+        launches=train_launches["cull_masks"],
+        launches_forward=fwd_launches["cull_masks"], max_abs_err=float(err3),
         ms=cuda_ms(lambda: expand.cull_masks(*b3_in), 20),
         plain_ms=cuda_ms(lambda: expand.cull_masks_plain(*b3_in), 3),
         bound_ms=b3_bound[0], bound_by=b3_bound[1], library_ms=None))
@@ -332,7 +663,8 @@ def main() -> int:
         name="expand_keys", route="cuda",
         source="threedgrut_torch/csrc/expand_keys.cu",
         replaces="threedgrut_tpu/ops/pallas/expand.py:265",
-        launches=launches["expand_keys"], max_abs_err=float(err4),
+        launches=train_launches["expand_keys"],
+        launches_forward=fwd_launches["expand_keys"], max_abs_err=float(err4),
         ms=cuda_ms(lambda: expand.expand_keys(*b4_in), 20),
         plain_ms=cuda_ms(lambda: expand.expand_keys_plain(*b4_in), 3),
         bound_ms=b4_bound[0], bound_by=b4_bound[1], library_ms=None))
@@ -385,14 +717,23 @@ def main() -> int:
         name="tile_raster_fwd", route="cuda",
         source="threedgrut_torch/csrc/tile_raster_fwd.cu",
         replaces="threedgrut_tpu/ops/pallas/tile_raster.py:1171",
-        launches=launches["tile_raster_fwd"], max_abs_err=err1,
+        launches=train_launches["tile_raster_fwd"],
+        launches_forward=fwd_launches["tile_raster_fwd"], max_abs_err=err1,
         ms=b1_ms[False], plain_ms=b1_ms[("plain", False)],
         bound_ms=b1_bound[0], bound_by=b1_bound[1], library_ms=None))
 
-    # ---- 7. where a frame's time goes (torch.profiler) -------------------
-    breakdown = profile_frame(api, params, cam, orbit_T(1), cap, dev)
+    records += backward_records(tr, view, train_launches, tag)
+
+    # ---- 8. where a frame's and a train step's time goes -----------------
+    def frame():
+        with torch.no_grad():
+            render_retry(api, params, cam, orbit_T(1), MAIN_RES, cap, dev)
+
+    breakdown = profile_run(frame, ("3dgut.",))
     print(f"profiled frame: {json.dumps(breakdown)} {tag}", flush=True)
-    if breakdown["device_busy_ms"] <= 0.0:
+    tbreak = profile_run(lambda: tr.train_step(view), ("train.", "3dgut."))
+    print(f"profiled train step: {json.dumps(tbreak)} {tag}", flush=True)
+    if breakdown["device_busy_ms"] <= 0.0 or tbreak["device_busy_ms"] <= 0.0:
         fail("the profiler recorded no device time")
 
     for r in records:
@@ -407,6 +748,9 @@ def main() -> int:
           f"{frame_ms:.3f}; rays/s {rays_s:.4e}; hit_visibility frame "
           f"{frames_ms[5]:.3f} ms; max_memory_allocated "
           f"{peak_mem / 2**30:.3f} GiB {tag}", flush=True)
+    print(f"train step ms (median of steps 2-5): {train_rec['step_ms']:.3f}; "
+          f"rays/s {train_rec['rays_per_s']:.4e}; max_memory_allocated "
+          f"{train_rec['peak_gib']:.3f} GiB {tag}", flush=True)
     print(f"chip_smoke wall {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

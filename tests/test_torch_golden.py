@@ -54,9 +54,10 @@ def test_port_matches_golden_on_cpu():
     T = torch.as_tensor(golden.camera_to_world())
     with torch.no_grad():
         out, overflow = tapi.render(
-            params, example_camera(golden.RESOLUTION), pose_from_matrix(T),
-            golden.RESOLUTION, isect_capacity=golden.ISECT_CAPACITY,
-            hit_visibility=True, device="cpu")
+            params, example_camera(golden.RESOLUTION, "cpu"),
+            pose_from_matrix(T), golden.RESOLUTION,
+            isect_capacity=golden.ISECT_CAPACITY, hit_visibility=True,
+            device="cpu")
     assert not bool(overflow)
     rep, ok = golden.compare(out, golden.load())
     assert ok, rep

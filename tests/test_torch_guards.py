@@ -51,7 +51,8 @@ def test_port_runs_without_jax():
         "from threedgrut_torch.ops import cuda_build\n"
         "p = from_numpy(golden.scene(), device='cpu')\n"
         "with torch.no_grad():\n"
-        "    out, ovf = api.render(p, example_camera(golden.RESOLUTION),\n"
+        "    out, ovf = api.render(\n"
+        "        p, example_camera(golden.RESOLUTION, 'cpu'),\n"
         "        pose_from_matrix(torch.tensor(golden.camera_to_world())),\n"
         "        golden.RESOLUTION, isect_capacity=golden.ISECT_CAPACITY,\n"
         "        device='cpu', hit_visibility=True)\n"
@@ -76,10 +77,12 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
         np.zeros((8, 3), np.float32), np.zeros((8, 45), np.float32), 16)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         gaussians.from_numpy(fields)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        example_camera((32, 32))
     params = gaussians.from_numpy(fields, device="cpu")
     pose = pose_from_matrix(torch.eye(4))
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        api.render(params, example_camera((32, 32)), pose, (32, 32),
+        api.render(params, example_camera((32, 32), "cpu"), pose, (32, 32),
                    isect_capacity=1024)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         api.load_scene(str(ROOT / "missing.npz"))

@@ -8,7 +8,11 @@ is not installed:
 Tolerances: B3 and B4 exact (--fmad=false, same f32 operations); B1 rows
 0-5 atol 2e-4 / rtol 1e-4 (colour sums in another order), hit counts, the
 walked slots and the flagged slots exact (same per-pair alpha and the same
-sequential transmittance); whole frames card vs CPU within golden.compare."""
+sequential transmittance); whole frames card vs CPU within golden.compare.
+B2: atol 1e-5 x each column's max (the same per-pixel values, summed over
+the tile's pixels in another order), the nonzero slots exactly equal. B5,
+B6: within segment_sum.f32_sum_bound (sequential f32 sums against the
+plain f64 ones)."""
 import os
 import shutil
 
@@ -19,7 +23,8 @@ import torch
 from threedgrut_torch import api, golden
 from threedgrut_torch.cameras import example_camera, look_at, pose_from_matrix
 from threedgrut_torch.model.gaussians import bench_scene, from_numpy
-from threedgrut_torch.ops import cuda_build, expand, tile_raster, tiles
+from threedgrut_torch.ops import (cuda_build, expand, segment_sum,
+                                  tile_raster, tiles)
 from threedgrut_torch.render import gut
 
 pytestmark = pytest.mark.cuda
@@ -134,6 +139,101 @@ def test_api_render_card_matches_cpu(dev, hit_visibility):
         assert not bool(ovf)
         frames.append(out)
         if device == dev:
-            assert set(cuda_build.launches) == set(cuda_build.KERNELS)
+            assert set(cuda_build.launches) == {
+                "cull_masks", "expand_keys", "tile_raster_fwd"}
     rep, ok = golden.compare(*frames)
     assert ok, rep
+
+
+@pytest.mark.parametrize("aux_grads,degree", [(True, 2), (False, 2),
+                                              (True, 3), (False, 4)])
+def test_tile_raster_bwd_kernel_matches_plain(dev, aux_grads, degree):
+    _, binning, data, _, rays = prepared(dev)
+    fwd = (data, binning.tile_starts, binning.tile_ends, rays, degree, 1e-4,
+           0.0113, 1.0 / 255.0, 0.99, False, True, False)
+    out, _ = tile_raster._launch(*fwd)
+    g_out = torch.randn(out.shape, device=dev,
+                        generator=torch.Generator(dev).manual_seed(0))
+    args = fwd[:4] + (out, g_out) + fwd[4:10] + (aux_grads,)
+    before = cuda_build.launches["tile_raster_bwd"]
+    got = tile_raster._launch_backward(*args)
+    assert cuda_build.launches["tile_raster_bwd"] == before + 1
+    want = tile_raster.tile_composite_backward_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got.abs().sum(1) > 0, want.abs().sum(1) > 0)
+    scale = want.abs().amax(0) + 1e-30
+    assert bool(((got - want).abs() <= 1e-5 * scale).all())
+    assert int((got.abs().sum(1) > 0).sum()) > 1000
+
+
+def test_segment_sum_kernels_match_plain(dev):
+    gen = torch.Generator(dev).manual_seed(1)
+    n, cap = 5000, 40_000
+    counts = torch.randint(0, 12, (n,), device=dev, generator=gen)
+    counts[7] = 3000                                   # one long segment
+    ends = torch.cumsum(counts, 0).to(torch.int32)
+    g = torch.randn((cap, 16), device=dev, generator=gen)
+    for e in (ends, torch.clamp(ends + 20_000, max=2**30)):   # overflow
+        got = segment_sum.segment_sum_rows(g, e)
+        want = segment_sum.segment_sum_rows_plain(g, e)
+        ec = torch.clamp(e, max=cap)
+        lengths = torch.diff(ec, prepend=ec.new_zeros(1))
+        bound = segment_sum.f32_sum_bound(
+            segment_sum.segment_sum_rows_plain(g.abs(), e), lengths, want)
+        assert bool(((got - want).abs() <= bound).all())
+    ids = torch.sort(torch.randint(0, n + 50, (cap,), device=dev,
+                                   generator=gen).to(torch.int32)).values
+    got = segment_sum.segment_sum_rows_by_ids(g, ids, n)
+    want = segment_sum.segment_sum_rows_by_ids_plain(g, ids, n)
+    lengths = torch.bincount(ids.long(), minlength=n + 50)[:n]
+    bound = segment_sum.f32_sum_bound(
+        segment_sum.segment_sum_rows_by_ids_plain(g.abs(), ids, n), lengths,
+        want)
+    assert bool(((got - want).abs() <= bound).all())
+    assert cuda_build.launches["segment_sum_rows"] >= 2
+    assert cuda_build.launches["segment_sum_rows_by_ids"] >= 1
+
+
+@pytest.mark.parametrize("walk_compact_fraction", [0.625, 0.0])
+def test_train_step_card_matches_cpu(dev, walk_compact_fraction):
+    """One train step on the card (kernels) and on the CPU (plain versions)
+    from the same parameters: loss, gradients (atol 1e-4 x max, f32 sums in
+    another order, on all but 0.1% of the particles: golden.rows_agree),
+    and the particles with nonzero gradients."""
+    from threedgrut_torch import optimizers, trainer
+    from threedgrut_torch.config import Config
+    cfg = Config()
+    cfg.render.isect_capacity = 1 << 16
+    cfg.render.low_precision_grads = False
+    cfg.render.walk_compact_fraction = walk_compact_fraction
+    res = (128, 96)
+    gt = np.random.default_rng(0).uniform(0, 1, (96, 128, 3)).astype(
+        np.float32)
+    results = []
+    for device in (dev, "cpu"):
+        cuda_build.launches.clear()
+        p, cam, pose = scene(5000, res, device)
+        T = torch.tensor(look_at(np.array([0.3, -4.0, 1.0], np.float32),
+                                 np.zeros(3, np.float32),
+                                 np.array([0, 0, 1.0], np.float32)),
+                         device=device)
+        _, aux = trainer.step_fn(p, optimizers.init(p), T, cam,
+                                 torch.tensor(gt, device=device),
+                                 torch.ones((96, 128, 1), device=device),
+                                 4.0, res, 3, cfg, train=True)
+        results.append(aux)
+        if device == dev:
+            want = "segment_sum_rows" + (
+                "_by_ids" if walk_compact_fraction else "")
+            assert cuda_build.launches["tile_raster_bwd"] == 1
+            assert cuda_build.launches[want] == 1
+    card, cpu = results
+    torch.testing.assert_close(card["terms"]["total"].cpu(),
+                               cpu["terms"]["total"], rtol=1e-4, atol=0)
+    for k, g in cpu["grads"].items():
+        rep, ok = golden.rows_agree(card["grads"][k], g, 1e-4)
+        assert ok, (k, rep)
+    # CPU exp is Sleef's, the card's CUDA's: a hit at an acceptance
+    # threshold may flip (golden.compare's 0.1% allowance).
+    flips = int((card["visibility"].cpu() != cpu["visibility"]).sum())
+    assert flips <= max(1, int(1e-3 * cpu["visibility"].numel()))

@@ -4,8 +4,10 @@ packed slots and rays (32x32 frame, 4 tiles, capacity 512 = 4 windows).
 
 Tolerance: rows 0-5 atol 2e-4 / rtol 1e-4 (sequential products vs the JAX
 Hillis-Steele ladder); hit count off by at most 1 on at most one pixel;
-row 7 (slots walked before the early exit) and the flagged slots exact."""
+row 7 (slots walked before the early exit) and the flagged slots exact.
+Its backward (B2) against jax.vjp of the JAX compositor."""
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -33,7 +35,7 @@ def inputs(seed, n=100):
                          dtype=torch.float32)
     one = torch.tensor([1.0, 0.0, 0.0, 0.0])
     pose = SensorPose(one, torch.zeros(3), one, torch.zeros(3))
-    cam = example_camera(RES)
+    cam = example_camera(RES, "cpu")
     with torch.no_grad():
         _, binning, data_sorted, grid = gut.prepare(pos, q, s, opa, feats,
                                                     cam, pose, RES, 512)
@@ -80,10 +82,26 @@ def test_plain_b1_matches_pallas_interpret(emit_flags, has_t_max, degree):
         assert (got[:, 7, 0] < (ends - starts).numpy()).any()
 
 
-def test_tile_composite_backward_names_b2():
-    """Differentiating through the compositor raises until B2 is ported."""
-    data, starts, ends, rays = inputs(seed=6, n=32)
-    data = data.clone().requires_grad_(True)
-    out, _ = ttr.tile_composite(data, starts, ends, rays, 2, 1e-4)
-    with pytest.raises(NotImplementedError, match="B2"):
-        out[:, 0:3].sum().backward()
+def test_tile_composite_backward_matches_jax():
+    """Autograd through the port's tile_composite (its backward is B2,
+    here its plain version) against jax.vjp of the JAX package's
+    tile_composite on the same slots, rays and output cotangent. Tolerance:
+    atol 1e-4 x each column's max |g| (test_torch_backward.py says why)."""
+    data, starts, ends, rays = inputs(seed=6, n=64)
+    g_out = np.random.default_rng(7).normal(size=rays.shape).astype(
+        np.float32)
+    args = (2, 1e-4, 0.0113, 1.0 / 255.0, 0.99)
+    _, vjp = jax.vjp(lambda d: jtr.tile_composite(
+        d, jnp.asarray(starts.numpy()), jnp.asarray(ends.numpy()),
+        jnp.asarray(rays.numpy()), *args, has_t_max=False),
+        jnp.asarray(data.numpy()))
+    want = np.asarray(vjp(jnp.asarray(g_out))[0])
+    d = data.clone().requires_grad_(True)
+    out, _ = ttr.tile_composite(d, starts, ends, rays, *args,
+                                has_t_max=False)
+    out.backward(torch.tensor(g_out))
+    got = d.grad.numpy()
+    scale = np.abs(want).max(0) + 1e-30
+    assert (np.abs(got - want) <= 1e-4 * scale).all()
+    assert np.array_equal(np.abs(got).sum(1) > 0, np.abs(want).sum(1) > 0)
+    assert (np.abs(got).sum(1) > 0).sum() > 20

@@ -1,7 +1,8 @@
 """The forward-render slice end to end: threedgrut_torch.api against
 threedgrut_tpu.api on the same scene (512 Gaussians, SH degree 3, 64x64),
-both visibility modes, with the tolerances of golden.compare; plus the scene
-loader and the options that are not ported yet."""
+both visibility modes and the fused path, with the tolerances of
+golden.compare; plus the scene loader and the options that are not ported
+yet."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -50,7 +51,7 @@ def render_jax(fields, **kw):
 
 def render_torch(params, **kw):
     with torch.no_grad():
-        return tapi.render(params, example_camera(RES),
+        return tapi.render(params, example_camera(RES, "cpu"),
                            pose_from_matrix(torch.tensor(camera_to_world())),
                            RES, isect_capacity=CAP, device="cpu", **kw)
 
@@ -125,9 +126,24 @@ def test_api_render_fisheye_rolling_shutter_matches_jax():
     assert float(got.opacity.max()) > 0.5
 
 
+@pytest.mark.parametrize("walk_capacity", [CAP // 2, 256])
+def test_walk_capacity_forward_matches_jax(walk_capacity):
+    """The fused path (ops/fused_raster.py) renders the frame of the
+    two-stage path and of JAX's fused path, within golden.compare."""
+    f = scene()
+    want, _ = render_jax(f, walk_capacity=walk_capacity)
+    got, _ = render_torch(from_numpy(f, device="cpu"),
+                          walk_capacity=walk_capacity)
+    rep, ok = golden.compare(got, want)
+    assert ok, rep
+    plain, _ = render_torch(from_numpy(f, device="cpu"))
+    for k in ("rgb", "opacity", "depth", "transmittance", "hit_count"):
+        assert torch.equal(getattr(got, k), getattr(plain, k)), k
+
+
 def test_overflow_is_reported_as_data():
     got, overflow = tapi.render(
-        from_numpy(scene(), device="cpu"), example_camera(RES),
+        from_numpy(scene(), device="cpu"), example_camera(RES, "cpu"),
         pose_from_matrix(torch.tensor(camera_to_world())), RES,
         isect_capacity=256, device="cpu")
     assert bool(overflow)
@@ -150,7 +166,6 @@ def test_load_scene_reads_the_jax_checkpoint_format(tmp_path):
 @pytest.mark.parametrize("kw,match", [
     (dict(sorted_passes=16), "sorted_passes"),
     (dict(row_termination=True), "row_termination"),
-    (dict(walk_capacity=4096), "walk_capacity"),
     (dict(method="3dgrt"), "3dgrt"),
 ])
 def test_unported_options_raise(kw, match):

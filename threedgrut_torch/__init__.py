@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of the 3DGUT renderer of `threedgrut_tpu`.
+"""PyTorch/CUDA port of the 3DGUT renderer and trainer of `threedgrut_tpu`.
 
 The JAX package beside this one is the reference: every module here mirrors
 its counterpart there and is held against it by the `tests/test_torch_*.py`
@@ -6,7 +6,8 @@ files. Importing this package needs only torch and numpy; the CUDA kernels
 under `csrc/` are compiled on first use (`ops/cuda_build.py`), never at
 import time.
 
-Entry points: `api.load_scene`, `api.render`, `render.gut.render`. They run
-on the card (`device="cuda"`) unless the caller asks for `device="cpu"`, where
-each kernel is replaced by its plain PyTorch version.
+Entry points: `api.load_scene`, `api.render`, `render.gut.render` and
+`trainer.Trainer` (with `datasets.dataset_synthetic.SyntheticDataset`). They
+run on the card (`device="cuda"`) unless the caller asks for
+`device="cpu"`, where each kernel is replaced by its plain PyTorch version.
 """

@@ -13,6 +13,7 @@ from typing import NamedTuple, Tuple, Union
 import numpy as np
 import torch
 
+from threedgrut_torch.device import resolve
 from threedgrut_torch.ops import quaternion
 
 
@@ -280,10 +281,12 @@ def fisheye_camera_rays(cam: FisheyeCamera, resolution: Tuple[int, int],
 
 
 def example_camera(resolution: Tuple[int, int],
-                   device="cpu") -> PinholeCamera:
-    """Ideal pinhole with focal 0.9 * width, centred principal point."""
+                   device="cuda") -> PinholeCamera:
+    """Ideal pinhole with focal 0.9 * width, centred principal point, on
+    `device` (the card unless the caller asks for the CPU)."""
     w, h = resolution
     f = 0.9 * w
+    device = resolve(device)
 
     def t(x):
         return torch.tensor(x, dtype=torch.float32, device=device)

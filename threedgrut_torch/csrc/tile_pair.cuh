@@ -1,0 +1,112 @@
+// The per-(pixel, slot) pair math of the 3DGUT tile compositor, shared by
+// the forward (tile_raster_fwd.cu, kernel B1) and the backward
+// (tile_raster_bwd.cu, kernel B2).
+//
+// Port of threedgrut_tpu/ops/pallas/tile_raster.py _pair_quantities and
+// _alpha_from_raw. Both kernels are compiled with --fmad=false and evaluate
+// a pair through this one definition, so the backward accepts exactly the
+// hits the forward accepted and re-derives exactly its alpha and its
+// sequential transmittance. Its `w > 0` masks then put gradients on exactly
+// the slots that composited, and nowhere else.
+#pragma once
+#include <cuda_runtime.h>
+
+#define CHUNK 128
+#define ROW_F 16
+#define PIX 256
+
+// Generalized-Gaussian response exp(s_n g^(n/2)) (ops/particles.py
+// kernel_response; scales from constants.GG_SCALE).
+__device__ __forceinline__ float kernel_response(float g, int degree) {
+    switch (degree) {
+        case 0: return fmaxf(1.0f + -0.329630334487f * sqrtf(fmaxf(g, 1e-12f)), 0.0f);
+        case 1: return expf(-1.5f * sqrtf(fmaxf(g, 1e-12f)));
+        case 2: return expf(-0.5f * g);
+        case 3: return expf(-0.166666666667f * g * sqrtf(fmaxf(g, 1e-12f)));
+        case 4: return expf(-0.0555555555556f * g * g);
+        case 5: return expf(-0.0185185185185f * g * g * sqrtf(fmaxf(g, 1e-12f)));
+        default: {  // 8
+            float g2 = g * g;
+            return expf(-0.000685871056241f * g2 * g2);
+        }
+    }
+}
+
+// dr/dg given r = kernel_response(g) (tile_raster.py
+// _response_and_grad_coeff).
+__device__ __forceinline__ float kernel_response_grad(float g, float r,
+                                                      int degree) {
+    switch (degree) {
+        case 0: {
+            const float s = -0.329630334487f;
+            const float sq = sqrtf(fmaxf(g, 1e-12f));
+            return r > 0.0f ? 0.5f * s / sq : 0.0f;
+        }
+        case 1: return r * -1.5f * 0.5f / sqrtf(fmaxf(g, 1e-12f));
+        case 2: return r * -0.5f;
+        case 3: return r * -0.166666666667f * 1.5f * sqrtf(fmaxf(g, 1e-12f));
+        case 4: return r * -0.0555555555556f * 2.0f * g;
+        case 5: return r * -0.0185185185185f * 2.5f * g * sqrtf(fmaxf(g, 1e-12f));
+        default: return r * -0.000685871056241f * 4.0f * (g * g) * g;
+    }
+}
+
+struct Ray {
+    float ox, oy, oz, dx, dy, dz, tmax;
+};
+
+// Pixel p's ray of a packed [8, PIX] tile block (rows 0-2 origin, 3-5
+// direction, 6 t_max).
+__device__ __forceinline__ Ray load_ray(const float* ray, int p) {
+    return Ray{ray[0 * PIX + p], ray[1 * PIX + p], ray[2 * PIX + p],
+               ray[3 * PIX + p], ray[4 * PIX + p], ray[5 * PIX + p],
+               ray[6 * PIX + p]};
+}
+
+struct Pair {
+    float w0x, w0y, w0z;  // o - mean
+    float ux, uy, uz;     // u = A (o - mean)
+    float vx, vy, vz;     // v = A d
+    float cx, cy, cz;     // v x u
+    float inv_vsq;        // 1 / max(|v|^2, 1e-24)
+    float g;              // |v x u|^2 / |v|^2
+    float resp;           // kernel response
+    float alpha_raw;      // resp * opacity
+    float alpha;          // min(alpha_raw, max_alpha)
+    float vdotu;
+    float hit_t;          // |v . u| / |v|^2
+    bool accept;          // response, alpha and segment tests
+};
+
+// One slot row q (16 floats: A row-major, mean, opacity, rgb) against one
+// ray. The transmittance test (T > min_transmittance) is the caller's.
+__device__ __forceinline__ Pair pair_eval(const float* q, const Ray& r,
+                                          int degree, float min_response,
+                                          float min_alpha, float max_alpha,
+                                          int has_t_max) {
+    Pair s;
+    s.w0x = r.ox - q[9];
+    s.w0y = r.oy - q[10];
+    s.w0z = r.oz - q[11];
+    s.ux = q[0] * s.w0x + q[1] * s.w0y + q[2] * s.w0z;
+    s.uy = q[3] * s.w0x + q[4] * s.w0y + q[5] * s.w0z;
+    s.uz = q[6] * s.w0x + q[7] * s.w0y + q[8] * s.w0z;
+    s.vx = q[0] * r.dx + q[1] * r.dy + q[2] * r.dz;
+    s.vy = q[3] * r.dx + q[4] * r.dy + q[5] * r.dz;
+    s.vz = q[6] * r.dx + q[7] * r.dy + q[8] * r.dz;
+    s.cx = s.vy * s.uz - s.vz * s.uy;
+    s.cy = s.vz * s.ux - s.vx * s.uz;
+    s.cz = s.vx * s.uy - s.vy * s.ux;
+    const float crsq = s.cx * s.cx + s.cy * s.cy + s.cz * s.cz;
+    const float vsq = s.vx * s.vx + s.vy * s.vy + s.vz * s.vz;
+    s.inv_vsq = 1.0f / fmaxf(vsq, 1e-24f);
+    s.g = crsq * s.inv_vsq;
+    s.resp = kernel_response(s.g, degree);
+    s.alpha_raw = s.resp * q[12];
+    s.alpha = fminf(s.alpha_raw, max_alpha);
+    s.vdotu = s.vx * s.ux + s.vy * s.uy + s.vz * s.uz;
+    s.hit_t = fabsf(s.vdotu) * s.inv_vsq;
+    const bool in_segment = !has_t_max || r.tmax <= 0.0f || s.hit_t <= r.tmax;
+    s.accept = s.resp > min_response && s.alpha > min_alpha && in_segment;
+    return s;
+}

@@ -1,0 +1,249 @@
+// B2: the backward of the 3DGUT tile compositor.
+//
+// Replaces: threedgrut_tpu/ops/pallas/tile_raster.py _backward_kernel,
+// reached through _backward_windows and _bwd_rule (and the fused walked-
+// window backward, ops/fused_raster.py).
+//
+// One block per 16x16 tile, one thread per pixel, the forward's shape
+// (tile_raster_fwd.cu): the block re-walks the windows the forward walked,
+// loading each absolute 128-slot window (8 KB) into shared memory, and stops
+// where the forward stopped (__syncthreads_or(T > min_transmittance) after a
+// window). Every pair goes through the forward's pair_eval (tile_pair.cuh);
+// with --fmad=false both kernels accept the same hits with the same alpha and
+// the same sequential T, so a pixel's weight w > 0 here iff it was > 0 there.
+//
+// Per pixel, the suffix sum_{k>j} w_k q_k (q = rgb . dC + hit_t dD + dO) is
+// the residual a_tot - prefix_j, with a_tot rebuilt from the forward's
+// outputs (rgb . dC + opacity dO + depth dD), as the TPU kernel does. Then
+//   d_alpha = T_before q_j - (suffix + dT t_final) / max(1 - alpha, 1e-6)
+// chains through alpha = min(opacity resp(g), max_alpha) and
+// g = |v x u|^2 / |v|^2 (and hit_t = |v.u| / |v|^2 when aux_grads) to
+// du, dv in the exact cross-product form (the triple-product shortcut
+// cancels for near-axis anisotropic particles), and to the 16 per-slot row
+// entries: dA[r][k] = du_r (o - mean)_k + dv_r d_k, sum du_r (for dmean),
+// dopacity and w dC. Pixels with w == 0 contribute exactly 0.
+//
+// The 16 values of a slot are summed over the tile's 256 pixels in a fixed
+// order: a transposing warp butterfly (16 shuffles leave each lane pair with
+// one field's warp sum), then the 8 warps' partials in order through shared
+// memory, 32 slots at a time. Each slot belongs to exactly one tile, so each
+// gradient row is written once by one block: no atomics, deterministic. The
+// wrapper zeroes the output; slots the walk never reached stay exactly 0.
+// All arithmetic is f32 (the TPU's bf16 gradient matmuls were an economy of
+// its matrix unit; the bf16 rounding of the cotangents lives in the unsort).
+//
+// Bound on this card: operations against 67 TFLOP/s f32. The pair math
+// (~75 operations) runs for every (pixel, walked slot); the gradient chain
+// (~108) and the 16 adds that sum its row over the tile run only for a live
+// pair (w > 0), and a warp with no live lane skips the shuffles. Device
+// memory sees 64 bytes read and 64 written per walked slot and 24 KB per
+// tile. The walk is serial per pixel, so the kernel is bound by instruction
+// issue.
+#include "tile_pair.cuh"
+
+#define SUB 32           // slots per cross-warp reduction batch
+#define FULL 0xffffffffu
+
+// Sum 16 values over the 32 lanes of a warp. On return lane l holds, in
+// v[0], the warp sum of field 8*b4 + 4*b3 + 2*b2 + b1 (bk = bit k of l).
+__device__ __forceinline__ void warp_sum16(float v[16], int lane) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        const bool up = lane & 16;
+        const float send = up ? v[i] : v[i + 8];
+        const float keep = up ? v[i + 8] : v[i];
+        v[i] = keep + __shfl_xor_sync(FULL, send, 16);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const bool up = lane & 8;
+        const float send = up ? v[i] : v[i + 4];
+        const float keep = up ? v[i + 4] : v[i];
+        v[i] = keep + __shfl_xor_sync(FULL, send, 8);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const bool up = lane & 4;
+        const float send = up ? v[i] : v[i + 2];
+        const float keep = up ? v[i + 2] : v[i];
+        v[i] = keep + __shfl_xor_sync(FULL, send, 4);
+    }
+    {
+        const bool up = lane & 2;
+        const float send = up ? v[0] : v[1];
+        const float keep = up ? v[1] : v[0];
+        v[0] = keep + __shfl_xor_sync(FULL, send, 2);
+    }
+    v[0] = v[0] + __shfl_xor_sync(FULL, v[0], 1);
+}
+
+__global__ void __launch_bounds__(PIX)
+tile_raster_bwd_kernel(const float* __restrict__ data,
+                       const int* __restrict__ starts,
+                       const int* __restrict__ ends,
+                       const float* __restrict__ rays,
+                       const float* __restrict__ fwd,
+                       const float* __restrict__ gout,
+                       float* __restrict__ grad, int degree,
+                       float min_transmittance, float min_response,
+                       float min_alpha, float max_alpha, int has_t_max,
+                       int aux_grads) {
+    __shared__ __align__(16) float rows[CHUNK * ROW_F];
+    __shared__ float part[PIX / 32][SUB][ROW_F];
+
+    const int t = blockIdx.x;
+    const int p = threadIdx.x;
+    const int lane = p & 31, warp = p >> 5;
+    const Ray ray = load_ray(rays + (size_t)t * 8 * PIX, p);
+    const float* fo = fwd + (size_t)t * 8 * PIX;
+    const float* go = gout + (size_t)t * 8 * PIX;
+    const float dCr = go[0 * PIX + p], dCg = go[1 * PIX + p],
+                dCb = go[2 * PIX + p], dO = go[3 * PIX + p];
+    const float dD = aux_grads ? go[4 * PIX + p] : 0.0f;
+    const float dT = aux_grads ? go[5 * PIX + p] : 0.0f;
+    const float t_final = fo[5 * PIX + p];
+    float a_tot = fo[0 * PIX + p] * dCr + fo[1 * PIX + p] * dCg
+                  + fo[2 * PIX + p] * dCb + fo[3 * PIX + p] * dO;
+    if (aux_grads) a_tot = a_tot + fo[4 * PIX + p] * dD;
+
+    const int start = starts[t], end = ends[t];
+    const int w0 = start / CHUNK;
+    const int w1 = end > start ? (end - 1) / CHUNK + 1 : w0;
+
+    float T = 1.0f, prefix = 0.0f;
+    int g = w0;
+    while (g < w1) {
+        const float4* src = reinterpret_cast<const float4*>(
+            data + (size_t)g * CHUNK * ROW_F);
+        float4* dst = reinterpret_cast<float4*>(rows);
+        dst[p] = src[p];
+        dst[p + PIX] = src[p + PIX];
+        __syncthreads();
+
+        const int base = g * CHUNK;
+        const int lo = max(start, base) - base;
+        const int hi = min(end, base + CHUNK) - base;
+        for (int kb = lo; kb < hi; kb += SUB) {
+            const int kn = min(hi - kb, SUB);
+            for (int j = 0; j < kn; ++j) {
+                const float* q = rows + (kb + j) * ROW_F;
+                const Pair s = pair_eval(q, ray, degree, min_response,
+                                         min_alpha, max_alpha, has_t_max);
+                float v[ROW_F];
+#pragma unroll
+                for (int i = 0; i < ROW_F; ++i) v[i] = 0.0f;
+                bool live = false;
+                if (s.accept && T > min_transmittance) {
+                    const float t_before = T;
+                    const float w = s.alpha * T;
+                    float qj = q[13] * dCr + q[14] * dCg + q[15] * dCb;
+                    qj = aux_grads ? qj + s.hit_t * dD + dO : qj + dO;
+                    prefix = prefix + w * qj;
+                    T *= 1.0f - s.alpha;
+                    live = w > 0.0f;
+                    if (live) {
+                        const float suffix = a_tot - prefix;
+                        const float inv_one_m =
+                            1.0f / fmaxf(1.0f - s.alpha, 1e-6f);
+                        float d_alpha = t_before * qj - suffix * inv_one_m;
+                        if (aux_grads)
+                            d_alpha = d_alpha - dT * t_final * inv_one_m;
+                        const bool unclamped = s.alpha_raw < max_alpha;
+                        const float d_resp = unclamped ? q[12] * d_alpha : 0.0f;
+                        const float d_opa = unclamped ? s.resp * d_alpha : 0.0f;
+                        const float d_g =
+                            d_resp * kernel_response_grad(s.g, s.resp, degree);
+                        const float d_crsq = d_g * s.inv_vsq;
+                        float d_vsq = (-s.g * s.inv_vsq) * d_g;
+                        float d_m = 0.0f;
+                        if (aux_grads) {
+                            const float d_hit = w * dD;
+                            const float sgn = (float)((s.vdotu > 0.0f)
+                                                      - (s.vdotu < 0.0f));
+                            d_m = sgn * s.inv_vsq * d_hit;
+                            d_vsq = d_vsq + (-s.hit_t * s.inv_vsq) * d_hit;
+                        }
+                        const float crxv0 = s.cy * s.vz - s.cz * s.vy;
+                        const float crxv1 = s.cz * s.vx - s.cx * s.vz;
+                        const float crxv2 = s.cx * s.vy - s.cy * s.vx;
+                        const float uxcr0 = s.uy * s.cz - s.uz * s.cy;
+                        const float uxcr1 = s.uz * s.cx - s.ux * s.cz;
+                        const float uxcr2 = s.ux * s.cy - s.uy * s.cx;
+                        const float du[3] = {2.0f * d_crsq * crxv0 + d_m * s.vx,
+                                             2.0f * d_crsq * crxv1 + d_m * s.vy,
+                                             2.0f * d_crsq * crxv2 + d_m * s.vz};
+                        const float dv[3] = {
+                            2.0f * d_crsq * uxcr0 + d_m * s.ux + 2.0f * d_vsq * s.vx,
+                            2.0f * d_crsq * uxcr1 + d_m * s.uy + 2.0f * d_vsq * s.vy,
+                            2.0f * d_crsq * uxcr2 + d_m * s.uz + 2.0f * d_vsq * s.vz};
+#pragma unroll
+                        for (int r = 0; r < 3; ++r) {
+                            v[3 * r + 0] = du[r] * s.w0x + dv[r] * ray.dx;
+                            v[3 * r + 1] = du[r] * s.w0y + dv[r] * ray.dy;
+                            v[3 * r + 2] = du[r] * s.w0z + dv[r] * ray.dz;
+                            v[9 + r] = du[r];
+                        }
+                        v[12] = d_opa;
+                        v[13] = w * dCr;
+                        v[14] = w * dCg;
+                        v[15] = w * dCb;
+                    }
+                }
+                if (__any_sync(FULL, live)) {
+                    warp_sum16(v, lane);
+                    if ((lane & 1) == 0) {
+                        const int f = ((lane >> 4) & 1) * 8 + ((lane >> 3) & 1) * 4
+                                      + ((lane >> 2) & 1) * 2 + ((lane >> 1) & 1);
+                        part[warp][j][f] = v[0];
+                    }
+                } else if (lane < ROW_F) {
+                    part[warp][j][lane] = 0.0f;
+                }
+            }
+            __syncthreads();
+            // Cross-warp sums in warp order; one thread per (slot, field).
+            for (int idx = p; idx < kn * ROW_F; idx += PIX) {
+                const int j = idx / ROW_F, f = idx % ROW_F;
+                float val;
+                if (f >= 9 && f < 12) {
+                    // dmean_k = -sum_r A[r][k] sum_pix du_r
+                    const float* q = rows + (kb + j) * ROW_F;
+                    float su[3];
+                    for (int r = 0; r < 3; ++r) {
+                        su[r] = part[0][j][9 + r];
+                        for (int i = 1; i < PIX / 32; ++i)
+                            su[r] = su[r] + part[i][j][9 + r];
+                    }
+                    const int k = f - 9;
+                    val = -(q[k] * su[0] + q[3 + k] * su[1] + q[6 + k] * su[2]);
+                } else {
+                    val = part[0][j][f];
+                    for (int i = 1; i < PIX / 32; ++i) val = val + part[i][j][f];
+                }
+                grad[(size_t)(base + kb + j) * ROW_F + f] = val;
+            }
+            __syncthreads();
+        }
+        // The walk stops exactly where the forward's did.
+        const int alive = __syncthreads_or(T > min_transmittance);
+        ++g;
+        if (!alive) break;
+    }
+}
+
+extern "C" int tile_raster_bwd(const void* data, const void* starts,
+                               const void* ends, const void* rays,
+                               const void* fwd, const void* gout, void* grad,
+                               int num_tiles, int degree,
+                               float min_transmittance, float min_response,
+                               float min_alpha, float max_alpha,
+                               int has_t_max, int aux_grads, void* stream) {
+    if (num_tiles > 0) {
+        tile_raster_bwd_kernel<<<num_tiles, PIX, 0, (cudaStream_t)stream>>>(
+            (const float*)data, (const int*)starts, (const int*)ends,
+            (const float*)rays, (const float*)fwd, (const float*)gout,
+            (float*)grad, degree, min_transmittance, min_response, min_alpha,
+            max_alpha, has_t_max, aux_grads);
+    }
+    return (int)cudaGetLastError();
+}

@@ -12,7 +12,8 @@
 //   u = A (o - mean), v = A d, g = |v x u|^2 / |v|^2,
 //   alpha = min(opacity * resp(g), max_alpha),
 // accepted if resp > min_response, alpha > min_alpha and the hit lies in the
-// ray's segment; while T > min_transmittance it adds w = alpha * T to rgb,
+// ray's segment (pair_eval in tile_pair.cuh, shared with the backward B2);
+// while T > min_transmittance it adds w = alpha * T to rgb,
 // opacity, depth (w |v.u| / |v|^2) and the hit count, then T *= 1 - alpha.
 // After each window the block stops once no pixel has T > min_transmittance;
 // row 7 reports the slots walked (the JAX kernel's `walked`).
@@ -28,28 +29,7 @@
 // kernel's Hillis-Steele ladder and triangular matmuls existed only because
 // its vector unit cannot run a per-pixel sequential loop); the sequential
 // per-pixel recurrence is the cheapest exact form on a SIMT core.
-#include <cuda_runtime.h>
-
-#define CHUNK 128
-#define ROW_F 16
-#define PIX 256
-
-// Generalized-Gaussian response exp(s_n g^(n/2)) (ops/particles.py
-// kernel_response; scales from constants.GG_SCALE).
-__device__ __forceinline__ float kernel_response(float g, int degree) {
-    switch (degree) {
-        case 0: return fmaxf(1.0f + -0.329630334487f * sqrtf(fmaxf(g, 1e-12f)), 0.0f);
-        case 1: return expf(-1.5f * sqrtf(fmaxf(g, 1e-12f)));
-        case 2: return expf(-0.5f * g);
-        case 3: return expf(-0.166666666667f * g * sqrtf(fmaxf(g, 1e-12f)));
-        case 4: return expf(-0.0555555555556f * g * g);
-        case 5: return expf(-0.0185185185185f * g * g * sqrtf(fmaxf(g, 1e-12f)));
-        default: {  // 8
-            float g2 = g * g;
-            return expf(-0.000685871056241f * g2 * g2);
-        }
-    }
-}
+#include "tile_pair.cuh"
 
 __global__ void __launch_bounds__(PIX)
 tile_raster_fwd_kernel(const float* __restrict__ data,
@@ -66,10 +46,7 @@ tile_raster_fwd_kernel(const float* __restrict__ data,
     const int t = blockIdx.x;
     const int p = threadIdx.x;
     const int lane = p & 31, warp = p >> 5;
-    const float* ray = rays + (size_t)t * 8 * PIX;
-    const float ox = ray[0 * PIX + p], oy = ray[1 * PIX + p], oz = ray[2 * PIX + p];
-    const float dx = ray[3 * PIX + p], dy = ray[4 * PIX + p], dz = ray[5 * PIX + p];
-    const float tmax = ray[6 * PIX + p];
+    const Ray ray = load_ray(rays + (size_t)t * 8 * PIX, p);
 
     const int start = starts[t], end = ends[t];
     const int w0 = start / CHUNK;
@@ -92,36 +69,20 @@ tile_raster_fwd_kernel(const float* __restrict__ data,
         const int hi = min(end, base + CHUNK) - base;
         for (int k = lo; k < hi; ++k) {
             const float* q = rows + k * ROW_F;
-            const float w0x = ox - q[9], w0y = oy - q[10], w0z = oz - q[11];
-            const float ux = q[0] * w0x + q[1] * w0y + q[2] * w0z;
-            const float uy = q[3] * w0x + q[4] * w0y + q[5] * w0z;
-            const float uz = q[6] * w0x + q[7] * w0y + q[8] * w0z;
-            const float vx = q[0] * dx + q[1] * dy + q[2] * dz;
-            const float vy = q[3] * dx + q[4] * dy + q[5] * dz;
-            const float vz = q[6] * dx + q[7] * dy + q[8] * dz;
-            const float cx = vy * uz - vz * uy;
-            const float cy = vz * ux - vx * uz;
-            const float cz = vx * uy - vy * ux;
-            const float crsq = cx * cx + cy * cy + cz * cz;
-            const float vsq = vx * vx + vy * vy + vz * vz;
-            const float inv_vsq = 1.0f / fmaxf(vsq, 1e-24f);
-            const float resp = kernel_response(crsq * inv_vsq, degree);
-            const float alpha = fminf(resp * q[12], max_alpha);
-            const float hit_t = fabsf(vx * ux + vy * uy + vz * uz) * inv_vsq;
-            const bool in_segment = !has_t_max || tmax <= 0.0f || hit_t <= tmax;
+            const Pair s = pair_eval(q, ray, degree, min_response, min_alpha,
+                                     max_alpha, has_t_max);
             float w = 0.0f;
-            if (resp > min_response && alpha > min_alpha && in_segment
-                && T > min_transmittance) {
-                w = alpha * T;
+            if (s.accept && T > min_transmittance) {
+                w = s.alpha * T;
                 r += w * q[13];
                 gcol += w * q[14];
                 b += w * q[15];
                 opa += w;
                 if (aux_outputs) {
-                    dep += w * hit_t;
+                    dep += w * s.hit_t;
                     hits += 1.0f;
                 }
-                T *= 1.0f - alpha;
+                T *= 1.0f - s.alpha;
             }
             if (flags != nullptr) {
                 float m = w;

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from threedgrut_torch.constants import SH_C0
 from threedgrut_torch.device import resolve
 from threedgrut_torch.ops import quaternion
 
@@ -89,16 +90,18 @@ class Gaussians(nn.Module):
 
 def from_numpy(fields: Dict[str, np.ndarray], device="cuda") -> Gaussians:
     """The JAX Gaussians' seven raw fields (as numpy arrays, capacity
-    padding included) -> the port's module on `device`."""
+    padding included) -> the port's module on `device`. The optimizer state
+    that goes with them comes from optimizers.state_from_numpy."""
     dev = resolve(device)
     missing = [f for f in FIELDS if f not in fields]
     if missing:
         raise KeyError(f"missing Gaussians fields {missing}")
-    t = {f: torch.as_tensor(np.asarray(fields[f], dtype=np.float32),
-                            device=dev)
+    # Copies (torch.tensor): the optimizer updates parameters in place, and
+    # must not write through to the caller's arrays.
+    t = {f: torch.tensor(np.asarray(fields[f], dtype=np.float32),
+                         device=dev)
          for f in FIELDS if f != "alive"}
-    alive = torch.as_tensor(np.asarray(fields["alive"], dtype=bool),
-                            device=dev)
+    alive = torch.tensor(np.asarray(fields["alive"], dtype=bool), device=dev)
     return Gaussians(alive=alive, **t)
 
 
@@ -171,6 +174,61 @@ def init_random(num_gaussians: int, max_sh_degree: int = 3,
                     np.float32)
     return from_arrays(pts, rots, scales.astype(np.float32), density, color,
                        spec, capacity, device)
+
+
+def rgb_to_sh(rgb):
+    return (rgb - 0.5) / SH_C0
+
+
+def nearest_neighbor_dist(points: np.ndarray,
+                          targets: Optional[np.ndarray] = None) -> np.ndarray:
+    """Distance to the nearest other point (or to the nearest target) by a
+    KD-tree on the host."""
+    from scipy.spatial import cKDTree
+    if targets is None:
+        d, _ = cKDTree(points).query(points, k=2)
+        return d[:, 1].astype(np.float32)
+    d, _ = cKDTree(targets).query(points, k=1)
+    return d.astype(np.float32)
+
+
+def init_from_points(points: np.ndarray, colors: Optional[np.ndarray] = None,
+                     observer_points: Optional[np.ndarray] = None,
+                     observation_scale_factor: float = 0.01,
+                     max_sh_degree: int = 3, default_density: float = 0.1,
+                     default_scale_factor: float = 1.0, seed: int = 0,
+                     capacity: Optional[int] = None,
+                     device="cuda") -> Gaussians:
+    """COLMAP-style init (reference model.py:438-489): scale from the
+    distance to the observers (or the mean of the 3 nearest neighbours),
+    albedo = RGB2SH(colour), random rotations. Numbers come from numpy's
+    generator seeded with `seed`, so they equal the JAX package's."""
+    from scipy.spatial import cKDTree
+    rng = np.random.default_rng(seed)
+    n = points.shape[0]
+    pts = points.astype(np.float32)
+    if observer_points is not None:
+        d = nearest_neighbor_dist(pts, observer_points.astype(np.float32))
+        obs_scale = np.maximum(d, 1e-7) * observation_scale_factor
+    else:
+        d, _ = cKDTree(pts).query(pts, k=4)
+        d2 = d.astype(np.float32)[:, 1:] ** 2
+        obs_scale = np.sqrt(d2.mean(-1))
+    obs_scale = obs_scale * default_scale_factor
+    scales = np.log(obs_scale)[:, None].repeat(3, 1).astype(np.float32)
+    rots = rng.uniform(0, 1, size=(n, 4)).astype(np.float32)
+    if colors is None:
+        colors = rng.integers(0, 256, size=(n, 3)).astype(np.float32) / 255.0
+    else:
+        colors = colors.astype(np.float32)
+        if colors.max() > 1.0:
+            colors = colors / 255.0
+    albedo = rgb_to_sh(colors).astype(np.float32)
+    density = np.full((n, 1), inverse_sigmoid(default_density), np.float32)
+    spec = np.zeros((n, sh_degree_to_specular_dim(max_sh_degree)),
+                    np.float32)
+    return from_arrays(pts, rots, scales, density, albedo, spec, capacity,
+                       device)
 
 
 def bench_scene(n: int, seed: int = 0, specular_std: float = 0.0

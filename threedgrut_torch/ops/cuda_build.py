@@ -7,9 +7,10 @@ the library name carries a hash of the source and flags, so an edited
 source is rebuilt. `build()` compiles several sources at once, one nvcc
 process each, all started together.
 
-Every wrapper that launches a kernel adds one to `launches[name]` at the
-launch, so a caller can show that a path really went through the kernels
-(`launches.clear()` resets the counts).
+A kernel is a C entry of one source (`KERNELS`: name -> (source, pass));
+one source may hold several. Every wrapper that launches a kernel adds one to
+`launches[name]` at the launch, so a caller can show that a path really went
+through the kernels (`launches.clear()` resets the counts).
 """
 from __future__ import annotations
 
@@ -20,26 +21,40 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 
-# name -> extra nvcc flags. --fmad=false keeps every kernel's f32 arithmetic
-# operation for operation that of its plain version: the binning kernels'
-# culling and row extents are then bit-identical (csrc/tile_power.cuh), and
-# the compositor's per-pair alpha too, so its acceptance tests never flip
-# against the plain version on the card.
-KERNELS: Dict[str, tuple] = {
+# source stem (csrc/<stem>.cu) -> extra nvcc flags. --fmad=false keeps every
+# kernel's f32 arithmetic operation for operation that of its plain version:
+# the binning kernels' culling and row extents are then bit-identical
+# (csrc/tile_power.cuh), and the compositor's per-pair alpha too, so its
+# acceptance tests never flip against the plain version on the card, and
+# the backward accepts exactly the forward's hits (csrc/tile_pair.cuh).
+SOURCES: Dict[str, tuple] = {
     "cull_masks": ("--fmad=false",),
     "expand_keys": ("--fmad=false",),
     "tile_raster_fwd": ("--fmad=false",),
+    "tile_raster_bwd": ("--fmad=false",),
+    "segment_sum": ("--fmad=false",),
+}
+# kernel (its C entry and launch counter) -> (source stem, the pass that
+# launches it: "forward" in every render, "backward" only in a train step)
+KERNELS: Dict[str, Tuple[str, str]] = {
+    "cull_masks": ("cull_masks", "forward"),                 # B3
+    "expand_keys": ("expand_keys", "forward"),               # B4
+    "tile_raster_fwd": ("tile_raster_fwd", "forward"),       # B1
+    "tile_raster_bwd": ("tile_raster_bwd", "backward"),      # B2
+    "segment_sum_rows": ("segment_sum", "backward"),         # B5
+    "segment_sum_rows_by_ids": ("segment_sum", "backward"),  # B6
 }
 _BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 launches: collections.Counter = collections.Counter()
-_loaded: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[str, ctypes.CDLL] = {}     # source -> library
+_declared: set = set()                   # entries whose argtypes are set
 
 
 def _nvcc() -> str:
@@ -53,55 +68,59 @@ def _nvcc() -> str:
                        "are compiled on first use and need the CUDA toolkit")
 
 
-def _library_path(name: str) -> Path:
+def _library_path(src: str) -> Path:
     h = hashlib.sha256()
-    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{src}.cu"]:
         h.update(f.read_bytes())
-    h.update(" ".join(_BASE_FLAGS + KERNELS[name]).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+    h.update(" ".join(_BASE_FLAGS + SOURCES[src]).encode())
+    return BUILD_DIR / f"lib{src}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
-    """Compile the named kernels (default: all) that are not built yet, in
-    parallel. Returns {name: nvcc's -Xptxas -v report} for those compiled;
-    raises with nvcc's output if any compile fails."""
-    names = list(KERNELS if names is None else names)
-    todo = [n for n in names if not _library_path(n).exists()]
+    """Compile the sources of the named kernels (default: all) that are not
+    built yet, in parallel. Returns {source: nvcc's -Xptxas -v report} for
+    those compiled; raises with nvcc's output if any compile fails."""
+    srcs = sorted({KERNELS[n][0] for n in (KERNELS if names is None
+                                           else names)})
+    todo = [s for s in srcs if not _library_path(s).exists()]
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
-    for n in todo:
-        tmp = _library_path(n).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *_BASE_FLAGS, *KERNELS[n], "-o", str(tmp),
-               str(CSRC / f"{n}.cu")]
-        procs[n] = (tmp, subprocess.Popen(
+    for s in todo:
+        tmp = _library_path(s).with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *_BASE_FLAGS, *SOURCES[s], "-o", str(tmp),
+               str(CSRC / f"{s}.cu")]
+        procs[s] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     reports, failed = {}, []
-    for n, (tmp, proc) in procs.items():
+    for s, (tmp, proc) in procs.items():
         log, _ = proc.communicate()
-        reports[n] = log
+        reports[s] = log
         if proc.returncode != 0:
-            failed.append(f"--- nvcc {n}.cu (exit {proc.returncode})\n{log}")
+            failed.append(f"--- nvcc {s}.cu (exit {proc.returncode})\n{log}")
         else:
-            os.replace(tmp, _library_path(n))
+            os.replace(tmp, _library_path(s))
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return reports
 
 
 def library(name: str, argtypes) -> ctypes.CDLL:
-    """The loaded library of kernel `name` (built on first use), with the
-    C entry `name` declared as int(argtypes...)."""
-    lib = _loaded.get(name)
+    """The loaded library holding kernel `name` (built on first use), with
+    its C entry `name` declared as int(argtypes...)."""
+    src = KERNELS[name][0]
+    lib = _loaded.get(src)
     if lib is None:
         build([name])
-        lib = ctypes.CDLL(str(_library_path(name)))
+        lib = ctypes.CDLL(str(_library_path(src)))
+        _loaded[src] = lib
+    if name not in _declared:
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-        _loaded[name] = lib
+        _declared.add(name)
     return lib
 
 

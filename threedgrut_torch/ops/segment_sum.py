@@ -1,0 +1,104 @@
+"""Kernels B5 and B6: deterministic per-particle sums of slot cotangent rows
+over contiguous segments, port of threedgrut_tpu/ops/pallas/segment_sum.py.
+
+Rows are [m, 16] row-major and already grouped by particle (stably sorted by
+particle id); the sums are [n, 16]. (The JAX kernels take and return the
+channel-major [16, m] layout that its TPU compiler favours; the port keeps
+rows.)
+
+  * `segment_sum_rows` (B5): segment p is [min(ends[p-1], cap),
+    min(ends[p], cap)) for the binning's inclusive slot-count cumsum `ends`.
+  * `segment_sum_rows_by_ids` (B6): segment p is the run of rows whose sorted
+    id equals p; rows with id >= n are dropped.
+
+Both launch csrc/segment_sum.cu for CUDA tensors and run their plain version
+(an f64 `index_add_` cast back to f32) for CPU tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from threedgrut_torch.ops import cuda_build
+
+NCH = 16   # channels per row (the packed particle row)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def segment_sum_rows_plain(g: torch.Tensor,
+                           ends: torch.Tensor) -> torch.Tensor:
+    """Plain B5: row r < min(ends[-1], cap) belongs to the particle p with
+    ends[p-1] <= r < ends[p]."""
+    cap, n = g.shape[0], ends.shape[0]
+    out = torch.zeros((n, g.shape[1]), dtype=torch.float64, device=g.device)
+    total = min(int(ends[-1]), cap) if n else 0
+    rows = torch.arange(total, dtype=torch.int32, device=g.device)
+    pid = torch.searchsorted(ends.to(torch.int32), rows, right=True)
+    out.index_add_(0, pid, g[:total].to(torch.float64))
+    return out.to(torch.float32)
+
+
+def segment_sum_rows_by_ids_plain(g: torch.Tensor, ids_sorted: torch.Tensor,
+                                  n: int) -> torch.Tensor:
+    """Plain B6: rows with id < n summed into their particle."""
+    out = torch.zeros((n, g.shape[1]), dtype=torch.float64, device=g.device)
+    keep = ids_sorted < n
+    out.index_add_(0, ids_sorted[keep].long(), g[keep].to(torch.float64))
+    return out.to(torch.float32)
+
+
+def _check_rows(g):
+    if g.dim() != 2 or g.shape[1] != NCH:
+        raise ValueError(f"rows must be [m, {NCH}], got {tuple(g.shape)}")
+
+
+def segment_sum_rows(g: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
+    """B5: [cap, 16] rows grouped by particle, [n] int32 inclusive segment
+    ends (monotone; clamped to cap) -> [n, 16] per-particle sums."""
+    _check_rows(g)
+    if g.device.type == "cpu":
+        return segment_sum_rows_plain(g, ends)
+    cap, n = g.shape[0], ends.shape[0]
+    cuda_build.checked_inputs(("g", g, torch.float32, (cap, NCH)),
+                              ("ends", ends, torch.int32, (n,)))
+    out = torch.empty((n, NCH), dtype=torch.float32, device=g.device)
+    lib = cuda_build.library("segment_sum_rows", [_P, _P, _I, _I, _P, _P])
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    cuda_build.launches["segment_sum_rows"] += 1
+    cuda_build.check("segment_sum_rows", lib.segment_sum_rows(
+        g.data_ptr(), ends.data_ptr(), cap, n, out.data_ptr(), stream))
+    return out
+
+
+def segment_sum_rows_by_ids(g: torch.Tensor, ids_sorted: torch.Tensor,
+                            n: int) -> torch.Tensor:
+    """B6: [m, 16] rows and their [m] int32 particle ids, sorted ascending
+    -> [n, 16] per-particle sums; rows with id >= n are dropped."""
+    _check_rows(g)
+    if g.device.type == "cpu":
+        return segment_sum_rows_by_ids_plain(g, ids_sorted, n)
+    m = g.shape[0]
+    cuda_build.checked_inputs(("g", g, torch.float32, (m, NCH)),
+                              ("ids_sorted", ids_sorted, torch.int32, (m,)))
+    out = torch.empty((n, NCH), dtype=torch.float32, device=g.device)
+    lib = cuda_build.library("segment_sum_rows_by_ids",
+                             [_P, _P, _I, _I, _P, _P])
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    cuda_build.launches["segment_sum_rows_by_ids"] += 1
+    cuda_build.check("segment_sum_rows_by_ids", lib.segment_sum_rows_by_ids(
+        g.data_ptr(), ids_sorted.data_ptr(), m, n, out.data_ptr(), stream))
+    return out
+
+
+def f32_sum_bound(abs_sums: torch.Tensor, lengths: torch.Tensor,
+                  sums: torch.Tensor) -> torch.Tensor:
+    """How far a sequential f32 sum of `lengths` terms may lie from the
+    plain version's f64 sum rounded once: len * 2^-24 * sum|x| (the
+    recursive-summation bound) plus 2^-23 * |sum| (the roundings of the
+    results). abs_sums [n, 16] are the segment sums of |x|."""
+    u = 2.0 ** -24
+    return (lengths.to(abs_sums.dtype)[:, None] * u * abs_sums
+            + 2 * u * sums.abs())

@@ -1,15 +1,79 @@
-"""Gather packed particle rows into sorted-slot order, port of the forward of
-threedgrut_tpu/ops/sorted_gather.py (its scatter-free backward comes with
-the train-step slice, kernels B5/B6)."""
+"""Gather packed particle rows into sorted-slot order, with a scatter-free
+backward; port of threedgrut_tpu/ops/sorted_gather.py.
+
+Forward: data_sorted[j] = packed[sorted_idx[j]]. Backward
+(`unsort_segment_sum`): stably sort the slot cotangent rows by the particle
+id each slot gathered from, then sum each particle's contiguous segment
+with kernel B5 (segments from the binning's `particle_ends`: every
+expansion slot appears once, so after the stable sort particle p's rows sit
+exactly at [ends[p-1], ends[p]), clamped to the capacity under overflow) or
+kernel B6 (segments from the sorted id column, for a compacted row subset).
+Tail slots carry id N and are dropped either way: the forward clamps N to
+N - 1, so autograd's own gather transpose would wrongly add their
+cotangents to particle N - 1.
+"""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+from torch.profiler import record_function
+
+from threedgrut_torch.ops import segment_sum
 
 
-def sorted_gather(packed: torch.Tensor,
-                  sorted_idx: torch.Tensor) -> torch.Tensor:
-    """packed[sorted_idx] ([cap, 16]). Tail slots carry particle id N; JAX
-    clamps that out-of-range index to row N-1, torch would raise, so it is
-    clamped here. Those rows lie past every tile range and never composite."""
-    n = packed.shape[0]
-    return packed[torch.clamp(sorted_idx, max=n - 1).long()]
+def sort_rows(ids: torch.Tensor, g: torch.Tensor,
+              grad_precision: str = "f32"):
+    """The rows of g ([m, 16]) grouped by particle: ([m] sorted ids, rows in
+    that order) by a stable sort on `ids`, the rows rounded to bf16 (round
+    to nearest even, as JAX's astype) when `grad_precision="bf16"`. These
+    are the inputs of B5 and B6."""
+    sorted_ids, order = torch.sort(ids, stable=True)
+    rows = g[order]
+    if grad_precision == "bf16":
+        rows = rows.to(torch.bfloat16).to(torch.float32)
+    return sorted_ids.contiguous(), rows
+
+
+def unsort_segment_sum(ids: torch.Tensor, g: torch.Tensor, n: int,
+                       ends: Optional[torch.Tensor] = None,
+                       grad_precision: str = "f32") -> torch.Tensor:
+    """The scatter-free gather transpose: [m] int32 particle id per row and
+    [m, 16] cotangent rows -> [n, 16] per-particle sums (rows with id >= n
+    dropped). `ends` ([>= n] int32, the binning's particle_ends) is valid
+    only when `ids` covers every expansion slot (the dense case, B5); pass
+    None for a compacted subset (B6). `grad_precision="bf16"` rounds the
+    rows to bf16 before the f32 sums (`sort_rows`)."""
+    with record_function("3dgut.bwd_unsort"):
+        sorted_ids, rows = sort_rows(ids, g, grad_precision)
+        if ends is None:
+            return segment_sum.segment_sum_rows_by_ids(rows, sorted_ids, n)
+        return segment_sum.segment_sum_rows(rows, ends[:n].contiguous())
+
+
+class _SortedGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, packed, sorted_idx, particle_ends, grad_precision):
+        n = packed.shape[0]
+        ctx.save_for_backward(sorted_idx, particle_ends)
+        ctx.n, ctx.grad_precision = n, grad_precision
+        return packed[torch.clamp(sorted_idx, max=n - 1).long()]
+
+    @staticmethod
+    def backward(ctx, g):
+        sorted_idx, particle_ends = ctx.saved_tensors
+        d_packed = unsort_segment_sum(sorted_idx, g.contiguous(), ctx.n,
+                                      ends=particle_ends,
+                                      grad_precision=ctx.grad_precision)
+        return d_packed, None, None, None
+
+
+def sorted_gather(packed: torch.Tensor, sorted_idx: torch.Tensor,
+                  particle_ends: torch.Tensor,
+                  grad_precision: str = "f32") -> torch.Tensor:
+    """packed[sorted_idx] ([cap, 16]) with the scatter-free backward above.
+    Tail slots carry particle id N = packed.shape[0]; the gather clamps it
+    to N - 1 (JAX's semantics; torch would raise). Those rows lie past every
+    tile range and never composite."""
+    return _SortedGather.apply(packed, sorted_idx, particle_ends,
+                               grad_precision)

@@ -1,15 +1,16 @@
 """Fast 3DGUT renderer, port of threedgrut_tpu/render/gut.py:
 UT projection -> tile binning (kernels B3, B4) -> packed slot gather ->
-tile compositor (kernel B1).
+tile compositor (kernel B1), differentiable through the compositor's
+backward (B2) and the scatter-free gradient reduction (B5 or B6).
 
 Projection and binning run without autograd (binning is a discrete
-decision; its outputs are integers). Packing and the SH colours stay
-differentiable, but the compositor's backward (kernel B2) is not ported
-yet, so differentiating a render raises.
+decision; its outputs are integers, and the JAX package's gradients do not
+flow through them either). Packing and the SH colours stay differentiable.
 
 Each stage runs under a `torch.profiler.record_function` label
 ("3dgut.project", "3dgut.bin", "3dgut.pack", "3dgut.gather", "3dgut.rays",
-"3dgut.composite"), which costs nothing unless a profiler is recording.
+"3dgut.composite"; in the backward "3dgut.bwd_composite" and
+"3dgut.bwd_unsort"), which costs nothing unless a profiler is recording.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from threedgrut_torch.cameras import (
     relative_shutter_time,
 )
 from threedgrut_torch.device import resolve, tuple_to
+from threedgrut_torch.ops import fused_raster
 from threedgrut_torch.ops import projection as proj_ops
 from threedgrut_torch.ops import quaternion
 from threedgrut_torch.ops import tile_raster
@@ -100,14 +102,18 @@ def prepare_packed(positions, quats, scales, opacities, features,
 
 def prepare(positions, quats, scales, opacities, features, cam: Camera,
             pose: SensorPose, resolution, isect_capacity,
-            shutter=ShutterType.GLOBAL, sh_degree=3, tile_culling=True):
+            shutter=ShutterType.GLOBAL, sh_degree=3, tile_culling=True,
+            low_precision_grads=False):
     """Everything before compositing. Returns (proj, binning,
-    data_sorted [cap, 16], tile_grid)."""
+    data_sorted [cap, 16], tile_grid); `data_sorted` is differentiable in
+    the particle inputs through sorted_gather's scatter-free backward."""
     proj, binning, packed, tile_grid = prepare_packed(
         positions, quats, scales, opacities, features, cam, pose, resolution,
         isect_capacity, shutter, sh_degree, tile_culling)
     with record_function("3dgut.gather"):
-        data_sorted = sorted_gather(packed, binning.sorted_particle_idx)
+        data_sorted = sorted_gather(
+            packed, binning.sorted_particle_idx, binning.particle_ends,
+            "bf16" if low_precision_grads else "f32")
     return proj, binning, data_sorted, tile_grid
 
 
@@ -162,20 +168,32 @@ def render(positions, quats, scales, opacities, features, cam: Camera,
            sh_degree: int = 3, kernel_degree: int = C.KERNEL_DEGREE_3DGUT,
            min_transmittance: float = C.MIN_TRANSMITTANCE_3DGUT,
            tile_culling: bool = True, T_to_world=None, t_max=None,
-           ray_jitter=None, sorted_passes: int = 0, aux_outputs: bool = True,
-           hit_visibility: bool = False, visibility_threshold: float = 0.0,
-           row_termination: bool = False, walk_capacity=None,
+           ray_jitter=None, sorted_passes: int = 0,
+           aux_gradients: bool = True, aux_outputs: bool = True,
+           low_precision_grads: bool = False, hit_visibility: bool = False,
+           visibility_threshold: float = 0.0, row_termination: bool = False,
+           walk_capacity=None,
            device="cuda") -> Tuple[RenderOutputs, torch.Tensor]:
     """Render one frame on `device`. Returns (outputs, overflow flag).
 
-    Inputs are post-activation particle tensors (moved to `device`).
+    Inputs are post-activation particle tensors (moved to `device`); the
+    outputs are differentiable in them.
     `isect_capacity` bounds the tile intersections; `overflow` (a bool
     tensor) says the true count exceeded it and the caller should grow the
     capacity and render again. `t_max` [h, w] bounds each ray's segment.
-    `aux_outputs=False` leaves depth and hit count at zero.
+    `aux_gradients=False` drops the gradients through depth, transmittance
+    and hit count (for a loss that reads only rgb and opacity).
+    `aux_outputs=False` (which needs `aux_gradients=False` to be
+    differentiated) leaves depth and hit count at zero.
+    `low_precision_grads=True` rounds the per-slot cotangents to bf16 before
+    the per-particle f32 sums.
     `hit_visibility=True` makes `visibility` hit-based: a particle is
     visible iff one of its slots got a composite weight above
-    `visibility_threshold` at some pixel (the eval path of the trainer).
+    `visibility_threshold` at some pixel (the eval path of the trainer; this
+    leg cannot be differentiated).
+    `walk_capacity` (a multiple of 256 below `isect_capacity`) takes the
+    fused path (ops/fused_raster.py), whose backward unsorts only the
+    windows the forward walked when they fit in that many slots.
     """
     if sorted_passes:
         raise NotImplementedError(
@@ -186,20 +204,24 @@ def render(positions, quats, scales, opacities, features, cam: Camera,
             "row_termination (B1's per-pixel last-touch bound and "
             "tiles.row_last_touch) is not ported yet: ROADMAP queue B, B1 "
             "options")
-    if walk_capacity is not None:
-        raise NotImplementedError(
-            "walk_capacity (the walked-window compacted backward, "
-            "ops/fused_raster.py) comes with the train-step slice: ROADMAP "
-            "queue A")
     dev = resolve(device)
     positions, quats, scales, opacities, features = (
         x.to(dev) for x in (positions, quats, scales, opacities, features))
     cam, pose = tuple_to(cam, dev), tuple_to(pose, dev)
     w, h = resolution
+    use_fused = (walk_capacity is not None
+                 and 0 < walk_capacity < isect_capacity
+                 and not hit_visibility)
 
-    proj, binning, data_sorted, tile_grid = prepare(
-        positions, quats, scales, opacities, features, cam, pose, resolution,
-        isect_capacity, shutter, sh_degree, tile_culling)
+    if use_fused:
+        proj, binning, packed, tile_grid = prepare_packed(
+            positions, quats, scales, opacities, features, cam, pose,
+            resolution, isect_capacity, shutter, sh_degree, tile_culling)
+    else:
+        proj, binning, data_sorted, tile_grid = prepare(
+            positions, quats, scales, opacities, features, cam, pose,
+            resolution, isect_capacity, shutter, sh_degree, tile_culling,
+            low_precision_grads)
     hp, wp = tile_grid[1] * C.TILE_Y, tile_grid[0] * C.TILE_X
     if t_max is not None:
         t_max = torch.as_tensor(t_max, dtype=torch.float32, device=dev)
@@ -218,10 +240,21 @@ def render(positions, quats, scales, opacities, features, cam: Camera,
         rays = packed_world_rays(cam, pose, tile_grid, T_to_world, t_max,
                                  shutter=shutter, jitter=ray_jitter)
     with record_function("3dgut.composite"):
-        out, flags_slot = tile_raster.tile_composite(
-            data_sorted, binning.tile_starts, binning.tile_ends, rays,
-            kernel_degree, min_transmittance, has_t_max=t_max is not None,
-            aux_outputs=aux_outputs, emit_flags=hit_visibility)
+        if use_fused:
+            out = fused_raster.composite_particles(
+                packed, binning.sorted_particle_idx, binning.particle_ends,
+                binning.tile_starts, binning.tile_ends, rays, kernel_degree,
+                min_transmittance, has_t_max=t_max is not None,
+                aux_grads=aux_gradients, aux_outputs=aux_outputs,
+                low_precision_grads=low_precision_grads,
+                walk_capacity=walk_capacity)
+            flags_slot = None
+        else:
+            out, flags_slot = tile_raster.tile_composite(
+                data_sorted, binning.tile_starts, binning.tile_ends, rays,
+                kernel_degree, min_transmittance,
+                has_t_max=t_max is not None, aux_outputs=aux_outputs,
+                emit_flags=hit_visibility, aux_grads=aux_gradients)
 
     img = tile_unpack(out, tile_grid)[:h, :w]
     # Visibility: projected to a renderable splat this frame; with

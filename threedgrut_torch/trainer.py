@@ -1,0 +1,321 @@
+"""Training harness, port of threedgrut_tpu/trainer.py: the train step
+(render -> background -> 0.8 L1 + 0.2 DSSIM -> backward -> Adam or
+SelectiveAdam), the eval step, progressive SH, capacity growth on
+overflow, and checkpoints in the JAX package's .npz format.
+
+PyTorch runs eagerly, so a step is a sequence of calls rather than one
+compiled program; each phase runs under a `torch.profiler.record_function`
+label ("train.forward", "train.loss", "train.backward", "train.adam").
+Random draws (the random background, ray jitter) come from the trainer's
+torch.Generator, seeded with cfg.train.seed; they are not the JAX package's
+numbers.
+"""
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from threedgrut_torch import optimizers
+from threedgrut_torch.cameras import SensorPose, ShutterType, pose_from_matrix
+from threedgrut_torch.config import Config, from_dict, to_dict
+from threedgrut_torch.device import resolve, tuple_to
+from threedgrut_torch.model import background, losses
+from threedgrut_torch.model.gaussians import FIELDS, Gaussians, from_numpy
+from threedgrut_torch.render import gut
+
+# The capacity ceiling of the binning: particle ids and slots are packed
+# with 8 row bits into one 32-bit word (ops/tiles.py).
+MAX_ISECT_CAPACITY = (1 << 24) - 256
+
+
+def render_params(g: Gaussians):
+    """Raw parameters -> post-activation render inputs (differentiable)."""
+    return (g.get_positions(), g.get_rotation(), g.get_scale(),
+            g.get_density(), g.get_features())
+
+
+def walk_capacity_for(cfg: Config,
+                      isect_capacity: int) -> Optional[int]:
+    """The fused backward's bound: walk_compact_fraction of the capacity,
+    rounded up to 256 (None when the fraction is 0)."""
+    frac = cfg.render.walk_compact_fraction
+    if frac <= 0.0:
+        return None
+    return -(-int(isect_capacity * frac) // 256) * 256
+
+
+def step_fn(params: Gaussians, opt_state: optimizers.AdamState, T_to_world,
+            camera, rgb_gt, mask, scene_extent: float, resolution,
+            sh_degree: int, cfg: Config, train: bool,
+            generator: Optional[torch.Generator] = None, shutter=0,
+            T_end=None, isect_capacity: Optional[int] = None):
+    """One train (or eval) step on the device of `params`, the counterpart
+    of the JAX package's _step_fn. Inputs are tensors on that device. A
+    train step updates `params` in place and returns (new opt_state, aux);
+    an eval step returns (opt_state, aux) with the prediction and the
+    hit-based visibility."""
+    dev = params.positions.device
+    pose = pose_from_matrix(T_to_world)
+    shutter = ShutterType(shutter)
+    if isect_capacity is None:
+        isect_capacity = cfg.render.isect_capacity
+    if T_end is not None:
+        pose_end = pose_from_matrix(T_end)
+        pose = SensorPose(q_start=pose.q_start, t_start=pose.t_start,
+                          q_end=pose_end.q_start, t_end=pose_end.t_start)
+    if cfg.render.method != "3dgut":
+        raise NotImplementedError(
+            f"render.method {cfg.render.method!r}: only 3dgut is ported "
+            "(3DGRT is ROADMAP queue A item 10)")
+    jitter = None
+    if train and cfg.render.ray_jitter:
+        jitter = torch.rand((resolution[1], resolution[0], 2),
+                            generator=generator, device=dev)
+    with torch.set_grad_enabled(train):
+        with record_function("train.forward"):
+            out, overflow = gut.render(
+                *render_params(params), camera, pose, resolution,
+                isect_capacity, shutter=shutter, sh_degree=sh_degree,
+                kernel_degree=cfg.render.particle_kernel_degree,
+                min_transmittance=cfg.render.min_transmittance,
+                tile_culling=cfg.render.tile_culling, T_to_world=T_to_world,
+                ray_jitter=jitter, sorted_passes=cfg.render.k_buffer_passes,
+                # The loss reads only rgb (and opacity through the
+                # background): no depth/transmittance cotangents, and in
+                # training no depth/hit-count forward either.
+                aux_gradients=False, aux_outputs=not train,
+                low_precision_grads=cfg.render.low_precision_grads and train,
+                row_termination=cfg.render.row_termination,
+                # Eval reads the kernel's contributed bit; training derives
+                # it from nonzero gradients below.
+                hit_visibility=not train,
+                walk_capacity=(walk_capacity_for(cfg, isect_capacity)
+                               if train else None),
+                device=dev)
+            pred = background.compose(out.rgb, out.opacity,
+                                      cfg.model.background_color,
+                                      train=train, generator=generator)
+        with record_function("train.loss"):
+            loss, terms = losses.total_loss(
+                pred, rgb_gt, cfg.loss.lambda_l1, cfg.loss.lambda_l2,
+                cfg.loss.lambda_ssim, mask if cfg.loss.use_mask else None)
+    if not train:
+        return opt_state, dict(
+            terms=terms, psnr=losses.psnr(pred, rgb_gt), pred=pred,
+            visibility=out.visibility, overflow=overflow,
+            opacity=out.opacity, depth=out.depth, hit_count=out.hit_count)
+
+    fields = [getattr(params, f) for f in optimizers.PARAM_FIELDS]
+    with record_function("train.backward"):
+        grads = dict(zip(optimizers.PARAM_FIELDS,
+                         torch.autograd.grad(loss, fields)))
+    # Hit-based visibility: a particle composited with weight > 0 this
+    # frame. Occluded, culled and unwalked particles get exactly-zero
+    # gradients through every path, so nonzero gradient == contributed.
+    cap = params.capacity
+    hit_vis = torch.zeros(cap, dtype=torch.bool, device=dev)
+    for g in grads.values():
+        hit_vis |= (g.reshape(cap, -1) != 0.0).any(-1)
+    visibility = out.visibility & hit_vis
+    with record_function("train.adam"):
+        new_opt = optimizers.step(params, grads, opt_state, cfg.optimizer,
+                                  scene_extent, visibility=visibility)
+    aux = dict(terms={k: v.detach() for k, v in terms.items()},
+               psnr=losses.psnr(pred.detach(), rgb_gt), pred=pred.detach(),
+               visibility=visibility, overflow=overflow, grads=grads,
+               pos_grad_norm=torch.linalg.norm(grads["positions"], dim=-1))
+    return new_opt, aux
+
+
+class Trainer:
+    """Single-card trainer. Densification strategies are not ported yet
+    (ROADMAP queue A item 7)."""
+
+    def __init__(self, cfg: Config, dataset, val_dataset=None,
+                 params: Optional[Gaussians] = None, device="cuda"):
+        self.cfg = cfg
+        self.device = resolve(device)
+        self.dataset = dataset
+        self.val_dataset = val_dataset
+        self.scene_extent = float(dataset.scene_extent)
+        self.global_step = 0
+        self.params = params
+        self.opt_state = (optimizers.init(params) if params is not None
+                          else None)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(cfg.train.seed)
+        self.isect_capacity = cfg.render.isect_capacity
+        # The overflow flag of a step is acted on after the next one (the
+        # JAX package reads it one step late so the readback overlaps
+        # compute); the step that overflowed is slightly truncated.
+        self._pending_overflow = None
+        self._mask_cache: Dict[tuple, torch.Tensor] = {}
+        self.history: list = []
+
+    # ---- progressive SH ----
+    def active_sh_degree(self) -> int:
+        m = self.cfg.model
+        if m.progressive_sh_interval <= 0:
+            return m.max_sh_degree
+        return min(m.n_active_features
+                   + self.global_step // m.progressive_sh_interval,
+                   m.max_sh_degree)
+
+    def _view_tensors(self, view):
+        dev = self.device
+        if view.mask is not None:
+            mask = torch.as_tensor(view.mask, dtype=torch.float32,
+                                   device=dev)
+        else:
+            key = tuple(view.resolution)
+            mask = self._mask_cache.get(key)
+            if mask is None:
+                mask = torch.ones(view.resolution[::-1] + (1,), device=dev)
+                self._mask_cache[key] = mask
+        T = torch.as_tensor(view.T_to_world, dtype=torch.float32, device=dev)
+        T_end = (torch.as_tensor(view.pose_end, dtype=torch.float32,
+                                 device=dev)
+                 if getattr(view, "pose_end", None) is not None else None)
+        return (T, tuple_to(view.camera, dev),
+                torch.as_tensor(view.rgb_gt, dtype=torch.float32, device=dev),
+                mask, int(getattr(view, "shutter", 0)), T_end)
+
+    def train_step(self, view) -> Dict[str, Any]:
+        T, cam, gt, mask, shutter, T_end = self._view_tensors(view)
+        self.opt_state, aux = step_fn(
+            self.params, self.opt_state, T, cam, gt, mask, self.scene_extent,
+            view.resolution, self.active_sh_degree(), self.cfg, train=True,
+            generator=self.generator, shutter=shutter, T_end=T_end,
+            isect_capacity=self.isect_capacity)
+        self.global_step += 1
+        prev_ovf, self._pending_overflow = (self._pending_overflow,
+                                            aux["overflow"])
+        if prev_ovf is not None and bool(prev_ovf):
+            grown = min(self.isect_capacity * 2, MAX_ISECT_CAPACITY)
+            if grown == self.isect_capacity:
+                print(f"isect overflow at step {self.global_step - 1}; "
+                      f"capacity already at the 2^24 packing ceiling "
+                      f"({MAX_ISECT_CAPACITY}); continuing with truncation",
+                      flush=True)
+            else:
+                self.isect_capacity = grown
+                print(f"isect overflow at step {self.global_step - 1}; "
+                      f"capacity -> {self.isect_capacity}", flush=True)
+            # The step just run also used the old capacity; its flag
+            # reports the shortage already answered.
+            self._pending_overflow = None
+        return aux
+
+    def eval_view(self, view) -> Dict[str, Any]:
+        """Eval step with grow-and-retry: a truncated eval image is never
+        scored."""
+        T, cam, gt, mask, shutter, T_end = self._view_tensors(view)
+        for _ in range(8):
+            _, aux = step_fn(
+                self.params, self.opt_state, T, cam, gt, mask,
+                self.scene_extent, view.resolution, self.active_sh_degree(),
+                self.cfg, train=False, shutter=shutter, T_end=T_end,
+                isect_capacity=self.isect_capacity)
+            if not bool(aux["overflow"]):
+                break
+            self.isect_capacity *= 2
+            print(f"isect overflow during eval; capacity -> "
+                  f"{self.isect_capacity}", flush=True)
+        return aux
+
+    def validate(self) -> Dict[str, float]:
+        ds = self.val_dataset or self.dataset
+        psnrs, ssims, n_ovf = [], [], 0
+        for i in range(len(ds)):
+            aux = self.eval_view(ds[i])
+            psnrs.append(float(aux["psnr"]))
+            ssims.append(float(aux["terms"].get("ssim", float("nan"))))
+            n_ovf += int(bool(aux["overflow"]))
+        out = {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims))}
+        if n_ovf:
+            out["overflow_views"] = n_ovf
+            print(f"WARNING: {n_ovf}/{len(ds)} val renders overflowed "
+                  f"isect capacity {self.isect_capacity}", flush=True)
+        return out
+
+    def run(self, iterations: Optional[int] = None, log_every: int = 100,
+            out_dir: Optional[str] = None):
+        from threedgrut_torch.datasets.protocols import iterate_epochs
+        iters = iterations or self.cfg.train.iterations
+        stream = iterate_epochs(len(self.dataset), self.cfg.train.seed)
+        t0 = time.time()
+        for _ in range(iters):
+            aux = self.train_step(self.dataset[next(stream)])
+            if log_every and self.global_step % log_every == 0:
+                loss = float(aux["terms"]["total"])
+                psnr = float(aux["psnr"])
+                rate = self.global_step / (time.time() - t0)
+                print(f"step {self.global_step:6d} loss {loss:.4f} "
+                      f"psnr {psnr:.2f} it/s {rate:.1f}", flush=True)
+                self.history.append(dict(
+                    step=self.global_step, loss=loss, psnr=psnr,
+                    particles=int(self.params.num_active()), it_s=rate))
+                del self.history[:-500]
+            ckpts = self.cfg.train.checkpoint_iterations
+            if out_dir and self.global_step in ckpts:
+                self.save_checkpoint(out_dir)
+            if (self.cfg.train.val_frequency
+                    and self.global_step % self.cfg.train.val_frequency == 0
+                    and self.val_dataset is not None):
+                print(f"val @ {self.global_step}: {self.validate()}",
+                      flush=True)
+        if out_dir:
+            self.save_checkpoint(out_dir, name="ckpt_last")
+        return self
+
+    # ---- checkpoints: the JAX package's .npz keys and .json config ----
+    def save_checkpoint(self, out_dir: str, name: Optional[str] = None):
+        os.makedirs(out_dir, exist_ok=True)
+        name = name or f"ckpt_{self.global_step}"
+        path = os.path.join(out_dir, f"{name}.npz")
+        flat = {f"params/{f}": getattr(self.params, f).detach().cpu().numpy()
+                for f in FIELDS}
+        for f in optimizers.PARAM_FIELDS:
+            flat[f"m/{f}"] = self.opt_state.exp_avg[f].cpu().numpy()
+            flat[f"v/{f}"] = self.opt_state.exp_avg_sq[f].cpu().numpy()
+        flat["opt_step"] = np.asarray(self.opt_state.step, np.int32)
+        flat["global_step"] = np.int64(self.global_step)
+        flat["scene_extent"] = np.float64(self.scene_extent)
+        flat["isect_capacity"] = np.int64(self.isect_capacity)
+        # Atomic: a process killed mid-save never leaves a truncated file.
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as fh:
+            np.savez(fh, **flat)
+        os.replace(tmp, path)
+        with open(os.path.join(out_dir, f"{name}.json"), "w") as fh:
+            json.dump(to_dict(self.cfg), fh, indent=2)
+        return path
+
+    @classmethod
+    def load_checkpoint(cls, path: str, dataset, val_dataset=None,
+                        device="cuda") -> "Trainer":
+        """Resume from a checkpoint written by this class or by the JAX
+        package's Trainer (same keys; its .json config beside it)."""
+        with open(path.replace(".npz", ".json")) as fh:
+            cfg = from_dict(json.load(fh))
+        dev = resolve(device)
+        with np.load(path) as data:
+            params = from_numpy({f: data[f"params/{f}"] for f in FIELDS},
+                                dev)
+            trainer = cls(cfg, dataset, val_dataset, params=params,
+                          device=dev)
+            trainer.opt_state = optimizers.state_from_numpy(
+                {f: data[f"m/{f}"] for f in optimizers.PARAM_FIELDS},
+                {f: data[f"v/{f}"] for f in optimizers.PARAM_FIELDS},
+                data["opt_step"], dev)
+            trainer.global_step = int(data["global_step"])
+            trainer.scene_extent = float(data["scene_extent"])
+            if "isect_capacity" in data:
+                trainer.isect_capacity = int(data["isect_capacity"])
+        return trainer
