@@ -8,17 +8,20 @@ threedgrut_torch/csrc/ into build/ on first use). Imports nothing of JAX.
 Phases, each of which fails the run on a miss:
 
   1. device: name, count, power limit; TF32 off for matmuls and cuDNN;
-  2. build: the five sources (B3 cull_masks, B4 expand_keys, B1
-     tile_raster_fwd, B2 tile_raster_bwd, B5/B6 segment_sum) in parallel,
-     with nvcc's register/smem/spill report;
-  3. golden: the card's render of the golden scene against the JAX
-     reference's stored frame (threedgrut_torch/golden/);
+  2. build: the six sources (B3 cull_masks, B4 expand_keys, B1
+     tile_raster_fwd, B2 tile_raster_bwd, B5/B6 segment_sum, B7
+     bundle_trace_fwd) in parallel, with nvcc's register/smem/spill report;
+  3. golden: the card's render of the golden scene and its 3DGRT trace
+     against the JAX reference's stored outputs (threedgrut_torch/golden/);
   4. parity: api.render on the card (kernels) against api.render on the CPU
      (the plain versions) at 100k Gaussians, 400x400, both visibility
-     modes; then one Trainer.train_step on the card against the same step on
+     modes; one Trainer.train_step on the card against the same step on
      the CPU from the same parameters (loss, image, gradients, updated
      parameters, moments), on the fused path's compact branch (B6) and
-     its dense fallback (B5), and on the two-stage path (B5);
+     its dense fallback (B5), and on the two-stage path (B5); then 3DGRT:
+     api.trace on tools/bench_grt.py's 100k scene (the central 128x128
+     rays of its grid, 64 bundles, the two-level cull), api.render(method=
+     "3dgrt") (32 bundles) and one Trainer.eval_view of preset_3dgrt;
   5. forward main path: api.render at full width (1M Gaussians of the
      benchmark scene, SH degree 3, 800x800), 5 orbit frames plus one
      hit-visibility frame, with the launch counts read around it;
@@ -26,19 +29,28 @@ Phases, each of which fails the run on a miss:
      camera and Config defaults), 6 steps, the last with
      walk_compact_fraction=0 (the dense branch, B5); losses, step ms,
      rays/s, peak memory, launch counts, and a bench.py-shaped JSON line;
-  7. kernels: each kernel against its plain version on the card at the
+  7. 3DGRT main path: api.trace at tools/bench_grt.py's inference
+     configuration (100k Gaussians, 512x512 rays, 16 re-sort passes), 6
+     traces, then at its 1M capacities, 3 traces; overflow, launch counts,
+     the super-list maximum and flat total beside bench_grt's recorded
+     counts, ms, rays/s, peak memory, and a bench_grt-shaped JSON line;
+  8. kernels: each kernel against its plain version on the card at the
      main paths' shapes (B3, B4 and every TileBinning field exactly equal;
-     B1 and B2 within stated tolerances with equal zero patterns; B5, B6
+     B1, B2 and B7 (16 and 0 passes) within stated tolerances; B5, B6
      within the f32 summation bound), timed with CUDA events beside its
      bound and, for B5 and B6, one PyTorch call computing the same sums;
-  8. profile: one full-width frame and one full-width train step under
-     torch.profiler, for the device's busy share and the time per stage.
+  9. profile: one full-width frame, one full-width train step and one
+     100k trace under torch.profiler, for the device's busy share and the
+     time per stage.
+
+Each path checks the kernels of its own renderer (cuda_build.KERNELS).
 
 The line before the last holds the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. A failed phase prints FAIL and exits 1.
 """
 from __future__ import annotations
 
+import copy
 import json
 import math
 import subprocess
@@ -69,6 +81,14 @@ FLOP_PAIR = 75
 # skip the reduction).
 FLOP_REDUCE = 16
 FLOP_CHAIN = 108
+# B7 (csrc/bundle_trace_fwd.cu): the pair math and both gates (80) and the
+# compositing step (6) per (live ray, walked row); per counted pair the SH
+# colour (3 x 16 products and sums, the +0.5 and clamp: 102) and the 10
+# accumulating operations; a compare and a select per pair of the network,
+# 64 pairs per pass, per live ray-window whose hits are out of row order.
+FLOP_GRT_PAIR = 86
+FLOP_GRT_COUNTED = 112
+FLOP_GRT_SWAP = 2
 # The reference CUDA system's train step on an RTX 5090 (BASELINE.md): the
 # one outside yardstick for the fwd+bwd+Adam rays/s.
 BASELINE_RAYS_PER_S = 8.66e7
@@ -81,6 +101,20 @@ PARITY_RES = (400, 400)
 PARITY_CAP = 1 << 20
 TRAIN_STEPS = 6
 NCH_F = 16          # adds per summed row (16 channels) in B5 and B6
+# tools/bench_grt.py's configurations (n, Gaussian scale range, candidate,
+# super and flat capacities, traces run here) and its probe's recorded
+# super-list maximum and flat total for each.
+GRT_CONFIGS = [
+    dict(name="100k", n=100_000, scales=(0.01, 0.05), cand=1792,
+         super_cap=24320, flat_cap=919296, traces=6, rec_super=22093,
+         rec_flat=835584),
+    dict(name="1M", n=1_000_000, scales=(0.004, 0.02), cand=7680,
+         super_cap=216832, flat_cap=3384832, traces=3, rec_super=196936,
+         rec_flat=3076992),
+]
+GRT_SIDE = 512
+GRT_PARITY_SIDE = 128
+GRT_PARITY_RES = (128, 64)
 
 
 def fail(msg: str) -> None:
@@ -179,15 +213,16 @@ class OneView:
 
 
 def train_setup(fields, res, cap, gt, dev, walk_compact_fraction=0.625,
-                low_precision_grads=True):
+                low_precision_grads=True, cfg=None):
     """A Trainer on `dev` over one view from bench.py's camera, with
-    Config() defaults but SH degree 3 from the first step (bench.py's)."""
+    Config() defaults (or `cfg`) but SH degree 3 from the first step
+    (bench.py's)."""
     from threedgrut_torch.cameras import example_camera, look_at
     from threedgrut_torch.config import Config
     from threedgrut_torch.datasets.protocols import View
     from threedgrut_torch.model.gaussians import from_numpy
     from threedgrut_torch.trainer import Trainer
-    cfg = Config()
+    cfg = copy.deepcopy(cfg) if cfg is not None else Config()
     cfg.render.isect_capacity = cap
     cfg.render.walk_compact_fraction = walk_compact_fraction
     cfg.render.low_precision_grads = low_precision_grads
@@ -267,6 +302,270 @@ def train_parity(dev, tag):
                  f"(walk_compact_fraction={frac})")
 
 
+def grt_bench_scene(n, scales, dev, side=GRT_SIDE, crop=None):
+    """tools/bench_grt.py's scene as Gaussians on `dev` (the same seeded
+    numpy draws in the same order: positions, quaternions, scales, albedo,
+    ray jitter) and its side x side ray grid from (0, 0, -4) in 16x16-tile
+    order, as CUDA/CPU tensors (origins, unit directions). `crop` keeps the
+    central crop x crop rays of the grid."""
+    from threedgrut_torch.model.gaussians import from_arrays
+    rng = np.random.default_rng(0)
+    pos = rng.normal(0, 1.0, (n, 3)).astype(np.float32)
+    q = rng.normal(size=(n, 4)).astype(np.float32)
+    s = np.exp(rng.uniform(np.log(scales[0]), np.log(scales[1]),
+                           (n, 3))).astype(np.float32)
+    albedo = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    params = from_arrays(pos, q, np.log(s), np.zeros((n, 1), np.float32),
+                         albedo, np.zeros((n, 45), np.float32), device=dev)
+    px = (np.arange(side) + 0.5) / side * 0.8 - 0.4
+    gx, gy = np.meshgrid(px, px, indexing="xy")
+    jit = rng.uniform(-0.4 / side, 0.4 / side, (2,) + gx.shape)
+    d = np.stack([gx + jit[0], gy + jit[1], np.ones_like(gx)],
+                 -1).astype(np.float32)
+    if crop:
+        lo = (side - crop) // 2
+        d, side = d[lo:lo + crop, lo:lo + crop], crop
+    t = side // 16
+    d = d.reshape(t, 16, t, 16, 3).transpose(0, 2, 1, 3, 4).reshape(-1, 3)
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    o = np.tile(np.array([[0.0, 0.0, -4.0]], np.float32), (side * side, 1))
+    return (params, torch.tensor(o, device=dev),
+            torch.tensor(d.astype(np.float32), device=dev))
+
+
+def grt_trace_kw(cfg):
+    return dict(kernel_degree=4, candidate_capacity=cfg["cand"],
+                super_capacity=cfg["super_cap"], flat_capacity=cfg["flat_cap"],
+                sorted_passes=16)
+
+
+def grt_parity(dev, tag):
+    """3DGRT card vs CPU, within golden.compare: api.trace on bench_grt's
+    100k scene (the central 128x128 rays of its 512x512 grid: 64 bundles
+    of its angular size, so its capacities hold) at TRACE_FLIP_SHARE (the
+    cull decides margin particles per device there); api.render(method=
+    "3dgrt") of the 100k benchmark scene at 128x64 (32 bundles) and one
+    Trainer.eval_view of preset_3dgrt on the golden scene at 128x128, at
+    compare's default share."""
+    from threedgrut_torch import api, golden
+    from threedgrut_torch.cameras import example_camera, pose_from_matrix
+    from threedgrut_torch.config import preset_3dgrt
+    from threedgrut_torch.model.gaussians import bench_scene, from_numpy
+    from threedgrut_torch.ops import cuda_build
+    cfg = GRT_CONFIGS[0]
+    runs = {}
+    for device in (dev, "cpu"):
+        params, o, d = grt_bench_scene(cfg["n"], cfg["scales"], device,
+                                       crop=GRT_PARITY_SIDE)
+        cuda_build.launches.clear()
+        with torch.no_grad():
+            out = api.trace(params, o, d, device=device, **grt_trace_kw(cfg))
+        if bool(out.overflow):
+            fail(f"api.trace parity on {device} overflowed")
+        runs[device] = (out, dict(cuda_build.launches))
+    if runs[dev][1] != {"bundle_trace_fwd": 1}:
+        fail(f"api.trace on the card launched {runs[dev][1]}")
+    rep, ok = golden.compare(runs[dev][0], runs["cpu"][0],
+                             golden.TRACE_FLIP_SHARE)
+    print(f"api.trace card vs CPU, bench_grt 100k, {GRT_PARITY_SIDE}^2 rays: "
+          f"{json.dumps(rep)}", flush=True)
+    if not ok:
+        fail("api.trace on the card disagrees with the plain path")
+
+    fields = bench_scene(PARITY_N, seed=0, specular_std=0.1)
+    frames = []
+    for device in (dev, "cpu"):
+        with torch.no_grad():
+            out, ovf = api.render(
+                from_numpy(fields, device=device),
+                example_camera(GRT_PARITY_RES, device),
+                pose_from_matrix(torch.as_tensor(orbit_T(0), device=device)),
+                GRT_PARITY_RES, method="3dgrt",
+                isect_capacity=1 << 22, super_capacity=98304, device=device)
+        if bool(ovf):
+            fail(f"api.render(method='3dgrt') on {device} overflowed")
+        frames.append(out)
+    rep, ok = golden.compare(*frames)
+    print(f"api.render(method='3dgrt') card vs CPU, {PARITY_N} Gaussians "
+          f"{GRT_PARITY_RES}: {json.dumps(rep)}", flush=True)
+    if not ok:
+        fail("api.render(method='3dgrt') on the card disagrees with the "
+             "plain path")
+
+    cfg3 = preset_3dgrt()
+    cfg3.model.progressive_sh_interval = 0
+    auxs = []
+    for device in (dev, "cpu"):
+        tr, view = train_setup(golden.scene(), (128, 128), 1 << 20,
+                               np.zeros((128, 128, 3), np.float32), device,
+                               cfg=cfg3)
+        auxs.append(tr.eval_view(view))
+    rep, ok = golden.compare(
+        *[dict(rgb=a["pred"], opacity=a["opacity"], depth=a["depth"],
+               transmittance=1.0 - a["opacity"], hit_count=a["hit_count"],
+               visibility=a["visibility"]) for a in auxs])
+    print(f"Trainer.eval_view (preset_3dgrt) card vs CPU, golden scene "
+          f"128x128: {json.dumps(rep)} psnr {float(auxs[0]['psnr']):.6f} / "
+          f"{float(auxs[1]['psnr']):.6f} {tag}", flush=True)
+    if not ok or any(bool(a["overflow"]) for a in auxs):
+        fail("the 3DGRT eval step on the card disagrees with the plain path")
+
+
+def grt_main_path(dev, tag):
+    """tools/bench_grt.py's configurations through api.trace, each with the
+    launch counts cleared just before and read just after its traces.
+    Returns ({name: launches}, the 100k scene and rays, the 100k inputs of
+    B7 from grt.prepare)."""
+    from threedgrut_torch import api
+    from threedgrut_torch.constants import MIN_ALPHA
+    from threedgrut_torch.ops import cuda_build
+    from threedgrut_torch.render import grt
+    launches, keep = {}, None
+    for cfg in GRT_CONFIGS:
+        params, o, d = grt_bench_scene(cfg["n"], cfg["scales"], dev)
+        kw = grt_trace_kw(cfg)
+        acts = [x.detach() for x in (
+            params.get_positions(), params.get_rotation(), params.get_scale(),
+            params.get_density(), params.get_features())]
+        with torch.no_grad():
+            radius = grt.bounding_radius(acts[2], acts[3], 4)
+            b = grt.make_bundles(o, d, 256)
+            sup = grt.make_super_bundles(b, grt.bundle_morton_order(b), 16)
+            hit1, _ = grt._cone_hit(acts[0], radius, acts[3] >= MIN_ALPHA,
+                                    sup)
+            super_max = int(hit1.sum(1).max())
+            del hit1
+            inp = grt.prepare(*acts, o, d, **{k: v for k, v in kw.items()
+                                              if k != "sorted_passes"})
+            flat_total = int((-(-inp.counts // 128) * 128).sum())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_build.launches.clear()
+        ms = []
+        for k in range(cfg["traces"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                out = api.trace(params, o, d, device=dev, **kw)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if bool(out.overflow):
+                fail(f"3DGRT {cfg['name']} trace {k + 1} overflowed")
+            for fld in ("rgb", "opacity", "depth", "transmittance",
+                        "hit_count"):
+                if not bool(torch.isfinite(getattr(out, fld)).all()):
+                    fail(f"3DGRT {cfg['name']} trace {k + 1}: {fld} not "
+                         f"finite")
+        got = dict(cuda_build.launches)
+        launches[cfg["name"]] = got
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"3DGRT main path {cfg['name']} launches: {got}", flush=True)
+        if got.get("bundle_trace_fwd", 0) != cfg["traces"]:
+            fail(f"B7 ran {got.get('bundle_trace_fwd', 0)} times in "
+                 f"{cfg['traces']} traces at {cfg['name']}")
+        for kname in cuda_build.kernels_of("grt", ("forward",)):
+            if got.get(kname, 0) <= 0:
+                fail(f"kernel {kname} was not launched on the 3DGRT path")
+        cover = float((out.opacity > 0.01).float().mean())
+        for what, v, rec in (("super-list maximum", super_max,
+                              cfg["rec_super"]),
+                             ("flat total", flat_total, cfg["rec_flat"])):
+            print(f"3DGRT {cfg['name']}: {what} {v} (bench_grt records "
+                  f"{rec}; {100 * (v - rec) / rec:+.4f}%)", flush=True)
+            if abs(v - rec) > 1e-3 * rec:
+                fail(f"3DGRT {cfg['name']}: {what} {v} is not within 0.1% "
+                     f"of bench_grt's {rec}")
+        steady = ms[1:5] if len(ms) >= 5 else ms[1:]
+        med = float(np.median(steady))
+        n_rays = o.shape[0]
+        print(f"3DGRT {cfg['name']}: trace ms {[round(x, 3) for x in ms]}; "
+              f"median of traces 2-{len(steady) + 1} {med:.3f} ms, rays/s "
+              f"{n_rays / (med / 1e3):.4e}; coverage {cover:.4f}; "
+              f"max_memory_allocated {peak:.3f} GiB {tag}", flush=True)
+        print(json.dumps({
+            "metric": "grt_trace_rays_per_s_infer",
+            "value": n_rays / (med / 1e3), "unit": "rays/s/chip",
+            "backend": "cuda", "device": torch.cuda.get_device_name(0),
+            "n_gaussians": cfg["n"], "n_rays": n_rays,
+            "candidate_capacity": cfg["cand"],
+            "flat_capacity": cfg["flat_cap"], "packed_cull": False,
+            "candidate_overflow": False, "step_ms": med,
+            "max_memory_allocated_gib": peak}), flush=True)
+        if keep is None:
+            keep = (params, o, d, inp)
+        del params, o, d, inp, out, acts
+    return launches, keep
+
+
+def grt_record(inp, launches, tag):
+    """B7 against its plain version on the card at the 100k main shapes,
+    with 16 and with 0 passes: rows 0-5 within 2e-4 + 1e-4 |plain|, hit
+    counts off by at most 1 on at most 0.1% of the rays, walked windows
+    equal on all but 0.1% of the bundles."""
+    from threedgrut_torch.constants import (MAX_ALPHA, MIN_ALPHA,
+                                            MIN_KERNEL_RESPONSE,
+                                            MIN_TRANSMITTANCE_3DGRT)
+    from threedgrut_torch.ops import bundle_trace
+    err, timing = 0.0, {}
+    for passes in (16, 0):
+        args = (inp.data, inp.rays, inp.win_starts, inp.win_ends, 4, 3,
+                MIN_TRANSMITTANCE_3DGRT, MIN_KERNEL_RESPONSE, MIN_ALPHA,
+                MAX_ALPHA, passes)
+        k = bundle_trace._launch(*args)
+        stats = {}
+        p = bundle_trace.bundle_composite_plain(*args, stats=stats)
+        d = (k - p).abs()
+        within = bool((d[:, 0:6] <= 2e-4 + 1e-4 * p[:, 0:6].abs()).all())
+        dh = d[:, 6]
+        hits_ok = float(dh.max()) <= 1 and int((dh > 0).sum()) <= max(
+            1, math.floor(1e-3 * dh.numel()))
+        walk_diff = int((d[:, 7, 0] > 0).sum())
+        print(f"B7 passes={passes}: per-row max |kernel - plain| "
+              f"{d.amax(dim=(0, 2)).tolist()}; rays whose hit count differs "
+              f"{int((dh > 0).sum())}; bundles whose walk differs "
+              f"{walk_diff}; work {stats}", flush=True)
+        if not (within and hits_ok and walk_diff <= max(
+                1, math.floor(1e-3 * k.shape[0]))):
+            fail(f"B7 (passes={passes}) outside its tolerances")
+        err = max(err, float(d[:, 0:6].max()))
+        timing[passes] = (cuda_ms(lambda: bundle_trace._launch(*args), 10),
+                          cuda_ms(lambda: bundle_trace.bundle_composite_plain(
+                              *args), 1, warmup=0), stats, k)
+    def b7_bound(passes):
+        """bound_ms of the run with `passes` from its own output and work:
+        bytes of its walked windows, rays and output; operations of its
+        live ray-windows, counted pairs and (passes > 0) the network on its
+        out-of-order ray-windows."""
+        _, _, stats, k = timing[passes]
+        nb = k.shape[0]
+        return bound_ms(
+            int(k[:, 7, 0].sum()) * 128 * 64 * 4 + nb * 8 * 256 * 4 * 2
+            + nb * 8,
+            FLOP_GRT_PAIR * 128 * stats["live_ray_windows"]
+            + FLOP_GRT_COUNTED * float(k[:, 6].sum())
+            + FLOP_GRT_SWAP * 64 * passes * stats["inverted_ray_windows"])
+
+    ms16, plain16, _, k16 = timing[16]
+    bound, bound0 = b7_bound(16), b7_bound(0)
+    print(f"B7 at 100k: {k16.shape[0]} bundles, {int(k16[:, 7, 0].sum())} "
+          f"windows walked of {int((inp.win_ends - inp.win_starts).sum())}, "
+          f"{float(k16[:, 6].sum()):.0f} counted pairs; 16 passes "
+          f"{ms16:.4f} ms (bound {bound[0]:.4f}), 0 passes "
+          f"{timing[0][0]:.4f} ms (bound {bound0[0]:.4f}) (plain "
+          f"{plain16:.2f} / {timing[0][1]:.2f} ms) {tag}", flush=True)
+    return dict(
+        name="bundle_trace_fwd", route="cuda",
+        source="threedgrut_torch/csrc/bundle_trace_fwd.cu",
+        replaces="threedgrut_tpu/ops/pallas/bundle_trace.py:448",
+        launches=sum(v.get("bundle_trace_fwd", 0) for v in launches.values()),
+        launches_forward=0,
+        launches_grt={n: v.get("bundle_trace_fwd", 0)
+                      for n, v in launches.items()},
+        max_abs_err=err, ms=ms16, plain_ms=plain16, ms_passes0=timing[0][0],
+        bound_ms_passes0=bound0[0], bound_ms=bound[0], bound_by=bound[1],
+        library_ms=None)
+
+
 def orbit_T(k: int) -> np.ndarray:
     from threedgrut_torch.cameras import look_at
     a = 0.1 * k
@@ -329,7 +628,7 @@ def train_main_path(dev, tag):
     launches = dict(cuda_build.launches)
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"train main path launches: {launches}", flush=True)
-    for kname in cuda_build.KERNELS:
+    for kname in cuda_build.kernels_of("gut"):
         if launches.get(kname, 0) <= 0:
             fail(f"kernel {kname} was not launched on the train main path")
     if not losses[-1] < losses[0]:
@@ -536,6 +835,15 @@ def main() -> int:
     print(f"golden vs JAX reference: {json.dumps(rep)}", flush=True)
     if not ok:
         fail("the card's golden frame is outside the tolerances")
+    go, gd = golden.grt_rays()
+    with torch.no_grad():
+        gtrace = api.trace(gparams, go, gd, device=dev,
+                           **golden.GRT_TRACE_KW)
+    rep, ok = golden.compare(gtrace, golden.load_grt())
+    print(f"3DGRT golden trace vs JAX reference: {json.dumps(rep)}",
+          flush=True)
+    if bool(gtrace.overflow) or not ok:
+        fail("the card's 3DGRT golden trace is outside the tolerances")
 
     # ---- 4. parity: kernels (card) vs plain versions (CPU) ---------------
     f100 = bench_scene(PARITY_N, seed=0, specular_std=0.1)
@@ -559,6 +867,7 @@ def main() -> int:
                 fail("api.render on the card disagrees with the plain path")
     del p_gpu, p_cpu
     train_parity(dev, tag)
+    grt_parity(dev, tag)
 
     # ---- 5. forward main path at full width ------------------------------
     fields = bench_scene(MAIN_N, seed=0, specular_std=0.1)
@@ -583,8 +892,8 @@ def main() -> int:
     fwd_launches = dict(cuda_build.launches)
     peak_mem = torch.cuda.max_memory_allocated()
     print(f"forward main path launches: {fwd_launches}", flush=True)
-    for kname, (_, stage) in cuda_build.KERNELS.items():
-        if stage == "forward" and fwd_launches.get(kname, 0) <= 0:
+    for kname in cuda_build.kernels_of("gut", ("forward",)):
+        if fwd_launches.get(kname, 0) <= 0:
             fail(f"kernel {kname} was not launched on the forward main path")
     for k, out in enumerate(outs):
         for fld in ("rgb", "opacity", "depth", "transmittance", "hit_count"):
@@ -604,7 +913,10 @@ def main() -> int:
     # ---- 6. train main path at full width --------------------------------
     tr, view, train_launches, train_rec = train_main_path(dev, tag)
 
-    # ---- 7. kernels vs plain versions at the main paths' shapes ----------
+    # ---- 7. 3DGRT main path: bench_grt's configurations ------------------
+    grt_launches, (gp, g_o, g_d, g_inp) = grt_main_path(dev, tag)
+
+    # ---- 8. kernels vs plain versions at the main paths' shapes ----------
     pose = pose_from_matrix(torch.as_tensor(orbit_T(0), device=dev))
     with torch.no_grad():
         acts = (params.get_positions(), params.get_rotation(),
@@ -723,8 +1035,10 @@ def main() -> int:
         bound_ms=b1_bound[0], bound_by=b1_bound[1], library_ms=None))
 
     records += backward_records(tr, view, train_launches, tag)
+    records.append(grt_record(g_inp, grt_launches, tag))
+    del g_inp
 
-    # ---- 8. where a frame's and a train step's time goes -----------------
+    # ---- 9. where a frame's, a train step's and a trace's time goes ------
     def frame():
         with torch.no_grad():
             render_retry(api, params, cam, orbit_T(1), MAIN_RES, cap, dev)
@@ -733,7 +1047,17 @@ def main() -> int:
     print(f"profiled frame: {json.dumps(breakdown)} {tag}", flush=True)
     tbreak = profile_run(lambda: tr.train_step(view), ("train.", "3dgut."))
     print(f"profiled train step: {json.dumps(tbreak)} {tag}", flush=True)
-    if breakdown["device_busy_ms"] <= 0.0 or tbreak["device_busy_ms"] <= 0.0:
+
+    def trace():
+        with torch.no_grad():
+            api.trace(gp, g_o, g_d, device=dev,
+                      **grt_trace_kw(GRT_CONFIGS[0]))
+
+    gbreak = profile_run(trace, ("3dgrt.",))
+    print(f"profiled 3DGRT trace (100k): {json.dumps(gbreak)} {tag}",
+          flush=True)
+    if min(breakdown["device_busy_ms"], tbreak["device_busy_ms"],
+           gbreak["device_busy_ms"]) <= 0.0:
         fail("the profiler recorded no device time")
 
     for r in records:

@@ -1,7 +1,11 @@
 """The golden image of threedgrut_torch/golden/ stays what the JAX reference
-renders, and the port on the CPU reproduces it.
+renders, and the port on the CPU reproduces it and the 3DGRT golden trace.
 
-Run as `python -m tests.test_torch_golden` to rewrite the stored file."""
+Run as `python -m tests.test_torch_golden` to rewrite the stored frame, and
+as `python -m tests.test_torch_golden grt` to rewrite the 3DGRT trace."""
+import hashlib
+from pathlib import Path
+
 import numpy as np
 import jax.numpy as jnp
 import torch
@@ -31,6 +35,38 @@ def render_golden_jax():
         hit_visibility=True)
     assert not bool(overflow)
     return {k: np.asarray(getattr(out, k)) for k in golden.OUTPUTS}
+
+
+def trace_grt_golden_jax():
+    """JAX api.trace outputs of the 3DGRT golden trace (Pallas compositor in
+    interpret mode: minutes on the CPU)."""
+    f = golden.scene()
+    params = JGaussians(**{k: jnp.asarray(v) for k, v in f.items()})
+    o, d = golden.grt_rays()
+    out = japi.trace(params, jnp.asarray(o), jnp.asarray(d),
+                     **golden.GRT_TRACE_KW)
+    assert not bool(out.overflow)
+    return {k: np.asarray(getattr(out, k)) for k in golden.OUTPUTS}
+
+
+def grt_provenance() -> str:
+    """sha256 of what the 3DGRT golden trace was made from: every source
+    file of the JAX package (its trace path runs through most of them), the
+    scene, the rays and the trace settings. The regenerator stores it in the
+    file; a change to any of them makes the stored trace stale."""
+    h = hashlib.sha256()
+    root = Path(japi.__file__).resolve().parent
+    for f in sorted(root.rglob("*.py")):
+        h.update(str(f.relative_to(root)).encode())
+        h.update(f.read_bytes())
+    f = golden.scene()
+    for k in sorted(f):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(f[k]).tobytes())
+    for a in golden.grt_rays():
+        h.update(np.ascontiguousarray(a).tobytes())
+    h.update(repr(sorted(golden.GRT_TRACE_KW.items())).encode())
+    return h.hexdigest()
 
 
 def test_golden_file_matches_jax():
@@ -63,10 +99,40 @@ def test_port_matches_golden_on_cpu():
     assert ok, rep
 
 
+def test_port_matches_grt_golden_on_cpu():
+    """The port's trace (plain B7 on the CPU) reproduces the stored JAX
+    3DGRT golden trace within golden.compare, and the trace shows much."""
+    params = from_numpy(golden.scene(), device="cpu")
+    o, d = golden.grt_rays()
+    with torch.no_grad():
+        out = tapi.trace(params, o, d, device="cpu", **golden.GRT_TRACE_KW)
+    assert not bool(out.overflow)
+    want = golden.load_grt()
+    rep, ok = golden.compare(out, want)
+    assert ok, rep
+    assert (want["opacity"] > 0.5).mean() > 0.5
+    assert want["hit_count"].max() > 16
+
+
+def test_grt_golden_file_is_current():
+    """The stored 3DGRT golden trace was made by this JAX package from these
+    inputs (re-tracing it with JAX takes minutes, so its provenance hash
+    stands in): rewrite it with `python -m tests.test_torch_golden grt`
+    when this fails."""
+    with np.load(golden.GRT_PATH) as d:
+        stored = str(d["provenance"])
+    assert stored == grt_provenance()
+
+
 if __name__ == "__main__":
+    import sys
     import jax
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_default_matmul_precision", "highest")
-    outs = render_golden_jax()
-    np.savez_compressed(golden.PATH, **outs)
-    print("wrote", golden.PATH, golden.PATH.stat().st_size, "bytes")
+    if sys.argv[1:] == ["grt"]:
+        path, outs = golden.GRT_PATH, trace_grt_golden_jax()
+        outs["provenance"] = np.array(grt_provenance())
+    else:
+        path, outs = golden.PATH, render_golden_jax()
+    np.savez_compressed(path, **outs)
+    print("wrote", path, path.stat().st_size, "bytes")

@@ -85,4 +85,10 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
         api.render(params, example_camera((32, 32), "cpu"), pose, (32, 32),
                    isect_capacity=1024)
     with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.render(params, example_camera((32, 32), "cpu"), pose, (32, 32),
+                   method="3dgrt", isect_capacity=1024)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.trace(params, np.zeros((256, 3), np.float32),
+                  np.ones((256, 3), np.float32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         api.load_scene(str(ROOT / "missing.npz"))

@@ -12,7 +12,11 @@ sequential transmittance); whole frames card vs CPU within golden.compare.
 B2: atol 1e-5 x each column's max (the same per-pixel values, summed over
 the tile's pixels in another order), the nonzero slots exactly equal. B5,
 B6: within segment_sum.f32_sum_bound (sequential f32 sums against the
-plain f64 ones)."""
+plain f64 ones). B7: rows 0-5 atol 2e-4 / rtol 1e-4 (the same per-pair
+alpha; products and colour sums in another order), hit counts off by at
+most 1 on at most 0.1% of the rays and walked windows equal on all but
+0.1% of the bundles (a T_before at min_transmittance may flip); traces and
+3DGRT frames card vs CPU within golden.compare."""
 import os
 import shutil
 
@@ -23,9 +27,9 @@ import torch
 from threedgrut_torch import api, golden
 from threedgrut_torch.cameras import example_camera, look_at, pose_from_matrix
 from threedgrut_torch.model.gaussians import bench_scene, from_numpy
-from threedgrut_torch.ops import (cuda_build, expand, segment_sum,
-                                  tile_raster, tiles)
-from threedgrut_torch.render import gut
+from threedgrut_torch.ops import (bundle_trace, cuda_build, expand,
+                                  segment_sum, tile_raster, tiles)
+from threedgrut_torch.render import grt, gut
 
 pytestmark = pytest.mark.cuda
 
@@ -237,3 +241,130 @@ def test_train_step_card_matches_cpu(dev, walk_compact_fraction):
     # threshold may flip (golden.compare's 0.1% allowance).
     flips = int((card["visibility"].cpu() != cpu["visibility"]).sum())
     assert flips <= max(1, int(1e-3 * cpu["visibility"].numel()))
+
+
+def grt_scene(device, n=20_000, side=128):
+    """bench_grt's seeded scene at n Gaussians as parameters, and its
+    side x side ray grid from (0, 0, -4) in 16x16-tile order."""
+    rng = np.random.default_rng(0)
+    pos = rng.normal(0, 1.0, (n, 3)).astype(np.float32)
+    q = rng.normal(size=(n, 4)).astype(np.float32)
+    s = np.exp(rng.uniform(np.log(0.01), np.log(0.05), (n, 3)))
+    feats = np.zeros((n, 16, 3), np.float32)
+    feats[:, 0] = rng.uniform(-1, 1, (n, 3))
+    from threedgrut_torch.model.gaussians import from_arrays
+    params = from_arrays(pos, q, np.log(s).astype(np.float32),
+                         np.zeros((n, 1), np.float32), feats[:, 0],
+                         feats[:, 1:].reshape(n, 45), device=device)
+    px = (np.arange(side) + 0.5) / side * 0.8 - 0.4
+    gx, gy = np.meshgrid(px, px, indexing="xy")
+    d = np.stack([gx, gy, np.ones_like(gx)], -1).astype(np.float32)
+    t = side // 16
+    d = d.reshape(t, 16, t, 16, 3).transpose(0, 2, 1, 3, 4).reshape(-1, 3)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = np.tile(np.array([[0.0, 0.0, -4.0]], np.float32), (side * side, 1))
+    return params, o, d
+
+
+def grt_inputs(dev, passes):
+    params, o, d = grt_scene(dev)
+    acts = [x.detach() for x in (params.get_positions(),
+                                 params.get_rotation(), params.get_scale(),
+                                 params.get_density(), params.get_features())]
+    o, d = torch.tensor(o, device=dev), torch.tensor(d, device=dev)
+    with torch.no_grad():
+        radius = grt.bounding_radius(acts[2], acts[3], 4)
+        ci, cn, ovf, _ = grt.bundle_candidates_twolevel(
+            acts[0], radius, acts[3] >= 1.0 / 255.0, o, d, 256, 2048,
+            super_capacity=8192)
+        assert not bool(ovf)
+        fi, valid, ws, we, _, _ = grt.flatten_candidates(
+            ci, cn, 128 * int((-(-cn // 128)).sum()))
+        data = grt.pack_rows64(*acts)[fi.long()]
+        data[:, 12] *= valid
+    rays = torch.cat([o, d, torch.zeros_like(o[:, :2])], -1)
+    rays[:, 7] = 1.0
+    rays = rays.reshape(-1, 256, 8).transpose(1, 2).contiguous()
+    return (data, rays, ws, we, 4, 3, 1e-3, 0.0113, 1.0 / 255.0, 0.99,
+            passes)
+
+
+def assert_b7_close(k, p):
+    torch.testing.assert_close(k[:, 0:6], p[:, 0:6], atol=2e-4, rtol=1e-4)
+    dh = (k[:, 6] - p[:, 6]).abs()
+    assert float(dh.max()) <= 1
+    assert int((dh > 0).sum()) <= max(1, int(1e-3 * dh.numel()))
+    dw = int((k[:, 7, 0] != p[:, 7, 0]).sum())
+    assert dw <= max(1, int(1e-3 * k.shape[0]))
+
+
+@pytest.mark.parametrize("passes", [0, 16])
+def test_bundle_trace_kernel_matches_plain(dev, passes):
+    args = grt_inputs(dev, passes)
+    before = cuda_build.launches["bundle_trace_fwd"]
+    k = bundle_trace._launch(*args)
+    assert cuda_build.launches["bundle_trace_fwd"] == before + 1
+    p = bundle_trace.bundle_composite_plain(*args)
+    torch.cuda.synchronize()
+    assert_b7_close(k, p)
+    assert float(k[:, 3].max()) > 0.5 and float(k[:, 7].min()) >= 1
+
+
+def test_bundle_trace_kernel_edge_cases(dev):
+    """A zero-window bundle writes its initial transmittance and zeros;
+    inactive rays (zero direction) composite nothing; a bound t_max cuts."""
+    data, rays, ws, we, *rest = grt_inputs(dev, 16)
+    we = we.clone()
+    we[3] = ws[3]
+    rays = rays.clone()
+    rays[5, 7] = 0.5
+    rays[4, 3:6, :32] = 0.0
+    rays[6, 6] = 4.5
+    k = bundle_trace._launch(data, rays, ws, we, *rest)
+    p = bundle_trace.bundle_composite_plain(data, rays, ws, we, *rest)
+    torch.cuda.synchronize()
+    assert_b7_close(k, p)
+    assert float(k[3, [0, 1, 2, 3, 4, 6, 7]].abs().max()) == 0.0
+    assert torch.equal(k[3, 5], rays[3, 7])
+    assert float(k[4, 3, :32].abs().max()) == 0.0
+
+
+def test_api_trace_card_matches_cpu(dev):
+    frames = []
+    for device in (dev, "cpu"):
+        cuda_build.launches.clear()
+        params, o, d = grt_scene(device)
+        with torch.no_grad():
+            out = api.trace(params, o, d, device=device,
+                            candidate_capacity=2048, super_capacity=8192)
+        assert not bool(out.overflow)
+        frames.append(out)
+        if device == dev:
+            assert dict(cuda_build.launches) == {"bundle_trace_fwd": 1}
+    rep, ok = golden.compare(*frames)
+    assert ok, rep
+
+
+def test_api_render_3dgrt_card_matches_cpu(dev):
+    res = (128, 96)
+    frames = []
+    for device in (dev, "cpu"):
+        p, cam, pose = scene(5000, res, device)
+        with torch.no_grad():
+            out, ovf = api.render(p, cam, pose, res, method="3dgrt",
+                                  isect_capacity=1 << 18, device=device)
+        assert not bool(ovf)
+        frames.append(out)
+    rep, ok = golden.compare(*frames)
+    assert ok, rep
+
+
+def test_grt_golden_trace_on_the_card(dev):
+    params = from_numpy(golden.scene(), device=dev)
+    o, d = golden.grt_rays()
+    with torch.no_grad():
+        out = api.trace(params, o, d, device=dev, **golden.GRT_TRACE_KW)
+    assert not bool(out.overflow)
+    rep, ok = golden.compare(out, golden.load_grt())
+    assert ok, rep
+

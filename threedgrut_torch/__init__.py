@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of the 3DGUT renderer and trainer of `threedgrut_tpu`.
+"""PyTorch/CUDA port of the 3DGUT renderer and trainer and of the 3DGRT
+tracer's forward of `threedgrut_tpu`.
 
 The JAX package beside this one is the reference: every module here mirrors
 its counterpart there and is held against it by the `tests/test_torch_*.py`
@@ -6,8 +7,9 @@ files. Importing this package needs only torch and numpy; the CUDA kernels
 under `csrc/` are compiled on first use (`ops/cuda_build.py`), never at
 import time.
 
-Entry points: `api.load_scene`, `api.render`, `render.gut.render` and
-`trainer.Trainer` (with `datasets.dataset_synthetic.SyntheticDataset`). They
+Entry points: `api.load_scene`, `api.render` (method "3dgut" or "3dgrt"),
+`api.trace`, `render.gut.render`, `render.grt.trace` and `trainer.Trainer`
+(with `datasets.dataset_synthetic.SyntheticDataset`). They
 run on the card (`device="cuda"`) unless the caller asks for
 `device="cpu"`, where each kernel is replaced by its plain PyTorch version.
 """

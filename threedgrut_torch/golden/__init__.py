@@ -1,4 +1,4 @@
-"""A golden image from the JAX reference, for holding the port against it
+"""Golden outputs from the JAX reference, for holding the port against it
 where JAX is not installed (the card's machine), and the tolerances a
 rendered frame is held to against any reference frame (`compare`).
 
@@ -8,6 +8,15 @@ seeded benchmark scene (SH degree 3, nonzero specular), scales raised 8x so
 that splats cover pixels at 64x64, seen from (0, -4, 1). The test
 `tests/test_torch_golden.py` renders it again with JAX and checks the stored
 file, so it cannot go stale; `python -m tests.test_torch_golden` rewrites it.
+
+`grt_2k_128.npz` holds the JAX package's `api.trace` outputs (3DGRT, the
+bundle route with 16 re-sort passes) for the same scene and a 128x128 grid
+of rays from (0, -4, 1) in 16x16-tile order: 64 bundles, so the two-level
+cull runs (super capacity 1024 < 2000 Gaussians), with no overflow.
+Regenerating it runs the Pallas compositor in interpret mode for minutes, so
+no test does; the file also stores a hash of the JAX package's sources and
+of these inputs, which the same test file checks, and `python -m
+tests.test_torch_golden grt` rewrites it.
 """
 from __future__ import annotations
 
@@ -21,6 +30,7 @@ from threedgrut_torch.cameras import look_at
 from threedgrut_torch.model.gaussians import bench_scene
 
 PATH = Path(__file__).resolve().parent / "gut_2k_64.npz"
+GRT_PATH = Path(__file__).resolve().parent / "grt_2k_128.npz"
 N = 2000
 RESOLUTION = (64, 64)
 ISECT_CAPACITY = 1 << 13
@@ -30,6 +40,15 @@ OUTPUTS = ("rgb", "opacity", "depth", "transmittance", "hit_count",
 # Largest difference allowed where a threshold flip moved a value (compare).
 FLIP_BOUND = {"rgb": 0.05, "opacity": 0.05, "depth": 0.1,
               "transmittance": 0.05}
+# compare's share of values allowed to flip, for a whole 3DGRT trace run on
+# two devices. The cone cull's arithmetic (activations, means, dot
+# products) rounds differently on the card and the CPU, so a particle at a
+# cone's margin can enter a bundle's list on one side only (10 of 64
+# bundles at bench_grt's 100k scene). It composites nothing itself, but the
+# bundle's later candidates move by a row, windows break at other rows, and
+# the 16-pass re-sort, bounded to a window, orders some rays' hits
+# differently: hit counts move by 1 on ~0.2% of rays there.
+TRACE_FLIP_SHARE = 5e-3
 
 
 def scene() -> Dict[str, np.ndarray]:
@@ -45,17 +64,48 @@ def camera_to_world() -> np.ndarray:
                    np.array([0.0, 0.0, 1.0], np.float32))
 
 
+GRT_SIDE = 128
+# grt.trace keywords of the 3DGRT golden trace (candidate counts are at
+# most 340 per bundle and 930 per super list there).
+GRT_TRACE_KW = dict(kernel_degree=4, candidate_capacity=512,
+                    super_capacity=1024, flat_capacity=1 << 14,
+                    sorted_passes=16)
+
+
+def grt_rays():
+    """(origins, unit directions) [128*128, 3] float32 of the 3DGRT golden
+    trace: a pinhole-like grid from (0, -4, 1) looking along +y and slightly
+    down, in 16x16-tile (bundle) order."""
+    side = GRT_SIDE
+    o = np.tile(np.array([[0.0, -4.0, 1.0]], np.float32), (side * side, 1))
+    px = (np.arange(side) + 0.5) / side * 0.8 - 0.4
+    gx, gy = np.meshgrid(px, px, indexing="xy")
+    d = np.stack([gx, np.ones_like(gx), -gy - 0.25], -1).astype(np.float32)
+    t = side // 16
+    d = d.reshape(t, 16, t, 16, 3).transpose(0, 2, 1, 3, 4).reshape(-1, 3)
+    return o, (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(
+        np.float32)
+
+
+def load_grt() -> Dict[str, np.ndarray]:
+    """The stored JAX outputs of the 3DGRT golden trace."""
+    with np.load(GRT_PATH) as d:
+        return {k: d[k] for k in OUTPUTS}
+
+
 def load() -> Dict[str, np.ndarray]:
     """The stored JAX outputs (hit_visibility=True render)."""
     with np.load(PATH) as d:
         return {k: d[k] for k in OUTPUTS}
 
 
-def compare(got, want):
+def compare(got, want, flip_share: float = 1e-3):
     """Differences of the frame `got` against the reference frame `want`
     (objects or dicts with the RenderOutputs fields; tensors on any device
     or arrays) and whether they lie within the port's tolerances. Returns
-    (report, ok).
+    (report, ok). `flip_share` (default 0.1%) is the share of values
+    allowed to flip, as below; TRACE_FLIP_SHARE for a whole 3DGRT trace
+    run on two devices.
 
     Tolerances and why:
       * rgb, opacity, depth, transmittance: atol 2e-4, rtol 1e-4 on all but
@@ -81,7 +131,7 @@ def compare(got, want):
         return np.asarray(x)
 
     def allowed(size):
-        return max(1, math.floor(1e-3 * size))
+        return max(1, math.floor(flip_share * size))
 
     rep, ok = {}, True
     for k, bound in FLIP_BOUND.items():

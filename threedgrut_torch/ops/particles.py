@@ -64,15 +64,30 @@ class HitResult(NamedTuple):
 
 def particle_hit(position, quat, scale, density, ray_o, ray_d,
                  kernel_degree: int, min_response: float = MIN_KERNEL_RESPONSE,
-                 min_alpha: float = MIN_ALPHA,
-                 max_alpha: float = MAX_ALPHA) -> HitResult:
+                 min_alpha: float = MIN_ALPHA, max_alpha: float = MAX_ALPHA,
+                 surfel: bool = False) -> HitResult:
     """One particle against one ray, broadcast over leading dims. `density`
-    is the post-activation opacity; rejected hits return alpha 0."""
+    is the post-activation opacity; rejected hits return alpha 0.
+
+    `surfel=True` is the 2DGS barycentric-surfel variant: the response is
+    taken where the ray meets the particle's canonical z = 0 plane, and the
+    hit distance is the scaled plane-intersection distance; rays parallel
+    to the plane never hit."""
     gro, grd = canonical_ray(position, quat, scale, ray_o, ray_d)
     grd_b, gro_b = torch.broadcast_tensors(grd, gro)
-    gcrod = torch.linalg.cross(grd_b, gro_b, dim=-1)
-    gray_dist = torch.sum(gcrod * gcrod, dim=-1)
-    proj = torch.sum(grd * (-gro), dim=-1)
+    if surfel:
+        gz = grd_b[..., 2]
+        hits_plane = torch.abs(gz) > 1e-9
+        t_pl = -gro_b[..., 2] / torch.where(hits_plane, gz,
+                                            torch.ones_like(gz))
+        pt = gro_b + grd_b * t_pl[..., None]
+        gray_dist = torch.where(hits_plane, torch.sum(pt * pt, dim=-1),
+                                torch.full_like(gz, float("inf")))
+        proj = t_pl
+    else:
+        gcrod = torch.linalg.cross(grd_b, gro_b, dim=-1)
+        gray_dist = torch.sum(gcrod * gcrod, dim=-1)
+        proj = torch.sum(grd * (-gro), dim=-1)
     response = kernel_response(
         torch.where(torch.isfinite(gray_dist), gray_dist,
                     torch.full_like(gray_dist, 1e6)), kernel_degree)
@@ -83,3 +98,30 @@ def particle_hit(position, quat, scale, density, ray_o, ray_d,
     alpha = torch.where(accept, alpha, torch.zeros_like(alpha))
     return HitResult(alpha=alpha, accept=accept, hit_t=hit_t,
                      response=response, gray_dist=gray_dist, proj=proj)
+
+
+def particle_normal(position, quat, scale, ray_o, ray_d,
+                    ellipsoid_sq_radius: float = 9.0, eps: float = 1e-12,
+                    surfel: bool = False) -> torch.Tensor:
+    """Unit surface normal where the ray meets the particle's iso-response
+    ellipsoid (canonical squared radius `ellipsoid_sq_radius`), in world
+    space. Surfels give (0, 0, sign(grd.z) (R scale).z), normalised."""
+    R = quaternion.to_rotation_matrix(quat)
+    gro, grd = canonical_ray(position, quat, scale, ray_o, ray_d)
+    grd, gro = torch.broadcast_tensors(grd, gro)
+    if surfel:
+        srot_z = torch.einsum("...ij,...j->...i", R, scale)[..., 2]
+        sign = torch.where(grd[..., 2] > 0, 1.0, -1.0)
+        z = sign * srot_z
+        zero = torch.zeros_like(z)
+        out = torch.stack([zero, zero, z], dim=-1)
+    else:
+        gcrod = torch.linalg.cross(grd, gro, dim=-1)
+        gray_dist = torch.sum(gcrod * gcrod, dim=-1)
+        proj = torch.sum(grd * (-gro), dim=-1)
+        t_surf = proj - torch.sqrt(
+            torch.clamp(ellipsoid_sq_radius - gray_dist, min=0.0))
+        p = gro + grd * t_surf[..., None]
+        out = torch.einsum("...ij,...j->...i", R, p * scale)
+    norm = torch.linalg.norm(out, dim=-1, keepdim=True)
+    return out / torch.clamp(norm, min=eps)

@@ -77,3 +77,11 @@ def sorted_gather(packed: torch.Tensor, sorted_idx: torch.Tensor,
     tile range and never composite."""
     return _SortedGather.apply(packed, sorted_idx, particle_ends,
                                grad_precision)
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[idx] for arbitrary (repeating) row ids [m]: the forward of the
+    JAX package's gather_rows (the 3DGRT candidate row gather). Its
+    scatter-free backward (sort by id, then B6) comes with the 3DGRT train
+    step; the compositor behind it has no backward yet either."""
+    return table[idx.long()]

@@ -36,12 +36,14 @@ _F = ctypes.c_float
 
 def _tile_pairs(S, ray, degree, min_response, min_alpha, max_alpha,
                 has_t_max):
-    """Pair quantities of a tile's slot rows S [K, 16] against its rays
-    [8, PIX], each [K, PIX] (or [K, 1]): the plain form of
-    csrc/tile_pair.cuh. `alpha` is zero where the hit is not accepted."""
-    o, d = ray[0:3], ray[3:6]                         # [3, PIX]
-    a = [S[:, i:i + 1] for i in range(9)]             # [K, 1]
-    w0 = [o[i][None, :] - S[:, 9 + i:10 + i] for i in range(3)]
+    """Pair quantities of a tile's slot rows S [..., K, >= 13] against its
+    rays [..., 8, PIX], each [..., K, PIX] (or [..., K, 1]): the plain form
+    of csrc/tile_pair.cuh, batched over any leading dims. `alpha` is zero
+    where the hit is not accepted."""
+    o = [ray[..., i:i + 1, :] for i in range(3)]      # [..., 1, PIX]
+    d = [ray[..., 3 + i:4 + i, :] for i in range(3)]
+    a = [S[..., i:i + 1] for i in range(9)]           # [..., K, 1]
+    w0 = [o[i] - S[..., 9 + i:10 + i] for i in range(3)]
     u = [a[3 * r] * w0[0] + a[3 * r + 1] * w0[1] + a[3 * r + 2] * w0[2]
          for r in range(3)]
     v = [a[3 * r] * d[0] + a[3 * r + 1] * d[1] + a[3 * r + 2] * d[2]
@@ -55,13 +57,13 @@ def _tile_pairs(S, ray, degree, min_response, min_alpha, max_alpha,
     # The kernels keep sqrt away from 0, as the JAX kernel does.
     g_resp = torch.clamp(g, min=1e-12) if degree in (0, 1, 3, 5) else g
     resp = kernel_response(g_resp, degree)
-    alpha_raw = resp * S[:, 12:13]
+    alpha_raw = resp * S[..., 12:13]
     alpha = torch.clamp(alpha_raw, max=max_alpha)
     vdotu = v[0] * u[0] + v[1] * u[1] + v[2] * u[2]
     hit_t = torch.abs(vdotu) * inv_vsq
     accept = (resp > min_response) & (alpha > min_alpha)
     if has_t_max:
-        tmax = ray[6][None, :]
+        tmax = ray[..., 6:7, :]
         accept &= (tmax <= 0.0) | (hit_t <= tmax)
     alpha = torch.where(accept, alpha, torch.zeros_like(alpha))
     return dict(w0=w0, u=u, v=v, cr=cr, inv_vsq=inv_vsq, g=g, resp=resp,

@@ -1,0 +1,652 @@
+"""3DGRT: volumetric Gaussian tracing of arbitrary rays, port of
+threedgrut_tpu/render/grt.py (the forward of its default "bundle" route and
+its exact "ray" oracle).
+
+Rays are grouped into bundles of 256. A two-level cone cull (super bundles
+of 16 Morton-adjacent bundles, then each bundle against its super's list)
+stands in for the reference's BVH and gives every bundle a depth-sorted
+candidate list; `flatten_candidates` lays the lists out in one flat array
+of 128-row windows; `pack_rows64` and a row gather give each slot its
+64-float row; the bundle compositor (kernel B7, ops/bundle_trace.py)
+composites each ray front to back with a bounded per-ray re-sort.
+
+Every stage of the fast path runs under a `torch.profiler.record_function`
+label: "3dgrt.cull", "3dgrt.flatten", "3dgrt.pack", "3dgrt.gather",
+"3dgrt.composite". The culls and the flat layout are discrete decisions and
+run without autograd. Gradients through the compositor need kernel B8, which
+is not ported yet: its backward raises.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+from torch.profiler import record_function
+
+from threedgrut_torch import constants as C
+from threedgrut_torch.ops import bundle_trace
+from threedgrut_torch.ops import particles as particle_ops
+from threedgrut_torch.ops import quaternion
+from threedgrut_torch.ops import sh as sh_ops
+from threedgrut_torch.ops.compositing import composite
+from threedgrut_torch.ops.sorted_gather import gather_rows
+
+CHUNK = bundle_trace.CHUNK
+# A bundle whose rays deviate more than ~72 degrees from the mean axis has
+# no usable cone: it accepts every particle.
+_MIN_BUNDLE_COS = 0.3
+SUPER_MULT = 16
+
+
+class TraceResult(NamedTuple):
+    rgb: torch.Tensor            # [R, 3]
+    opacity: torch.Tensor        # [R]
+    depth: torch.Tensor          # [R]
+    transmittance: torch.Tensor  # [R]
+    hit_count: torch.Tensor      # [R]
+    overflow: torch.Tensor       # [] bool: a capacity was exceeded
+    visibility: torch.Tensor     # [N] bool: entered some candidate list
+    normal: Optional[torch.Tensor] = None  # [R, 3] weighted surface normal
+
+
+def bounding_radius(scales, opacities, kernel_degree: int,
+                    min_alpha: float = C.MIN_ALPHA,
+                    min_response: float = C.MIN_KERNEL_RESPONSE,
+                    density_clamping: bool = False) -> torch.Tensor:
+    """World-space radius of each particle's iso-response surface at the
+    acceptance threshold: response * opacity >= min_alpha and response >=
+    min_response, canonical squared distance at most 9. With
+    `density_clamping` the response floor is raised to
+    min(min_response / opacity, 0.97) (eval-time kernel clamping)."""
+    s = C.GG_SCALE[kernel_degree]
+    opa = torch.clamp(opacities, min=1e-12)
+    floor = torch.clamp(min_alpha / opa, min=min_response)
+    if density_clamping:
+        floor = torch.maximum(floor, torch.clamp(min_response / opa,
+                                                 max=0.97))
+    floor = torch.clamp(floor, max=0.9999)
+    if kernel_degree == 0:
+        rc = (1.0 - floor) / (-s)
+        d_max = rc * rc
+    else:
+        d_max = torch.pow(torch.log(floor) / s, 2.0 / kernel_degree)
+    d_max = torch.clamp(d_max, max=C.MAX_PARTICLE_SQ_DISTANCE)
+    return torch.amax(scales, dim=-1) * torch.sqrt(d_max)
+
+
+class Bundles(NamedTuple):
+    origin: torch.Tensor       # [nb, 3] mean origin
+    direction: torch.Tensor    # [nb, 3] unit mean direction
+    base_radius: torch.Tensor  # [nb] max |o_r - o_b|
+    tan_spread: torch.Tensor   # [nb] max tangent of ray-to-axis angle
+    coherent: torch.Tensor     # [nb] bool: the cone test is meaningful
+
+
+def _unit(x, dim=-1):
+    return x / torch.clamp(torch.linalg.norm(x, dim=dim, keepdim=True),
+                           min=1e-12)
+
+
+def make_bundles(rays_o, rays_d, bundle_size: int) -> Bundles:
+    nb = rays_o.shape[0] // bundle_size
+    o = rays_o.reshape(nb, bundle_size, 3)
+    d = rays_d.reshape(nb, bundle_size, 3)
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    ob = o.mean(1)
+    db = _unit(d.mean(1))
+    base = torch.linalg.norm(o - ob[:, None], dim=-1).amax(1)
+    cosang = torch.einsum("nbi,ni->nb", d, db)
+    coherent = cosang.amin(1) > _MIN_BUNDLE_COS
+    cosang = torch.clamp(cosang, _MIN_BUNDLE_COS, 1.0)
+    sinang = torch.sqrt(torch.clamp(1.0 - cosang * cosang, 0.0, 1.0))
+    tan = (sinang / cosang).amax(1)
+    return Bundles(ob, db, base, tan, coherent)
+
+
+def _cone_hit(positions, radius, valid, bundles: Bundles):
+    """Conservative cone test: (hit [nb, N] bool, t_ax [nb, N])."""
+    v = positions[None, :, :] - bundles.origin[:, None, :]
+    t_ax = torch.einsum("bni,bi->bn", v, bundles.direction)
+    d_ax = torch.sqrt(torch.clamp(torch.sum(v * v, dim=-1) - t_ax * t_ax,
+                                  min=0.0))
+    limit = (radius[None, :] + bundles.base_radius[:, None]
+             + torch.clamp(t_ax, min=0.0) * bundles.tan_spread[:, None])
+    cone_ok = (d_ax <= limit) & (t_ax >= -radius[None, :])
+    hit = valid[None, :] & (cone_ok | ~bundles.coherent[:, None])
+    return hit, t_ax
+
+
+def _nearest_first(key, k: int):
+    """Indices of the k largest entries of key [..., M] per row, ties to
+    the lower index first (XLA's top_k order), as int32."""
+    return torch.sort(key, dim=-1, descending=True,
+                      stable=True).indices[..., :k].to(torch.int32)
+
+
+def bundle_candidates(positions, radius, valid, bundles: Bundles,
+                      capacity: int):
+    """Single-level cone test + per-bundle compaction. Returns (cand_idx
+    [nb, capacity] int32 depth-ascending, counts [nb] int32 clamped to
+    capacity, overflow [] bool, visibility [N] bool)."""
+    hit, t_ax = _cone_hit(positions, radius, valid, bundles)
+    counts = hit.sum(1, dtype=torch.int32)
+    overflow = (counts > capacity).any()
+    key = torch.where(hit, -t_ax, torch.full_like(t_ax, -math.inf))
+    k = min(capacity, key.shape[1])
+    cand_idx = _nearest_first(key, k)
+    if k < capacity:
+        cand_idx = torch.nn.functional.pad(cand_idx, (0, capacity - k))
+    return (cand_idx, torch.clamp(counts, max=capacity), overflow,
+            hit.any(0))
+
+
+def _morton_16(u: torch.Tensor) -> torch.Tensor:
+    """Interleave the low 16 bits of u with zeros (part1by1)."""
+    u = (u | (u << 8)) & 0x00FF00FF
+    u = (u | (u << 4)) & 0x0F0F0F0F
+    u = (u | (u << 2)) & 0x33333333
+    u = (u | (u << 1)) & 0x55555555
+    return u
+
+
+def bundle_morton_order(bundles: Bundles) -> torch.Tensor:
+    """Permutation [nb] int32 grouping direction-adjacent bundles: Morton
+    code of the bundle directions projected onto the plane orthogonal to
+    their mean, so consecutive 16 bundles form compact super cones."""
+    d = bundles.direction
+    dm = _unit(d.mean(0))
+    ex = torch.tensor([1.0, 0.0, 0.0], device=d.device)
+    ey = torch.tensor([0.0, 1.0, 0.0], device=d.device)
+    a = torch.where(torch.abs(dm[0]) < 0.9, ex, ey)
+    e1 = _unit(torch.linalg.cross(dm, a))
+    e2 = torch.linalg.cross(dm, e1)
+
+    def quant(x):
+        lo, hi = x.min(), x.max()
+        q = (x - lo) / torch.clamp(hi - lo, min=1e-12) * 1023.0
+        return q.to(torch.int32)
+
+    code = _morton_16(quant(d @ e1)) | (_morton_16(quant(d @ e2)) << 1)
+    return torch.sort(code, stable=True).indices.to(torch.int32)
+
+
+def make_super_bundles(member: Bundles, perm, super_mult: int) -> Bundles:
+    """Super cones bounding every member ray of `super_mult` consecutive
+    bundles of the permuted order: the base covers the member origin
+    offsets and bases; the spread is the tangent-addition bound with each
+    member's axis deviation (a member that makes it meaningless marks the
+    super incoherent, which accepts every particle)."""
+    nb = member.origin.shape[0]
+    ns = nb // super_mult
+    p = perm.long()
+    o = member.origin[p].reshape(ns, super_mult, 3)
+    d = member.direction[p].reshape(ns, super_mult, 3)
+    base = member.base_radius[p].reshape(ns, super_mult)
+    tan = member.tan_spread[p].reshape(ns, super_mult)
+    coh = member.coherent[p].reshape(ns, super_mult)
+    os_ = o.mean(1)
+    ds = _unit(d.mean(1))
+    base_s = (torch.linalg.norm(o - os_[:, None], dim=-1) + base).amax(1)
+    dot = torch.einsum("nmi,ni->nm", d, ds)
+    cosphi = torch.clamp(dot, _MIN_BUNDLE_COS, 1.0)
+    tanphi = torch.sqrt(torch.clamp(1.0 - cosphi * cosphi, 0.0, 1.0)) / cosphi
+    denom = 1.0 - tan * tanphi
+    ok = (denom > 0.2) & (dot > _MIN_BUNDLE_COS)
+    tan_s = torch.where(ok, (tan + tanphi) / torch.clamp(denom, min=0.2),
+                        torch.zeros_like(tan)).amax(1)
+    coherent = (coh & ok).all(1)
+    return Bundles(os_, ds, base_s, tan_s, coherent)
+
+
+def bundle_candidates_twolevel(positions, radius, valid, rays_o, rays_d,
+                               bundle_size: int, capacity: int,
+                               super_mult: int = SUPER_MULT,
+                               super_capacity: int = 8192):
+    """Two-level cull: super bundles of `super_mult` Morton-adjacent
+    bundles compact the particles to `super_capacity` candidates each
+    (nearest by super-axis depth), then each member bundle tests its
+    super's list and sorts its hits by its own axis depth (stable: ties keep
+    the super-list order). The super cones bound every member ray, so the
+    candidate sets are the single-level ones when no list overflowed;
+    `visibility` is the super-level hit, a superset of the single-level one.
+
+    Returns (cand_idx [nb, L] int32 depth-ascending, counts [nb] int32
+    clamped to L = min(capacity, super list width), overflow [] bool (either
+    level), visibility [N] bool), in caller bundle order."""
+    n = positions.shape[0]
+    nb = rays_o.shape[0] // bundle_size
+    ns = nb // super_mult
+    if ns * super_mult != nb:
+        raise ValueError(f"{nb} bundles are not a multiple of {super_mult}")
+    s_cap = min(super_capacity, n)
+    bundles = make_bundles(rays_o, rays_d, bundle_size)
+    perm = bundle_morton_order(bundles)
+    sup = make_super_bundles(bundles, perm, super_mult)
+    hit1, t_ax1 = _cone_hit(positions, radius, valid, sup)        # [ns, N]
+    counts1 = hit1.sum(1, dtype=torch.int32)
+    overflow1 = (counts1 > s_cap).any()
+    visibility = hit1.any(0)
+    sup_idx = _nearest_first(
+        torch.where(hit1, -t_ax1, torch.full_like(t_ax1, -math.inf)), s_cap)
+    del hit1, t_ax1
+    sup_mask = (torch.arange(s_cap, device=positions.device)[None, :]
+                < torch.clamp(counts1, max=s_cap)[:, None])
+
+    # Level 2: each permuted bundle against its super's list. The cone test
+    # expands |p - o|^2 into dot products (the JAX form), so hits at the
+    # cone margin are decided by the same arithmetic.
+    pr = torch.cat([positions, radius[:, None]], dim=-1)
+    pr_s = pr[sup_idx.reshape(-1).long()].reshape(ns, s_cap, 4)
+    p_s, r_s = pr_s[..., :3], pr_s[..., 3]
+    pl = perm.long()
+    ob = bundles.origin[pl].reshape(ns, super_mult, 3)
+    db = bundles.direction[pl].reshape(ns, super_mult, 3)
+    base = bundles.base_radius[pl].reshape(ns, super_mult)
+    tan = bundles.tan_spread[pl].reshape(ns, super_mult)
+    coh = bundles.coherent[pl].reshape(ns, super_mult)
+    t_ax = (torch.einsum("nsc,nmc->nms", p_s, db)
+            - torch.einsum("nmc,nmc->nm", ob, db)[:, :, None])
+    pp = torch.sum(p_s * p_s, dim=-1)
+    po = torch.einsum("nsc,nmc->nms", p_s, ob)
+    oo = torch.sum(ob * ob, dim=-1)
+    d_sq = pp[:, None, :] - 2.0 * po + oo[..., None] - t_ax * t_ax
+    del po
+    d_ax = torch.sqrt(torch.clamp(d_sq, min=0.0))
+    del d_sq
+    limit = (r_s[:, None, :] + base[..., None]
+             + torch.clamp(t_ax, min=0.0) * tan[..., None])
+    cone_ok = (d_ax <= limit) & (t_ax >= -r_s[:, None, :])
+    del d_ax, limit
+    hit2 = sup_mask[:, None, :] & (cone_ok | ~coh[..., None])
+    counts2 = hit2.sum(-1, dtype=torch.int32)                    # [ns, m]
+    overflow = overflow1 | (counts2 > capacity).any()
+
+    keep = min(capacity, s_cap)
+    key2 = torch.where(hit2, t_ax, torch.full_like(t_ax, math.inf))
+    del hit2, t_ax
+    order = torch.sort(key2, dim=-1, stable=True).indices[..., :keep]
+    del key2
+    gid = torch.gather(sup_idx[:, None, :].expand(ns, super_mult, s_cap), -1,
+                       order)
+    cand_idx = gid.reshape(nb, keep)
+    counts = torch.clamp(counts2, max=keep).reshape(nb)
+    iperm = torch.empty_like(pl)
+    iperm[pl] = torch.arange(nb, device=pl.device)
+    return cand_idx[iperm], counts[iperm], overflow, visibility
+
+
+def flatten_candidates(cand_idx, counts, flat_capacity: int):
+    """Per-bundle candidate lists -> one flat layout of CHUNK-row windows.
+
+    Bundle b occupies ceil(counts[b] / CHUNK) * CHUNK contiguous rows (an
+    empty bundle none), in bundle order. Returns (flat_idx [capF] int32,
+    valid [capF] bool, win_starts [nb] int32, win_ends [nb] int32, overflow
+    [] bool, win_bundle [capF / CHUNK] int32 owning bundle per window;
+    windows past the total report the last bundle). Under overflow, rows
+    past capF are dropped: a straddling bundle keeps its nearest
+    candidates, later bundles render empty.
+
+    Each window's owner is the last bundle starting at or before it. The
+    JAX package clips an empty trailing bundle's start onto the last window
+    instead, and when the total lands exactly on the capacity that window
+    takes the empty bundle's extents (ROADMAP C6); the port does not."""
+    capF = int(flat_capacity)
+    if capF % CHUNK:
+        raise ValueError(f"flat_capacity {capF} is not a multiple of {CHUNK}")
+    dev = cand_idx.device
+    nb, L = cand_idx.shape
+    lp = -(-L // CHUNK) * CHUNK
+    counts = torch.clamp(counts.to(torch.int64), max=L)
+    padded = torch.clamp(-(-counts // CHUNK) * CHUNK, max=lp)
+    ends = torch.cumsum(padded, 0)
+    offsets = ends - padded
+    overflow = ends[-1] > capF
+    nw = capF // CHUNK
+    offw = offsets // CHUNK
+    w = torch.arange(nw, device=dev)
+    owner = torch.searchsorted(offw, w, right=True) - 1          # [nw]
+    slot = torch.arange(capF, device=dev).reshape(nw, CHUNK)
+    local = slot - offsets[owner][:, None]
+    valid = local < counts[owner][:, None]
+    src = owner[:, None] * L + torch.clamp(local, 0, L - 1)
+    flat_idx = torch.where(valid, cand_idx.reshape(-1)[src],
+                           torch.zeros((), dtype=cand_idx.dtype, device=dev))
+    win_starts = torch.clamp(offw, max=nw).to(torch.int32)
+    win_ends = torch.clamp(ends // CHUNK, max=nw).to(torch.int32)
+    return (flat_idx.reshape(capF).to(torch.int32), valid.reshape(capF),
+            win_starts, win_ends, overflow, owner.to(torch.int32))
+
+
+def pack_rows64(positions, quats, scales, opacities, features):
+    """[N, 64] rows for the bundle compositor (ops/bundle_trace.py layout):
+    A = diag(1/scale) R^T (9), mean (3), opacity, 3 zeros, then the first
+    16 SH coefficients of red, green and blue (zeros past K)."""
+    n = positions.shape[0]
+    R = quaternion.to_rotation_matrix(quats)
+    A = R.transpose(-1, -2) / scales[..., :, None]
+    k = features.shape[1]
+    coeffs = (torch.cat([features, features.new_zeros(n, 16 - k, 3)], 1)
+              if k < 16 else features[:, :16])
+    return torch.cat([A.reshape(n, 9), positions, opacities[:, None],
+                      positions.new_zeros(n, 3), coeffs[:, :, 0],
+                      coeffs[:, :, 1], coeffs[:, :, 2]], dim=-1)
+
+
+def _unported(packed_cull, packed_l1, flat_cull, super_flat_capacity,
+              walk_capacity):
+    if packed_cull or packed_l1:
+        raise NotImplementedError(
+            "3dgrt packed_cull/packed_l1 (the packed-key two-level cull) is "
+            "not ported yet: ROADMAP queue A item 10, 3DGRT options")
+    if flat_cull or super_flat_capacity is not None:
+        raise NotImplementedError(
+            "3dgrt flat_cull (flat-compacted super lists with "
+            "_super_lists_expand, _flat_pairs_expand_sort and kernel B9) is "
+            "not ported yet: ROADMAP queue A item 10 and queue B, B9")
+    if walk_capacity is not None:
+        raise NotImplementedError(
+            "3dgrt walk_capacity (fused_raster.composite_bundles, the 3DGRT "
+            "training path with kernel B8) is not ported yet: ROADMAP queue "
+            "A item 10 and queue B, B8")
+
+
+class BundleInputs(NamedTuple):
+    """The bundle compositor's inputs for a set of rays (grt.prepare)."""
+    data: torch.Tensor        # [capF, 64] gathered rows, opacity masked
+    rays: torch.Tensor        # [nb, 8, 256] o, d (0 if inactive), t_max, T0
+    win_starts: torch.Tensor  # [nb] int32
+    win_ends: torch.Tensor    # [nb] int32
+    overflow: torch.Tensor    # [] bool
+    visibility: torch.Tensor  # [N] bool, cone level
+    counts: torch.Tensor      # [nb] int32 candidates per bundle
+
+
+def _rays_unit(rays_d):
+    dnorm = torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    return rays_d / torch.clamp(dnorm, min=1e-12), dnorm[..., 0] > 1e-12
+
+
+def _cull(positions, scales, opacities, rays_o, rays_dn, active,
+          kernel_degree, bundle_size, candidate_capacity, super_capacity,
+          density_clamping):
+    """Per-bundle candidate lists: the two-level cull when it pays (more
+    particles than super_capacity, nb a multiple of 16 and >= 32), else
+    the single-level one. Inactive rays take a fixed direction."""
+    nb = rays_o.shape[0] // bundle_size
+    with torch.no_grad(), record_function("3dgrt.cull"):
+        radius = bounding_radius(scales, opacities, kernel_degree,
+                                 density_clamping=density_clamping)
+        valid = opacities >= C.MIN_ALPHA
+        d_safe = torch.where(active[:, None], rays_dn,
+                             torch.full_like(rays_dn, 1.0 / math.sqrt(3.0)))
+        if (positions.shape[0] > super_capacity and nb % SUPER_MULT == 0
+                and nb >= 2 * SUPER_MULT):
+            return bundle_candidates_twolevel(
+                positions.detach(), radius, valid, rays_o, d_safe,
+                bundle_size, candidate_capacity,
+                super_capacity=super_capacity)
+        return bundle_candidates(positions.detach(), radius, valid,
+                                 make_bundles(rays_o, d_safe, bundle_size),
+                                 candidate_capacity)
+
+
+def prepare(positions, quats, scales, opacities, features, rays_o, rays_d,
+            kernel_degree: int = C.KERNEL_DEGREE_3DGRT,
+            candidate_capacity: int = 2048, initial_transmittance=1.0,
+            t_max=None, density_clamping: bool = False,
+            super_capacity: int = 8192,
+            flat_capacity: Optional[int] = None) -> BundleInputs:
+    """Everything of the bundle route before compositing (256-ray bundles):
+    cull, flat layout, packed rows and their gather, packed rays."""
+    r_total = rays_o.shape[0]
+    nb = r_total // 256
+    dev = rays_o.device
+    rays_dn, active = _rays_unit(rays_d)
+    cand_idx, counts, overflow, visibility = _cull(
+        positions, scales, opacities, rays_o, rays_dn, active, kernel_degree,
+        256, candidate_capacity, super_capacity, density_clamping)
+    if flat_capacity is None:
+        flat_capacity = nb * (-(-cand_idx.shape[1] // CHUNK) * CHUNK)
+    with torch.no_grad(), record_function("3dgrt.flatten"):
+        (flat_idx, valid, win_starts, win_ends, ovf_flat,
+         _) = flatten_candidates(cand_idx, counts, flat_capacity)
+        overflow = overflow | ovf_flat
+    with record_function("3dgrt.pack"):
+        rows64 = pack_rows64(positions, quats, scales, opacities, features)
+        t0 = _per_ray(initial_transmittance, r_total, 1.0, dev)
+        if t_max is None:
+            tmx = torch.zeros(r_total, device=dev)
+        else:
+            tmx = _per_ray(t_max, r_total, 0.0, dev)
+            tmx = torch.where(torch.isfinite(tmx), tmx, torch.zeros_like(tmx))
+        rays = torch.cat([
+            rays_o, torch.where(active[:, None], rays_dn,
+                                torch.zeros_like(rays_dn)),
+            tmx[:, None], t0[:, None]], dim=-1)
+        rays = rays.reshape(nb, 256, 8).transpose(1, 2).contiguous()
+    with record_function("3dgrt.gather"):
+        data = gather_rows(rows64, flat_idx)
+        data[:, 12] *= valid.to(data.dtype)
+    return BundleInputs(data, rays, win_starts, win_ends, overflow,
+                        visibility, counts)
+
+
+def trace(positions, quats, scales, opacities, features, rays_o, rays_d,
+          sh_degree: int = 3, kernel_degree: int = C.KERNEL_DEGREE_3DGRT,
+          min_transmittance: float = C.MIN_TRANSMITTANCE_3DGRT,
+          bundle_size: int = 256, candidate_capacity: int = 2048,
+          initial_transmittance=1.0, t_max=None,
+          return_normals: bool = False, density_clamping: bool = False,
+          order: str = "bundle", surfel: bool = False,
+          sorted_passes: int = C.GRT_SORTED_PASSES,
+          super_capacity: int = 8192, flat_capacity: Optional[int] = None,
+          packed_cull: bool = False, packed_l1: bool = False,
+          flat_cull: bool = False,
+          super_flat_capacity: Optional[int] = None,
+          walk_capacity: Optional[int] = None) -> TraceResult:
+    """Trace arbitrary rays through the particles, on the device of the
+    inputs (post-activation tensors).
+
+    R must be a multiple of `bundle_size`. Rays with a zero direction are
+    inactive and return zeros (transmittance `initial_transmittance`).
+    `initial_transmittance` (a float or [R]) starts each ray's
+    transmittance; `t_max` [R] bounds its segment (hit_t <= t_max; on the
+    bundle route a bound <= 0 or not finite means unbounded).
+
+    `order="bundle"` (the default) composites each bundle's candidates
+    through kernel B7 in bundle-axis depth order, re-sorted per ray by
+    `sorted_passes` odd-even transposition passes inside each 128-row
+    window (exact whenever a ray's inversions span at most that many
+    positions). `order="ray"` is the exact per-ray sort in plain torch (the
+    oracle); `return_normals` and `surfel` take it too.
+
+    `flat_capacity` bounds the total flat candidate rows (a multiple of
+    128; None = nb * candidate list width); overflow of it, of a bundle's
+    `candidate_capacity` or of a super list's `super_capacity` is reported
+    in `overflow`: grow and trace again. `visibility` is the cone-level bit
+    (the particle entered some candidate list), a superset of the hits."""
+    _unported(packed_cull, packed_l1, flat_cull, super_flat_capacity,
+              walk_capacity)
+    if order not in ("bundle", "ray"):
+        raise ValueError(f"unknown order {order!r}")
+    r_total = rays_o.shape[0]
+    if r_total % bundle_size:
+        raise ValueError(f"{r_total} rays are not a multiple of the bundle "
+                         f"size {bundle_size}")
+    if (order == "bundle" and not return_normals and bundle_size == 256
+            and not surfel):
+        inp = prepare(positions, quats, scales, opacities, features, rays_o,
+                      rays_d, kernel_degree, candidate_capacity,
+                      initial_transmittance, t_max, density_clamping,
+                      super_capacity, flat_capacity)
+        with record_function("3dgrt.composite"):
+            out = bundle_trace.bundle_composite(
+                inp.data, inp.rays, inp.win_starts, inp.win_ends,
+                kernel_degree, sh_degree, min_transmittance,
+                sorted_passes=sorted_passes)
+
+        def unrow(i):
+            return out[:, i, :].reshape(r_total)
+
+        return TraceResult(
+            rgb=out[:, 0:3, :].transpose(1, 2).reshape(r_total, 3),
+            opacity=unrow(3), depth=unrow(4), transmittance=unrow(5),
+            hit_count=unrow(6), overflow=inp.overflow,
+            visibility=inp.visibility)
+    rays_dn, active = _rays_unit(rays_d)
+    cand_idx, counts, overflow, visibility = _cull(
+        positions, scales, opacities, rays_o, rays_dn, active, kernel_degree,
+        bundle_size, candidate_capacity, super_capacity, density_clamping)
+    return _trace_ray_order(
+        positions, quats, scales, opacities, features, rays_o, rays_dn,
+        active, cand_idx, counts, overflow, visibility, sh_degree,
+        kernel_degree, min_transmittance, bundle_size, candidate_capacity,
+        initial_transmittance, t_max, return_normals, surfel)
+
+
+def _per_ray(x, r_total: int, fill: float, device):
+    if x is None:
+        return torch.full((r_total,), fill, device=device)
+    if isinstance(x, (int, float)):
+        return torch.full((r_total,), float(x), device=device)
+    return torch.as_tensor(x, dtype=torch.float32,
+                           device=device).reshape(r_total)
+
+
+def _trace_ray_order(positions, quats, scales, opacities, features, rays_o,
+                     rays_dn, active, cand_idx, counts, overflow, visibility,
+                     sh_degree, kernel_degree, min_transmittance,
+                     bundle_size, candidate_capacity, initial_transmittance,
+                     t_max, return_normals, surfel):
+    """The oracle: per bundle, every (ray, candidate) pair with the exact
+    per-ray depth sort, composited by ops/compositing.composite."""
+    r_total = rays_o.shape[0]
+    nb = r_total // bundle_size
+    dev = rays_o.device
+    keepc = min(candidate_capacity, cand_idx.shape[1])
+    cand_idx = cand_idx[:, :keepc].long()
+    cand_mask = (torch.arange(keepc, device=dev)[None, :]
+                 < torch.clamp(counts, max=keepc)[:, None])
+    t0_all = _per_ray(initial_transmittance, r_total, 1.0, dev)
+    tmx_all = _per_ray(t_max, r_total, math.inf, dev)
+    outs = []
+    for b in range(nb):
+        sl = slice(b * bundle_size, (b + 1) * bundle_size)
+        ci, cm = cand_idx[b], cand_mask[b]
+        o, d, act = rays_o[sl], rays_dn[sl], active[sl]
+        p, q, s = positions[ci], quats[ci], scales[ci]
+        op = torch.where(cm, opacities[ci], torch.zeros_like(opacities[ci]))
+        f = features[ci]
+        hit = particle_ops.particle_hit(
+            p[None], q[None], s[None], op[None], o[:, None], d[:, None],
+            kernel_degree, surfel=surfel)
+        gate = ((hit.proj > 0.0) & (hit.gray_dist <= C.MAX_PARTICLE_SQ_DISTANCE)
+                & (hit.hit_t <= tmx_all[sl][:, None]) & cm[None, :]
+                & act[:, None])
+        alpha = torch.where(gate, hit.alpha, torch.zeros_like(hit.alpha))
+        colors = sh_ops.radiance_from_sh(
+            sh_degree, f[None], d[:, None, :].expand(bundle_size, keepc, 3))
+        sort_t = torch.where(alpha > 0.0, hit.hit_t,
+                             torch.full_like(alpha, math.inf))
+        order = torch.argsort(sort_t, dim=-1, stable=True)
+        res = composite(torch.gather(alpha, -1, order),
+                        torch.gather(colors, 1, order[..., None].expand(
+                            -1, -1, 3)),
+                        torch.gather(hit.hit_t, -1, order), min_transmittance,
+                        t0_all[sl])
+        if return_normals:
+            nrm = particle_ops.particle_normal(
+                p[None], q[None], s[None], o[:, None], d[:, None],
+                surfel=surfel)
+            nrm_s = torch.gather(nrm, 1, order[..., None].expand(-1, -1, 3))
+            normal = torch.einsum("bk,bkc->bc", res.weights, nrm_s)
+        else:
+            normal = torch.zeros((bundle_size, 3), device=dev)
+        outs.append((res.rgb, res.opacity, res.depth, res.transmittance,
+                     res.hit_count.to(torch.float32), normal))
+    rgb, opa, dep, trans, hits, normal = (torch.cat(x) for x in zip(*outs))
+    return TraceResult(rgb=rgb, opacity=opa, depth=dep, transmittance=trans,
+                       hit_count=hits, overflow=overflow,
+                       visibility=visibility,
+                       normal=normal if return_normals else None)
+
+
+def trace_naive(positions, quats, scales, opacities, features, rays_o,
+                rays_d, sh_degree: int = 3,
+                kernel_degree: int = C.KERNEL_DEGREE_3DGRT,
+                min_transmittance: float = C.MIN_TRANSMITTANCE_3DGRT,
+                surfel: bool = False) -> TraceResult:
+    """O(R*N) oracle: every particle against every ray, exact sort."""
+    r, n = rays_o.shape[0], positions.shape[0]
+    d = _unit(rays_d)
+    hit = particle_ops.particle_hit(
+        positions[None], quats[None], scales[None], opacities[None],
+        rays_o[:, None, :], d[:, None, :], kernel_degree, surfel=surfel)
+    gate = (hit.proj > 0.0) & (hit.gray_dist <= C.MAX_PARTICLE_SQ_DISTANCE)
+    alpha = torch.where(gate, hit.alpha, torch.zeros_like(hit.alpha))
+    colors = sh_ops.radiance_from_sh(sh_degree, features[None],
+                                     d[:, None, :].expand(r, n, 3))
+    sort_t = torch.where(alpha > 0.0, hit.hit_t,
+                         torch.full_like(alpha, math.inf))
+    order = torch.argsort(sort_t, dim=-1, stable=True)
+    res = composite(torch.gather(alpha, -1, order),
+                    torch.gather(colors, 1, order[..., None].expand(-1, -1,
+                                                                    3)),
+                    torch.gather(hit.hit_t, -1, order), min_transmittance)
+    return TraceResult(
+        rgb=res.rgb, opacity=res.opacity, depth=res.depth,
+        transmittance=res.transmittance,
+        hit_count=res.hit_count.to(torch.float32),
+        overflow=torch.zeros((), dtype=torch.bool, device=rays_o.device),
+        visibility=(alpha > 0.0).any(0))
+
+
+def render(positions, quats, scales, opacities, features, cam, pose,
+           resolution: Tuple[int, int], sh_degree: int = 3,
+           kernel_degree: int = C.KERNEL_DEGREE_3DGRT,
+           min_transmittance: float = C.MIN_TRANSMITTANCE_3DGRT,
+           candidate_capacity: int = 2048,
+           T_to_world=None, density_clamping: bool = False,
+           surfel: bool = False, flat_capacity: Optional[int] = None,
+           walk_capacity: Optional[int] = None, device="cuda", **kw):
+    """Camera render through the trace (render.method = 3dgrt) on
+    `device`. Returns (RenderOutputs, overflow) like gut.render; the
+    bundles are the 16x16 pixel tiles of the tile-padded image. Further
+    keywords (sorted_passes, super_capacity, ...) go to `trace`."""
+    from threedgrut_torch.device import resolve, tuple_to
+    from threedgrut_torch.render import gut
+    from threedgrut_torch.render.gut_reference import RenderOutputs
+
+    dev = resolve(device)
+    positions, quats, scales, opacities, features = (
+        x.to(dev) for x in (positions, quats, scales, opacities, features))
+    cam, pose = tuple_to(cam, dev), tuple_to(pose, dev)
+    if T_to_world is not None:
+        T_to_world = torch.as_tensor(T_to_world, dtype=torch.float32,
+                                     device=dev)
+    w, h = resolution
+    wp, hp = gut.pad_to_tiles(resolution)
+    tile_grid = (wp // C.TILE_X, hp // C.TILE_Y)
+    with torch.no_grad(), record_function("3dgrt.rays"):
+        rays = gut.packed_world_rays(cam, pose, tile_grid, T_to_world)
+        ray_o = rays[:, 0:3, :].transpose(1, 2).reshape(-1, 3)
+        ray_d = rays[:, 3:6, :].transpose(1, 2).reshape(-1, 3)
+    out = trace(positions, quats, scales, opacities, features, ray_o, ray_d,
+                sh_degree, kernel_degree, min_transmittance,
+                bundle_size=C.TILE_SIZE,
+                candidate_capacity=candidate_capacity,
+                density_clamping=density_clamping, surfel=surfel,
+                flat_capacity=flat_capacity, walk_capacity=walk_capacity,
+                **kw)
+
+    def unflat(x):
+        img = x.reshape(tile_grid[1] * tile_grid[0], C.TILE_SIZE, -1)
+        return gut.tile_unpack(img.transpose(1, 2), tile_grid)[:h, :w]
+
+    outputs = RenderOutputs(
+        rgb=unflat(out.rgb), opacity=unflat(out.opacity)[..., 0],
+        depth=unflat(out.depth)[..., 0],
+        transmittance=unflat(out.transmittance)[..., 0],
+        hit_count=unflat(out.hit_count)[..., 0], visibility=out.visibility)
+    return outputs, out.overflow

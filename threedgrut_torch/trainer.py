@@ -1,7 +1,8 @@
 """Training harness, port of threedgrut_tpu/trainer.py: the train step
 (render -> background -> 0.8 L1 + 0.2 DSSIM -> backward -> Adam or
-SelectiveAdam), the eval step, progressive SH, capacity growth on
-overflow, and checkpoints in the JAX package's .npz format.
+SelectiveAdam), the eval step (3DGUT or, with render.method = 3dgrt, the
+3DGRT trace), progressive SH, capacity growth on overflow, and checkpoints
+in the JAX package's .npz format.
 
 PyTorch runs eagerly, so a step is a sequence of calls rather than one
 compiled program; each phase runs under a `torch.profiler.record_function`
@@ -27,7 +28,7 @@ from threedgrut_torch.config import Config, from_dict, to_dict
 from threedgrut_torch.device import resolve, tuple_to
 from threedgrut_torch.model import background, losses
 from threedgrut_torch.model.gaussians import FIELDS, Gaussians, from_numpy
-from threedgrut_torch.render import gut
+from threedgrut_torch.render import grt, gut
 
 # The capacity ceiling of the binning: particle ids and slots are packed
 # with 8 row bits into one 32-bit word (ops/tiles.py).
@@ -69,35 +70,52 @@ def step_fn(params: Gaussians, opt_state: optimizers.AdamState, T_to_world,
         pose_end = pose_from_matrix(T_end)
         pose = SensorPose(q_start=pose.q_start, t_start=pose.t_start,
                           q_end=pose_end.q_start, t_end=pose_end.t_start)
-    if cfg.render.method != "3dgut":
+    if cfg.render.method == "3dgrt" and train:
         raise NotImplementedError(
-            f"render.method {cfg.render.method!r}: only 3dgut is ported "
-            "(3DGRT is ROADMAP queue A item 10)")
+            "a 3dgrt train step needs the bundle compositor's backward "
+            "(kernel B8), which is not ported yet: ROADMAP queue A item 10 "
+            "and queue B, B8")
+    if cfg.render.method not in ("3dgut", "3dgrt"):
+        raise ValueError(f"unknown render.method {cfg.render.method!r}")
     jitter = None
     if train and cfg.render.ray_jitter:
         jitter = torch.rand((resolution[1], resolution[0], 2),
                             generator=generator, device=dev)
     with torch.set_grad_enabled(train):
         with record_function("train.forward"):
-            out, overflow = gut.render(
-                *render_params(params), camera, pose, resolution,
-                isect_capacity, shutter=shutter, sh_degree=sh_degree,
-                kernel_degree=cfg.render.particle_kernel_degree,
-                min_transmittance=cfg.render.min_transmittance,
-                tile_culling=cfg.render.tile_culling, T_to_world=T_to_world,
-                ray_jitter=jitter, sorted_passes=cfg.render.k_buffer_passes,
-                # The loss reads only rgb (and opacity through the
-                # background): no depth/transmittance cotangents, and in
-                # training no depth/hit-count forward either.
-                aux_gradients=False, aux_outputs=not train,
-                low_precision_grads=cfg.render.low_precision_grads and train,
-                row_termination=cfg.render.row_termination,
-                # Eval reads the kernel's contributed bit; training derives
-                # it from nonzero gradients below.
-                hit_visibility=not train,
-                walk_capacity=(walk_capacity_for(cfg, isect_capacity)
-                               if train else None),
-                device=dev)
+            if cfg.render.method == "3dgrt":
+                # The eval step only (see above); its visibility is the
+                # cone-level bit, as the JAX package's.
+                out, overflow = grt.render(
+                    *render_params(params), camera, pose, resolution,
+                    sh_degree=sh_degree,
+                    kernel_degree=cfg.render.particle_kernel_degree,
+                    min_transmittance=cfg.render.min_transmittance,
+                    candidate_capacity=isect_capacity // 256,
+                    flat_capacity=isect_capacity, T_to_world=T_to_world,
+                    density_clamping=(
+                        cfg.render.particle_kernel_density_clamping),
+                    surfel=cfg.render.surfel_primitive, device=dev)
+            else:
+                out, overflow = gut.render(
+                    *render_params(params), camera, pose, resolution,
+                    isect_capacity, shutter=shutter, sh_degree=sh_degree,
+                    kernel_degree=cfg.render.particle_kernel_degree,
+                    min_transmittance=cfg.render.min_transmittance,
+                    tile_culling=cfg.render.tile_culling, T_to_world=T_to_world,
+                    ray_jitter=jitter, sorted_passes=cfg.render.k_buffer_passes,
+                    # The loss reads only rgb (and opacity through the
+                    # background): no depth/transmittance cotangents, and in
+                    # training no depth/hit-count forward either.
+                    aux_gradients=False, aux_outputs=not train,
+                    low_precision_grads=cfg.render.low_precision_grads and train,
+                    row_termination=cfg.render.row_termination,
+                    # Eval reads the kernel's contributed bit; training derives
+                    # it from nonzero gradients below.
+                    hit_visibility=not train,
+                    walk_capacity=(walk_capacity_for(cfg, isect_capacity)
+                                   if train else None),
+                    device=dev)
             pred = background.compose(out.rgb, out.opacity,
                                       cfg.model.background_color,
                                       train=train, generator=generator)
