@@ -8,9 +8,10 @@ threedgrut_torch/csrc/ into build/ on first use). Imports nothing of JAX.
 Phases, each of which fails the run on a miss:
 
   1. device: name, count, power limit; TF32 off for matmuls and cuDNN;
-  2. build: the six sources (B3 cull_masks, B4 expand_keys, B1
+  2. build: the seven sources (B3 cull_masks, B4 expand_keys, B1
      tile_raster_fwd, B2 tile_raster_bwd, B5/B6 segment_sum, B7
-     bundle_trace_fwd) in parallel, with nvcc's register/smem/spill report;
+     bundle_trace_fwd, B8 bundle_trace_bwd) in parallel, with nvcc's
+     register/smem/spill report;
   3. golden: the card's render of the golden scene and its 3DGRT trace
      against the JAX reference's stored outputs (threedgrut_torch/golden/);
   4. parity: api.render on the card (kernels) against api.render on the CPU
@@ -21,7 +22,10 @@ Phases, each of which fails the run on a miss:
      its dense fallback (B5), and on the two-stage path (B5); then 3DGRT:
      api.trace on tools/bench_grt.py's 100k scene (the central 128x128
      rays of its grid, 64 bundles, the two-level cull), api.render(method=
-     "3dgrt") (32 bundles) and one Trainer.eval_view of preset_3dgrt;
+     "3dgrt") (32 bundles) and one Trainer.eval_view of preset_3dgrt; then
+     3DGRT training: bench_grt's fwd+bwd on those 128x128 rays (gradients
+     of all five tensors, on the compact and the dense branch, the card
+     run twice and bit-identical) and one preset_3dgrt Trainer.train_step;
   5. forward main path: api.render at full width (1M Gaussians of the
      benchmark scene, SH degree 3, 800x800), 5 orbit frames plus one
      hit-visibility frame, with the launch counts read around it;
@@ -34,16 +38,25 @@ Phases, each of which fails the run on a miss:
      traces, then at its 1M capacities, 3 traces; overflow, launch counts,
      the super-list maximum and flat total beside bench_grt's recorded
      counts, ms, rays/s, peak memory, and a bench_grt-shaped JSON line;
-  8. kernels: each kernel against its plain version on the card at the
+  8. 3DGRT train main path: bench_grt's fwd+bwd mode (100k, 6 steps; its
+     1M capacities, 3 steps; walk_capacity 0.625 of the flat capacity) with
+     a bench_grt-shaped JSON line (`grt_trace_rays_per_s_fwd_bwd`), then 6
+     preset_3dgrt Trainer.train_step calls on bench_grt's 100k scene at
+     512x512 (the last through gather_rows' backward): per step ms, rays/s,
+     peak memory, overflow and capacities, launches (B7, B8, B6 once each),
+     the backward's branch and the share of particles with a gradient;
+  9. kernels: each kernel against its plain version on the card at the
      main paths' shapes (B3, B4 and every TileBinning field exactly equal;
-     B1, B2 and B7 (16 and 0 passes) within stated tolerances; B5, B6
-     within the f32 summation bound), timed with CUDA events beside its
-     bound and, for B5 and B6, one PyTorch call computing the same sums;
-  9. profile: one full-width frame, one full-width train step and one
-     100k trace under torch.profiler, for the device's busy share and the
-     time per stage.
+     B1, B2, B7 and B8 (16 and 0 passes) within stated tolerances; B5, B6
+     at 16 and at 64 channels within the f32 summation bound), timed with
+     CUDA events beside its bound and, for B5 and B6, one PyTorch call
+     computing the same sums;
+  10. profile: one full-width frame, one full-width train step, one 100k
+     trace and one 100k fwd+bwd under torch.profiler, for the device's busy
+     share and the time per stage.
 
-Each path checks the kernels of its own renderer (cuda_build.KERNELS).
+Each path checks the kernels of its own renderer and pass
+(cuda_build.kernels_of; B6 is in both renderers' backward).
 
 The line before the last holds the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. A failed phase prints FAIL and exits 1.
@@ -89,6 +102,12 @@ FLOP_CHAIN = 108
 FLOP_GRT_PAIR = 86
 FLOP_GRT_COUNTED = 112
 FLOP_GRT_SWAP = 2
+# B8 (csrc/bundle_trace_bwd.cu): the pair math of B7 (FLOP_GRT_PAIR) per
+# (live ray, walked row) and its network; per counted pair the gradient
+# chain (the colour and suffix ~120, the pair chain ~110, the 48 SH products
+# and the gates: 280) and the 61 adds that sum its row over the bundle.
+FLOP_GRT_BWD_CHAIN = 280
+FLOP_GRT_BWD_REDUCE = 61
 # The reference CUDA system's train step on an RTX 5090 (BASELINE.md): the
 # one outside yardstick for the fwd+bwd+Adam rays/s.
 BASELINE_RAYS_PER_S = 8.66e7
@@ -100,10 +119,9 @@ PARITY_N = 100_000
 PARITY_RES = (400, 400)
 PARITY_CAP = 1 << 20
 TRAIN_STEPS = 6
-NCH_F = 16          # adds per summed row (16 channels) in B5 and B6
 # tools/bench_grt.py's configurations (n, Gaussian scale range, candidate,
-# super and flat capacities, traces run here) and its probe's recorded
-# super-list maximum and flat total for each.
+# super and flat capacities, traces and fwd+bwd steps run here) and its
+# probe's recorded super-list maximum and flat total for each.
 GRT_CONFIGS = [
     dict(name="100k", n=100_000, scales=(0.01, 0.05), cand=1792,
          super_cap=24320, flat_cap=919296, traces=6, rec_super=22093,
@@ -112,6 +130,18 @@ GRT_CONFIGS = [
          super_cap=216832, flat_cap=3384832, traces=3, rec_super=196936,
          rec_flat=3076992),
 ]
+# bench_grt's fwd+bwd walked-compaction bound: its BENCH_WALKFRAC default
+# of flat_capacity, rounded up to 256.
+GRT_WALK_FRACTION = 0.625
+# The 3DGRT trainer at bench_grt's 100k scene: its flat capacity.
+GRT_TRAIN_ISECT = 919296
+GRT_TRAIN_STEPS = 6
+# Card vs CPU gradients of a whole 3DGRT fwd+bwd on bench_grt's scene: the
+# cull admits a cone-margin particle on one side only in some bundles
+# (PERF.md), which shifts their 128-row re-sort windows; the particles those
+# bundles reach may differ. A share of the particles with a nonzero
+# gradient that may be loose (golden.rows_agree's test per row).
+GRT_GRAD_LOOSE_SHARE = 0.05
 GRT_SIDE = 512
 GRT_PARITY_SIDE = 128
 GRT_PARITY_RES = (128, 64)
@@ -239,14 +269,8 @@ def train_setup(fields, res, cap, gt, dev, walk_compact_fraction=0.625,
 
 def train_parity(dev, tag):
     """One train step on the card and on the CPU from the same parameters,
-    f32 gradients, on each way the gradient reduction can go. Tolerances:
-    loss rtol 1e-4; image values beyond atol 2e-4 + rtol 1e-4 on at most
-    0.1% of them; gradients, first moments (0.1 g), the |g| implied by the
-    second moments and the updated parameters within golden.rows_agree
-    (1e-4 x max for gradients and moments, 1e-6 x max for the parameters,
-    compared where |g| clears 2e-4 x max: Adam's first step is lr sign(g));
-    the visibility on all but 0.1% of the particles."""
-    from threedgrut_torch import golden
+    f32 gradients, on each way the gradient reduction can go, within
+    step_agreement's tolerances."""
     from threedgrut_torch.model.gaussians import bench_scene
     from threedgrut_torch.ops import cuda_build
     fields = bench_scene(PARITY_N, seed=0, specular_std=0.1)
@@ -270,36 +294,50 @@ def train_parity(dev, tag):
                 or lg.get("tile_raster_bwd", 0) != 1):
             fail(f"train parity (walk_compact_fraction={frac}) did not run "
                  f"B2 and {kernel} once and {other} never: {lg}")
-        rep = {"loss": (float(ag["terms"]["total"]),
-                        float(ac["terms"]["total"]))}
-        ok = abs(rep["loss"][0] - rep["loss"][1]) <= 1e-4 * abs(rep["loss"][1])
-        d = (ag["pred"].cpu() - ac["pred"]).abs()
-        loose = int((d > 2e-4 + 1e-4 * ac["pred"].abs()).sum())
-        rep["image"] = {"max_abs": float(d.max()), "loose": loose}
-        ok &= loose <= max(1, math.floor(1e-3 * d.numel()))
-        for f, gc in ac["grads"].items():
-            gg = ag["grads"][f].cpu()
-            r1, o1 = golden.rows_agree(gg, gc, 1e-4)
-            r2, o2 = golden.rows_agree(tg.opt_state.exp_avg[f],
-                                       tc.opt_state.exp_avg[f], 1e-4)
-            r3, o3 = golden.rows_agree(
-                (tg.opt_state.exp_avg_sq[f].cpu() / 1e-3).sqrt(),
-                (tc.opt_state.exp_avg_sq[f] / 1e-3).sqrt(), 1e-4)
-            clear = gc.abs() > 2e-4 * float(gc.abs().max())
-            pc = getattr(tc.params, f).detach()
-            pg = torch.where(clear, getattr(tg.params, f).detach().cpu(), pc)
-            r4, o4 = golden.rows_agree(pg, pc, 1e-6)
-            rep[f] = {"grad": r1, "m": r2, "v": r3, "param": r4}
-            ok &= o1 and o2 and o3 and o4
-        dv = int((ag["visibility"].cpu() != ac["visibility"]).sum())
-        rep["visibility_diff"] = dv
-        ok &= dv <= max(1, math.floor(1e-3 * ac["visibility"].numel()))
+        rep, ok = step_agreement(tg, ag, tc, ac)
         print(f"train step card vs CPU, {PARITY_N} Gaussians {PARITY_RES}, "
               f"walk_compact_fraction={frac} ({kernel}): {json.dumps(rep)} "
               f"{tag}", flush=True)
         if not ok:
             fail(f"the train step on the card disagrees with the plain path "
                  f"(walk_compact_fraction={frac})")
+
+
+def step_agreement(tg, ag, tc, ac):
+    """(report, ok) of a train step on the card (trainer tg, aux ag) against
+    the same step on the CPU (tc, ac). Tolerances: loss rtol 1e-4; image
+    values beyond atol 2e-4 + rtol 1e-4 on at most 0.1% of them; gradients,
+    first moments (0.1 g), the |g| implied by the second moments and the
+    updated parameters within golden.rows_agree (1e-4 x max for gradients
+    and moments, 1e-6 x max for the parameters, compared where |g| clears
+    2e-4 x max: Adam's first step is lr sign(g)); the visibility on all but
+    0.1% of the particles."""
+    from threedgrut_torch import golden
+    rep = {"loss": (float(ag["terms"]["total"]),
+                    float(ac["terms"]["total"]))}
+    ok = abs(rep["loss"][0] - rep["loss"][1]) <= 1e-4 * abs(rep["loss"][1])
+    d = (ag["pred"].cpu() - ac["pred"]).abs()
+    loose = int((d > 2e-4 + 1e-4 * ac["pred"].abs()).sum())
+    rep["image"] = {"max_abs": float(d.max()), "loose": loose}
+    ok &= loose <= max(1, math.floor(1e-3 * d.numel()))
+    for f, gc in ac["grads"].items():
+        gg = ag["grads"][f].cpu()
+        r1, o1 = golden.rows_agree(gg, gc, 1e-4)
+        r2, o2 = golden.rows_agree(tg.opt_state.exp_avg[f],
+                                   tc.opt_state.exp_avg[f], 1e-4)
+        r3, o3 = golden.rows_agree(
+            (tg.opt_state.exp_avg_sq[f].cpu() / 1e-3).sqrt(),
+            (tc.opt_state.exp_avg_sq[f] / 1e-3).sqrt(), 1e-4)
+        clear = gc.abs() > 2e-4 * float(gc.abs().max())
+        pc = getattr(tc.params, f).detach()
+        pg = torch.where(clear, getattr(tg.params, f).detach().cpu(), pc)
+        r4, o4 = golden.rows_agree(pg, pc, 1e-6)
+        rep[f] = {"grad": r1, "m": r2, "v": r3, "param": r4}
+        ok &= o1 and o2 and o3 and o4
+    dv = int((ag["visibility"].cpu() != ac["visibility"]).sum())
+    rep["visibility_diff"] = dv
+    ok &= dv <= max(1, math.floor(1e-3 * ac["visibility"].numel()))
+    return rep, ok
 
 
 def grt_bench_scene(n, scales, dev, side=GRT_SIDE, crop=None):
@@ -497,18 +535,20 @@ def grt_main_path(dev, tag):
     return launches, keep
 
 
-def grt_record(inp, launches, tag):
-    """B7 against its plain version on the card at the 100k main shapes,
-    with 16 and with 0 passes: rows 0-5 within 2e-4 + 1e-4 |plain|, hit
-    counts off by at most 1 on at most 0.1% of the rays, walked windows
-    equal on all but 0.1% of the bundles."""
+def grt_record(data, inp, launches, train_launches, tag):
+    """B7 against its plain version on the card at the 100k main shapes
+    (candidate rows `data`, the rest from grt.prepare's `inp`), with 16 and
+    with 0 passes: rows 0-5 within 2e-4 + 1e-4 |plain|, hit counts off by
+    at most 1 on at most 0.1% of the rays, walked windows equal on all but
+    0.1% of the bundles. Returns (record, {passes: (work, kernel output)})
+    for B8's record."""
     from threedgrut_torch.constants import (MAX_ALPHA, MIN_ALPHA,
                                             MIN_KERNEL_RESPONSE,
                                             MIN_TRANSMITTANCE_3DGRT)
     from threedgrut_torch.ops import bundle_trace
     err, timing = 0.0, {}
     for passes in (16, 0):
-        args = (inp.data, inp.rays, inp.win_starts, inp.win_ends, 4, 3,
+        args = (data, inp.rays, inp.win_starts, inp.win_ends, 4, 3,
                 MIN_TRANSMITTANCE_3DGRT, MIN_KERNEL_RESPONSE, MIN_ALPHA,
                 MAX_ALPHA, passes)
         k = bundle_trace._launch(*args)
@@ -561,9 +601,384 @@ def grt_record(inp, launches, tag):
         launches_forward=0,
         launches_grt={n: v.get("bundle_trace_fwd", 0)
                       for n, v in launches.items()},
+        launches_grt_train={n: v.get("bundle_trace_fwd", 0)
+                            for n, v in train_launches.items()},
+        max_abs_err=err, ms=ms16, plain_ms=plain16, ms_passes0=timing[0][0],
+        bound_ms_passes0=bound0[0], bound_ms=bound[0], bound_by=bound[1],
+        library_ms=None), {p: (t[2], t[3]) for p, t in timing.items()}
+
+
+def grt_acts(params):
+    """The five post-activation tensors of `params` (grt.trace's inputs),
+    detached."""
+    return [x.detach() for x in (
+        params.get_positions(), params.get_rotation(), params.get_scale(),
+        params.get_density(), params.get_features())]
+
+
+def grt_walk_capacity(flat_cap: int) -> int:
+    return -(-int(flat_cap * GRT_WALK_FRACTION) // 256) * 256
+
+
+def grt_fwd_bwd(acts, o, d, kw, walk_capacity, wrt):
+    """tools/bench_grt.py's fwd+bwd: grt.trace of the rays, loss mean(rgb) +
+    mean(opacity), the gradients of acts[i] for i in `wrt` (bench_grt's:
+    positions 0 and opacities 3). Returns (trace, loss, grads)."""
+    from threedgrut_torch.render import grt
+    xs = [a.detach().requires_grad_(i in wrt) for i, a in enumerate(acts)]
+    out = grt.trace(*xs, o, d, walk_capacity=walk_capacity, **kw)
+    loss = out.rgb.mean() + out.opacity.mean()
+    return out, loss, torch.autograd.grad(loss, [xs[i] for i in wrt])
+
+
+def nonzero_share(grads) -> float:
+    """The share of particles with a nonzero gradient in any tensor."""
+    hit = None
+    for g in grads:
+        h = (g.reshape(g.shape[0], -1) != 0).any(1)
+        hit = h if hit is None else hit | h
+    return float(hit.float().mean())
+
+
+def grt_train_parity(dev, tag):
+    """3DGRT training, card vs CPU from the same parameters. (1) bench_grt's
+    fwd+bwd on its 100k scene over the central 128x128 rays of its grid (64
+    bundles, the two-level cull), gradients of all five tensors, on the
+    compact branch (its walk capacity) and the dense one (two windows): the
+    trace within golden.compare at TRACE_FLIP_SHARE, the loss rtol 1e-4,
+    each tensor's gradient rows within golden.rows_agree's 1e-4 x max on
+    all but GRT_GRAD_LOOSE_SHARE of the particles with a nonzero gradient;
+    the card run twice, its gradients bit-identical, and equal on the two
+    branches (the same nonzero rows summed in the same order). (2) One
+    preset_3dgrt Trainer.train_step on the golden scene at 128x128 (the
+    eval parity's scale) within step_agreement."""
+    from threedgrut_torch import golden
+    from threedgrut_torch.config import preset_3dgrt
+    from threedgrut_torch.ops import cuda_build, fused_raster
+    cfg = GRT_CONFIGS[0]
+    kw = grt_trace_kw(cfg)
+    want_launches = {k: 1 for k in cuda_build.kernels_of("grt")}
+    names = ("positions", "rotation", "scale", "opacity", "features")
+    card = {}
+    for branch, walk in (("compact", grt_walk_capacity(cfg["flat_cap"])),
+                         ("dense", 256)):
+        runs = []
+        for device in (dev, dev, "cpu"):
+            params, o, d = grt_bench_scene(cfg["n"], cfg["scales"], device,
+                                           crop=GRT_PARITY_SIDE)
+            cuda_build.launches.clear()
+            fused_raster.branches.clear()
+            out, loss, grads = grt_fwd_bwd(grt_acts(params), o, d, kw, walk,
+                                           range(5))
+            if bool(out.overflow):
+                fail(f"3DGRT fwd+bwd parity on {device} overflowed")
+            runs.append((out, float(loss.detach()), [g.cpu() for g in grads],
+                         dict(cuda_build.launches),
+                         dict(fused_raster.branches)))
+        (og, lg, gg, kg, bg), (_, _, g2, _, _), (oc, lc, gc, _, bc) = runs
+        if kg != want_launches or bg != {f"3dgrt.{branch}": 1} or bc != bg:
+            fail(f"3DGRT fwd+bwd parity ({branch}): launches {kg}, branches "
+                 f"{bg} on the card, {bc} on the CPU")
+        if not all(torch.equal(a, b) for a, b in zip(gg, g2)):
+            fail(f"3DGRT fwd+bwd ({branch}): two card runs differ")
+        card[branch] = gg
+        rep, ok = golden.compare(og, oc, golden.TRACE_FLIP_SHARE)
+        rep = {"trace": rep, "loss": (lg, lc)}
+        ok &= abs(lg - lc) <= 1e-4 * abs(lc)
+        for name, a, b in zip(names, gg, gc):
+            r, _ = golden.rows_agree(a, b, 1e-4)
+            nz = int((b.reshape(b.shape[0], -1) != 0).any(1).sum())
+            r.update(nonzero_rows=nz, loose_share=r["loose_rows"] / max(nz, 1))
+            rep[name] = r
+            ok &= r["loose_share"] <= GRT_GRAD_LOOSE_SHARE
+        print(f"3DGRT fwd+bwd card vs CPU ({branch} branch, walk_capacity "
+              f"{walk}), bench_grt 100k, {GRT_PARITY_SIDE}^2 rays, allowed "
+              f"loose share {GRT_GRAD_LOOSE_SHARE}: {json.dumps(rep)}; card "
+              f"runs bit-identical {tag}", flush=True)
+        if not ok:
+            fail(f"the 3DGRT fwd+bwd on the card disagrees with the plain "
+                 f"path ({branch} branch)")
+    # The branches sum the same nonzero rows in the same order.
+    if not all(torch.equal(a, b) for a, b in zip(*card.values())):
+        fail("the compact and dense branches' gradients differ on the card")
+
+    cfg3 = preset_3dgrt()
+    cfg3.model.progressive_sh_interval = 0
+    gt = np.random.default_rng(1).uniform(0, 1, (128, 128, 3)).astype(
+        np.float32)
+    runs = {}
+    for device in (dev, "cpu"):
+        tr, view = train_setup(golden.scene(), (128, 128), 1 << 20, gt,
+                               device, cfg=cfg3)
+        cuda_build.launches.clear()
+        aux = tr.train_step(view)
+        runs[device] = (tr, aux, dict(cuda_build.launches))
+    (tg, ag, lg), (tc, ac, _) = runs[dev], runs["cpu"]
+    if lg != want_launches:
+        fail(f"the preset_3dgrt train step launched {lg}")
+    rep, ok = step_agreement(tg, ag, tc, ac)
+    print(f"Trainer.train_step (preset_3dgrt) card vs CPU, golden scene "
+          f"128x128: {json.dumps(rep)} {tag}", flush=True)
+    if not ok or any(bool(a["overflow"]) for a in (ag, ac)):
+        fail("the 3DGRT train step on the card disagrees with the plain path")
+
+
+def grt_fwd_bwd_main_path(dev, tag):
+    """tools/bench_grt.py's fwd+bwd mode as that file runs it without env
+    knobs: its seeded scene and capacities, 512x512 rays, 16 passes, loss
+    mean(rgb) + mean(opacity), gradients to positions and opacities (and its
+    1e-20 carried update), walk_capacity GRT_WALK_FRACTION of flat_capacity;
+    6 steps at 100k (median of steps 2-5), then its 1M capacities on the
+    dense two-level cull, 3 steps (median of steps 2-3). Returns ({name:
+    launches}, the 100k walk capacity)."""
+    from threedgrut_torch.ops import cuda_build, fused_raster
+    launches, want = {}, cuda_build.kernels_of("grt")
+    for cfg in GRT_CONFIGS:
+        params, o, d = grt_bench_scene(cfg["n"], cfg["scales"], dev)
+        acts = grt_acts(params)
+        del params
+        kw = grt_trace_kw(cfg)
+        walk = grt_walk_capacity(cfg["flat_cap"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_build.launches.clear()
+        ms = []
+        for k in range(cfg["traces"]):
+            fused_raster.branches.clear()
+            before = dict(cuda_build.launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, loss, (gp, ga) = grt_fwd_bwd(acts, o, d, kw, walk, (0, 3))
+            with torch.no_grad():
+                acts[0] = acts[0] + 1e-20 * gp[0, 0]
+                acts[3] = acts[3] + 1e-20 * ga[0]
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            step = {n: v - before.get(n, 0)
+                    for n, v in cuda_build.launches.items()
+                    if v != before.get(n, 0)}
+            if bool(out.overflow):
+                fail(f"3DGRT fwd+bwd {cfg['name']} step {k + 1} overflowed")
+            if not (math.isfinite(float(loss.detach()))
+                    and bool(torch.isfinite(gp).all())
+                    and bool(torch.isfinite(ga).all())):
+                fail(f"3DGRT fwd+bwd {cfg['name']} step {k + 1}: a value is "
+                     f"not finite")
+            if step != {n: 1 for n in want}:
+                fail(f"3DGRT fwd+bwd {cfg['name']} step {k + 1} launched "
+                     f"{step}")
+            print(f"3DGRT fwd+bwd {cfg['name']} step {k + 1}: {ms[-1]:.3f} "
+                  f"ms, loss {float(loss.detach()):.6f}, overflow False, "
+                  f"launches {step}, branch {dict(fused_raster.branches)}, "
+                  f"particles with a nonzero gradient "
+                  f"{nonzero_share([gp, ga]):.4f} "
+                  f"{tag}", flush=True)
+        launches[cfg["name"]] = dict(cuda_build.launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steady = ms[1:5] if len(ms) >= 5 else ms[1:]
+        med = float(np.median(steady))
+        n_rays = o.shape[0]
+        print(f"3DGRT fwd+bwd {cfg['name']}: median of steps 2-"
+              f"{len(steady) + 1} {med:.3f} ms, rays/s "
+              f"{n_rays / (med / 1e3):.4e}, walk_capacity {walk}, "
+              f"max_memory_allocated {peak:.3f} GiB {tag}", flush=True)
+        print(json.dumps({
+            "metric": "grt_trace_rays_per_s_fwd_bwd",
+            "value": n_rays / (med / 1e3), "unit": "rays/s/chip",
+            "backend": "cuda", "device": torch.cuda.get_device_name(0),
+            "n_gaussians": cfg["n"], "n_rays": n_rays,
+            "candidate_capacity": cfg["cand"],
+            "flat_capacity": cfg["flat_cap"], "walk_capacity": walk,
+            "packed_cull": False, "candidate_overflow": False,
+            "step_ms": med, "max_memory_allocated_gib": peak}), flush=True)
+        del acts, o, d, out, gp, ga
+    return launches, grt_walk_capacity(GRT_CONFIGS[0]["flat_cap"])
+
+
+def grt_train_main_path(dev, tag):
+    """GRT_TRAIN_STEPS Trainer.train_step calls with preset_3dgrt on
+    bench_grt's 100k scene: a 512x512 pinhole camera (focal 640 px, centred
+    principal point) at (0, 0, -4) looking at the origin, zero ground
+    truth, isect_capacity GRT_TRAIN_ISECT; the last step with
+    walk_compact_fraction 0 (gather_rows' backward). Fails unless every
+    value is finite, no step from the second on overflows, and every step
+    launched B7, B8 and B6 once and nothing else. Returns the launches."""
+    from threedgrut_torch.cameras import PinholeCamera, look_at
+    from threedgrut_torch.config import preset_3dgrt
+    from threedgrut_torch.datasets.protocols import View
+    from threedgrut_torch.ops import cuda_build, fused_raster
+    from threedgrut_torch.trainer import Trainer, grt_super_lists
+    cfg = GRT_CONFIGS[0]
+    cfg3 = preset_3dgrt()
+    cfg3.render.isect_capacity = GRT_TRAIN_ISECT
+    cfg3.model.progressive_sh_interval = 0
+    params, _, _ = grt_bench_scene(cfg["n"], cfg["scales"], dev)
+    side = GRT_SIDE
+
+    def t(x):
+        return torch.tensor(x, dtype=torch.float32, device=dev)
+
+    cam = PinholeCamera(focal=t([640.0, 640.0]),
+                        principal=t([side / 2, side / 2]),
+                        radial=t([0.0] * 6), tangential=t([0.0] * 2),
+                        thin_prism=t([0.0] * 4))
+    T = look_at(np.array([0.0, 0.0, -4.0], np.float32),
+                np.zeros(3, np.float32), np.array([0.0, -1.0, 0.0],
+                                                  np.float32))
+    view = View(T_to_world=T, camera=cam, resolution=(side, side),
+                rgb_gt=np.zeros((side, side, 3), np.float32))
+    tr = Trainer(cfg3, OneView(view, 4.0), params=params, device=dev)
+    want = {n: 1 for n in cuda_build.kernels_of("grt")}
+    cuda_build.launches.clear()
+    ms, flags = [], []
+    for k in range(GRT_TRAIN_STEPS):
+        last = k == GRT_TRAIN_STEPS - 1
+        if last:
+            tr.cfg.render.walk_compact_fraction = 0.0
+        cap = tr.isect_capacity
+        fused_raster.branches.clear()
+        before = dict(cuda_build.launches)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        aux = tr.train_step(view)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        step = {n: v - before.get(n, 0)
+                for n, v in cuda_build.launches.items()
+                if v != before.get(n, 0)}
+        flags.append(bool(aux["overflow"]))
+        branch = dict(fused_raster.branches)
+        finite = all(bool(torch.isfinite(x).all()) for x in
+                     [aux["pred"], *aux["grads"].values(),
+                      *(getattr(tr.params, f) for f in aux["grads"])])
+        print(f"3DGRT train step {k + 1}: {ms[-1]:.3f} ms, rays/s "
+              f"{side * side / (ms[-1] / 1e3):.4e}, max_memory_allocated "
+              f"{peak:.3f} GiB, loss {float(aux['terms']['total']):.6f}, "
+              f"overflow {flags[-1]}, isect_capacity {cap} (super lists "
+              f"{grt_super_lists(cap)['super_capacity']}), launches {step}, "
+              f"branch {branch or 'gather_rows'}, particles with a nonzero "
+              f"gradient {nonzero_share(aux['grads'].values()):.4f} {tag}",
+              flush=True)
+        if not (finite and math.isfinite(float(aux["terms"]["total"]))):
+            fail(f"3DGRT train step {k + 1}: a value is not finite")
+        if step != want:
+            fail(f"3DGRT train step {k + 1} launched {step}")
+        if branch != ({} if last else {"3dgrt.compact": 1}):
+            fail(f"3DGRT train step {k + 1} took the backward {branch}")
+    tr.cfg.render.walk_compact_fraction = 0.625
+    if any(flags[1:]):
+        fail(f"3DGRT train steps overflowed after the first: {flags}")
+    med = float(np.median(ms[1:5]))
+    print(f"3DGRT train step (preset_3dgrt, bench_grt 100k, {side}x{side}) "
+          f"median of steps 2-5 {med:.3f} ms, rays/s "
+          f"{side * side / (med / 1e3):.4e} {tag}", flush=True)
+    return dict(cuda_build.launches)
+
+
+def b8_record(data, inp, b7_runs, launches, walk, tag):
+    """B8 against its plain version on the card at the 100k main shapes
+    (16 and 0 passes), on B7's output and the cotangent of bench_grt's loss
+    mean(rgb) + mean(opacity): the nonzero slot rows equal, each value
+    within 1e-4 x its column's max |plain| (the same per-ray chains summed
+    over a bundle's rays in another order), bit-identical across two
+    launches. Then B6 at 64 channels on the compact branch's rows of the
+    16-pass gradients. Returns the two records."""
+    from threedgrut_torch.constants import (MAX_ALPHA, MIN_ALPHA,
+                                            MIN_KERNEL_RESPONSE,
+                                            MIN_TRANSMITTANCE_3DGRT)
+    from threedgrut_torch.ops import (bundle_trace, fused_raster, segment_sum,
+                                      sorted_gather)
+    err, timing = 0.0, {}
+    for passes in (16, 0):
+        stats, out = b7_runs[passes]
+        r_total = out.shape[0] * 256
+        g_out = torch.zeros_like(out)
+        g_out[:, 0:3] = 1.0 / (3 * r_total)
+        g_out[:, 3] = 1.0 / r_total
+        args = (data, inp.rays, inp.win_starts, inp.win_ends, out, g_out, 4,
+                3, MIN_TRANSMITTANCE_3DGRT, MIN_KERNEL_RESPONSE, MIN_ALPHA,
+                MAX_ALPHA, passes)
+        k = bundle_trace._launch_backward(*args)
+        same = torch.equal(k, bundle_trace._launch_backward(*args))
+        p = bundle_trace.bundle_composite_backward_plain(*args)
+        nz_k, nz_p = (k != 0).any(1), (p != 0).any(1)
+        d = (k - p).abs()
+        col = p.abs().amax(0)
+        within = bool((d <= 1e-4 * col + 1e-30).all())
+        print(f"B8 passes={passes}: max |kernel - plain| {float(d.max()):.3e}"
+              f", worst |kernel - plain| / column max "
+              f"{float((d / col.clamp(min=1e-30)).max()):.3e}; nonzero slots "
+              f"{int(nz_k.sum())} kernel, {int(nz_p.sum())} plain; rows 13-15 "
+              f"zero {not bool(k[:, 13:16].any())}; bit-identical {same}",
+              flush=True)
+        if not (within and same and torch.equal(nz_k, nz_p)
+                and not bool(k[:, 13:16].any())):
+            fail(f"B8 (passes={passes}) disagrees with its plain version")
+        err = max(err, float(d.max()))
+        timing[passes] = (
+            cuda_ms(lambda: bundle_trace._launch_backward(*args), 10),
+            cuda_ms(lambda: bundle_trace.bundle_composite_backward_plain(
+                *args), 1, warmup=0), stats, out, k)
+
+    def b8_bound(passes):
+        """bound_ms from the run's own work: its walked windows read, the
+        [capF, 64] output written, rays, output and cotangent read; the pair
+        math of its live ray-windows, the chain and reduction of its counted
+        pairs, the network on its out-of-order ray-windows."""
+        _, _, stats, out, k = timing[passes]
+        nb = out.shape[0]
+        return bound_ms(
+            int(out[:, 7, 0].sum()) * 128 * 64 * 4 + k.numel() * 4
+            + nb * 8 * 256 * 4 * 3 + nb * 8,
+            FLOP_GRT_PAIR * 128 * stats["live_ray_windows"]
+            + (FLOP_GRT_BWD_CHAIN + FLOP_GRT_BWD_REDUCE)
+            * float(out[:, 6].sum())
+            + FLOP_GRT_SWAP * 64 * passes * stats["inverted_ray_windows"])
+
+    ms16, plain16, _, out16, k16 = timing[16]
+    bound, bound0 = b8_bound(16), b8_bound(0)
+    print(f"B8 at 100k: {out16.shape[0]} bundles, "
+          f"{int(out16[:, 7, 0].sum())} windows walked, "
+          f"{float(out16[:, 6].sum()):.0f} counted pairs; 16 passes "
+          f"{ms16:.4f} ms (bound {bound[0]:.4f}, {bound[1]}), 0 passes "
+          f"{timing[0][0]:.4f} ms (bound {bound0[0]:.4f}) (plain "
+          f"{plain16:.2f} / {timing[0][1]:.2f} ms) {tag}", flush=True)
+    total = lambda name: sum(v.get(name, 0) for v in launches.values())
+    rec8 = dict(
+        name="bundle_trace_bwd", route="cuda",
+        source="threedgrut_torch/csrc/bundle_trace_bwd.cu",
+        replaces="threedgrut_tpu/ops/pallas/bundle_trace.py:504",
+        launches=total("bundle_trace_bwd"), launches_forward=0,
+        launches_grt_train={n: v.get("bundle_trace_bwd", 0)
+                            for n, v in launches.items()},
         max_abs_err=err, ms=ms16, plain_ms=plain16, ms_passes0=timing[0][0],
         bound_ms_passes0=bound0[0], bound_ms=bound[0], bound_by=bound[1],
         library_ms=None)
+
+    # B6 at 64 channels: the compact branch's rows, sorted by particle.
+    n = inp.rows64.shape[0]
+    walked = fused_raster.compact_walked_bundles(
+        out16, inp.win_starts, inp.flat_idx, inp.valid, k16, walk, n)
+    if walked is None:
+        fail("the walked windows do not fit walk_capacity at 100k")
+    with torch.no_grad():
+        sid, rows = sorted_gather.sort_rows(*walked)
+        lengths = torch.bincount(sid.long(), minlength=n + 1)[:n]
+        kept = int((sid < n).sum())
+        acc = torch.zeros((n + 1, 64), device=rows.device)
+        ids_l = torch.clamp(sid, max=n).long()
+    rec6 = sums_record(
+        "segment_sum_rows_by_ids[64]",
+        lambda g, i: segment_sum.segment_sum_rows_by_ids(g, i, n),
+        lambda g, i: segment_sum.segment_sum_rows_by_ids_plain(g, i, n),
+        (rows, sid), lengths, kept, kept * 256 + rows.shape[0] * 4 + n * 256,
+        lambda: acc.index_add_(0, ids_l, rows),
+        total("segment_sum_rows_by_ids"), tag)
+    rec6["launches_grt_train"] = {n_: v.get("segment_sum_rows_by_ids", 0)
+                                  for n_, v in launches.items()}
+    return rec8, rec6
 
 
 def orbit_T(k: int) -> np.ndarray:
@@ -714,35 +1129,6 @@ def backward_records(tr, view, launches, tag):
             warmup=0),
         bound_ms=b2_bound[0], bound_by=b2_bound[1], library_ms=None))
 
-    def sums_record(name, kernel, plain, args, lengths, n_rows, nbytes,
-                    library):
-        got, want = kernel(*args), plain(*args)
-        bound = segment_sum.f32_sum_bound(
-            plain(args[0].abs(), *args[1:]), lengths, want)
-        err = float((got - want).abs().max())
-        nz_k, nz_p = (got != 0).any(1), (want != 0).any(1)
-        print(f"{name}: max |kernel - plain| {err:.3e}; longest segment "
-              f"{int(lengths.max())} rows; rows summed {n_rows}; particles "
-              f"with a nonzero gradient {int(nz_k.sum())} kernel, "
-              f"{int(nz_p.sum())} plain {tag}", flush=True)
-        if not bool(((got - want).abs() <= bound).all()):
-            fail(f"{name} disagrees with its plain version beyond the f32 "
-                 f"summation bound")
-        if not torch.equal(nz_k, nz_p):
-            fail(f"{name}: the particles with a nonzero gradient differ "
-                 f"from its plain version's")
-        b = bound_ms(nbytes, NCH_F * n_rows)
-        return dict(
-            name=name, route="cuda",
-            source="threedgrut_torch/csrc/segment_sum.cu",
-            replaces=("threedgrut_tpu/ops/pallas/segment_sum.py:202"
-                      if name == "segment_sum_rows" else
-                      "threedgrut_tpu/ops/pallas/segment_sum.py:96"),
-            launches=launches[name], launches_forward=0, max_abs_err=err,
-            ms=cuda_ms(lambda: kernel(*args), 20),
-            plain_ms=cuda_ms(lambda: plain(*args), 3),
-            bound_ms=b[0], bound_by=b[1], library_ms=cuda_ms(library, 20))
-
     # B5: the dense branch's rows, sorted and rounded as in training.
     prec = "bf16" if tr.cfg.render.low_precision_grads else "f32"
     with torch.no_grad():
@@ -757,7 +1143,8 @@ def backward_records(tr, view, launches, tag):
         segment_sum.segment_sum_rows_plain, (rows, ends), lengths, total,
         total * 64 + n * 4 + n * 64,
         lambda: torch.segment_reduce(seg_data, "sum", lengths=seg_len,
-                                     axis=0, unsafe=True)))
+                                     axis=0, unsafe=True),
+        launches["segment_sum_rows"], tag))
 
     # B6: the compact branch's rows.
     wc = walk_capacity_for(tr.cfg, cap)
@@ -778,8 +1165,45 @@ def backward_records(tr, view, launches, tag):
         lambda g, i: segment_sum.segment_sum_rows_by_ids_plain(g, i, n),
         (rows6, sid6), lengths6, kept,
         kept * 64 + rows6.shape[0] * 4 + n * 64,
-        lambda: acc.index_add_(0, ids_l, rows6)))
+        lambda: acc.index_add_(0, ids_l, rows6),
+        launches["segment_sum_rows_by_ids"], tag))
     return records
+
+
+def sums_record(name, kernel, plain, args, lengths, n_rows, nbytes, library,
+                launches, tag):
+    """A record of B5 or B6 (`name`) on the rows args[0] against its plain
+    version: within segment_sum.f32_sum_bound, the same particles with a
+    nonzero sum; times of the kernel, the plain version and `library`, one
+    PyTorch call computing the same sums."""
+    from threedgrut_torch.ops import segment_sum
+    got, want = kernel(*args), plain(*args)
+    bound = segment_sum.f32_sum_bound(
+        plain(args[0].abs(), *args[1:]), lengths, want)
+    err = float((got - want).abs().max())
+    nz_k, nz_p = (got != 0).any(1), (want != 0).any(1)
+    nch = args[0].shape[1]
+    print(f"{name}: {nch} channels; max |kernel - plain| {err:.3e}; longest "
+          f"segment {int(lengths.max())} rows; rows summed {n_rows}; "
+          f"particles with a nonzero gradient {int(nz_k.sum())} kernel, "
+          f"{int(nz_p.sum())} plain {tag}", flush=True)
+    if not bool(((got - want).abs() <= bound).all()):
+        fail(f"{name} disagrees with its plain version beyond the f32 "
+             f"summation bound")
+    if not torch.equal(nz_k, nz_p):
+        fail(f"{name}: the particles with a nonzero gradient differ from "
+             f"its plain version's")
+    b = bound_ms(nbytes, nch * n_rows)
+    base = name.split("[")[0]
+    return dict(
+        name=name, route="cuda", source="threedgrut_torch/csrc/segment_sum.cu",
+        replaces=("threedgrut_tpu/ops/pallas/segment_sum.py:202"
+                  if base == "segment_sum_rows" else
+                  "threedgrut_tpu/ops/pallas/segment_sum.py:96"),
+        channels=nch, launches=launches, launches_forward=0, max_abs_err=err,
+        ms=cuda_ms(lambda: kernel(*args), 20),
+        plain_ms=cuda_ms(lambda: plain(*args), 3),
+        bound_ms=b[0], bound_by=b[1], library_ms=cuda_ms(library, 20))
 
 
 def main() -> int:
@@ -868,6 +1292,7 @@ def main() -> int:
     del p_gpu, p_cpu
     train_parity(dev, tag)
     grt_parity(dev, tag)
+    grt_train_parity(dev, tag)
 
     # ---- 5. forward main path at full width ------------------------------
     fields = bench_scene(MAIN_N, seed=0, specular_std=0.1)
@@ -916,7 +1341,12 @@ def main() -> int:
     # ---- 7. 3DGRT main path: bench_grt's configurations ------------------
     grt_launches, (gp, g_o, g_d, g_inp) = grt_main_path(dev, tag)
 
-    # ---- 8. kernels vs plain versions at the main paths' shapes ----------
+    # ---- 8. 3DGRT train main path: bench_grt's fwd+bwd, the trainer ------
+    fb_launches, grt_walk = grt_fwd_bwd_main_path(dev, tag)
+    grt_train_launches = {f"fwd_bwd_{k}": v for k, v in fb_launches.items()}
+    grt_train_launches["trainer_100k"] = grt_train_main_path(dev, tag)
+
+    # ---- 9. kernels vs plain versions at the main paths' shapes ----------
     pose = pose_from_matrix(torch.as_tensor(orbit_T(0), device=dev))
     with torch.no_grad():
         acts = (params.get_positions(), params.get_rotation(),
@@ -1035,10 +1465,17 @@ def main() -> int:
         bound_ms=b1_bound[0], bound_by=b1_bound[1], library_ms=None))
 
     records += backward_records(tr, view, train_launches, tag)
-    records.append(grt_record(g_inp, grt_launches, tag))
-    del g_inp
+    from threedgrut_torch.render import grt
+    with torch.no_grad():
+        g_data = grt.gather_candidates(g_inp)
+    rec7, b7_runs = grt_record(g_data, g_inp, grt_launches,
+                               grt_train_launches, tag)
+    records.append(rec7)
+    records += b8_record(g_data, g_inp, b7_runs, grt_train_launches,
+                         grt_walk, tag)
+    del g_inp, g_data, b7_runs
 
-    # ---- 9. where a frame's, a train step's and a trace's time goes ------
+    # ---- 10. where a frame's, a train step's and a trace's time goes -----
     def frame():
         with torch.no_grad():
             render_retry(api, params, cam, orbit_T(1), MAIN_RES, cap, dev)
@@ -1056,8 +1493,14 @@ def main() -> int:
     gbreak = profile_run(trace, ("3dgrt.",))
     print(f"profiled 3DGRT trace (100k): {json.dumps(gbreak)} {tag}",
           flush=True)
+    g_acts = grt_acts(gp)
+    fbbreak = profile_run(
+        lambda: grt_fwd_bwd(g_acts, g_o, g_d, grt_trace_kw(GRT_CONFIGS[0]),
+                            grt_walk, (0, 3)), ("3dgrt.",))
+    print(f"profiled 3DGRT fwd+bwd (100k): {json.dumps(fbbreak)} {tag}",
+          flush=True)
     if min(breakdown["device_busy_ms"], tbreak["device_busy_ms"],
-           gbreak["device_busy_ms"]) <= 0.0:
+           gbreak["device_busy_ms"], fbbreak["device_busy_ms"]) <= 0.0:
         fail("the profiler recorded no device time")
 
     for r in records:

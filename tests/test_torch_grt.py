@@ -44,6 +44,18 @@ from threedgrut_torch.render import grt
 DEG = JC.KERNEL_DEGREE_3DGRT
 
 
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """torch on one intra-op thread for the module. The plain versions run
+    many small torch ops; under the parallel test run's load an 8-thread
+    intra-op pool spends most of its time waiting on its own barriers (a
+    0.2 s test took 25-60 s), one thread does not."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def npy(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
         else np.asarray(x)
@@ -334,13 +346,22 @@ def test_bundle_composite_plain_matches_jax(composite_case):
         assert np.abs(full[:, 0:3] - got[:, 0:3]).max() > 1e-2
 
 
-def test_bundle_composite_autograd_raises_naming_b8():
+def test_bundle_composite_autograd_runs_b8():
+    """Differentiating the compositor runs B8 (its plain version here): the
+    gradient of data is bundle_composite_backward_plain's for the same
+    cotangent; the rays and window ranges get none."""
     data, rays, ws, we = composite_inputs(layered_scene(n=16),
                                           *map(npy, coherent_rays()), 16)
     data.requires_grad_(True)
+    rays.requires_grad_(True)
     out = bundle_trace.bundle_composite(data, rays, ws, we, DEG, 3, 1e-3)
-    with pytest.raises(NotImplementedError, match="B8"):
-        out.sum().backward()
+    g = torch.tensor(np.random.default_rng(3).normal(
+        size=out.shape).astype(np.float32))
+    out.backward(g)
+    want = bundle_trace.bundle_composite_backward_plain(
+        data.detach(), rays.detach(), ws, we, out.detach(), g, DEG, 3, 1e-3)
+    assert torch.equal(data.grad, want) and rays.grad is None
+    assert float(data.grad.abs().max()) > 0 and not data.grad[:, 13:16].any()
 
 
 def trace_options(n):
@@ -553,17 +574,43 @@ def test_eval_view_3dgrt_matches_jax(jax_eval):
     assert tr.validate()["psnr"] == pytest.approx(float(aux["psnr"]))
 
 
-def test_3dgrt_train_step_raises_naming_b8():
-    cfg = preset_3dgrt()
-    cfg.render.isect_capacity = ISECT
-    params = from_numpy(eval_scene(), device="cpu")
-    with pytest.raises(NotImplementedError, match="B8"):
-        ttrainer.step_fn(
+def test_3dgrt_train_step_updates_parameters():
+    """A preset_3dgrt train step (the fused compact branch, B8 and B6 at 64
+    channels in their plain versions) gives every field a finite gradient,
+    nonzero on some particles, and moves them with Adam; the dense branch
+    and the gather_rows route give the same step."""
+    from threedgrut_torch.ops import fused_raster
+    steps = []
+    for frac in (0.625, 1.0 / 512, 0.0):
+        cfg = preset_3dgrt()
+        cfg.render.isect_capacity = ISECT
+        cfg.render.walk_compact_fraction = frac
+        params = from_numpy(eval_scene(), device="cpu")
+        before = {k: getattr(params, k).detach().clone()
+                  for k in topt.PARAM_FIELDS}
+        fused_raster.branches.clear()
+        opt, aux = ttrainer.step_fn(
             params, topt.init(params), torch.tensor(camera_to_world()),
             PinholeCamera(**{k: torch.tensor(v)
                              for k, v in camera_np().items()}),
             torch.zeros(RES[::-1] + (3,)), torch.ones(RES[::-1] + (1,)),
             4.0, RES, 3, cfg, train=True)
+        want = {0.625: {"3dgrt.compact": 1}, 0.0: {}}.get(
+            frac, {"3dgrt.dense": 1})
+        assert dict(fused_raster.branches) == want and opt.step == 1
+        assert not bool(aux["overflow"])
+        for k, g in aux["grads"].items():
+            assert bool(torch.isfinite(g).all()) and bool((g != 0).any()), k
+            moved = (getattr(params, k).detach() != before[k]).any(-1)
+            assert bool(moved.any()), k
+        steps.append(aux)
+    for aux in steps[1:]:
+        assert float(aux["terms"]["total"]) == float(
+            steps[0]["terms"]["total"])
+        assert torch.equal(aux["visibility"], steps[0]["visibility"])
+        for k, g in aux["grads"].items():
+            np.testing.assert_allclose(npy(g), npy(steps[0]["grads"][k]),
+                                       rtol=1e-6, atol=1e-9, err_msg=k)
 
 
 @pytest.mark.parametrize("kw,match", [
@@ -571,13 +618,17 @@ def test_3dgrt_train_step_raises_naming_b8():
     (dict(packed_l1=True), "packed_l1"),
     (dict(flat_cull=True), "B9"),
     (dict(super_flat_capacity=1024), "flat_cull"),
-    (dict(walk_capacity=1024), "B8"),
+    (dict(walk_capacity=1000, flat_capacity=2048), "walk_capacity"),
     (dict(order="sorted"), "order"),
 ])
 def test_unported_trace_options_raise(kw, match):
+    """The options not ported yet raise naming their ROADMAP items; a
+    walk_capacity that is not a multiple of 256 and an unknown order are
+    refused."""
     sc = tt(*layered_scene(n=8))
     o, d = tt(*coherent_rays())
-    err = ValueError if "order" in kw else NotImplementedError
+    err = (ValueError if "order" in kw or "walk_capacity" in kw
+           else NotImplementedError)
     with pytest.raises(err, match=match):
         grt.trace(*sc, o, d, candidate_capacity=8, **kw)
 

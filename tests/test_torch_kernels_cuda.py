@@ -16,7 +16,14 @@ plain f64 ones). B7: rows 0-5 atol 2e-4 / rtol 1e-4 (the same per-pair
 alpha; products and colour sums in another order), hit counts off by at
 most 1 on at most 0.1% of the rays and walked windows equal on all but
 0.1% of the bundles (a T_before at min_transmittance may flip); traces and
-3DGRT frames card vs CPU within golden.compare."""
+3DGRT frames card vs CPU within golden.compare. B8 against its plain
+version on the card's own forward output: the nonzero slot rows equal,
+values atol 1e-4 x each column's max (the same per-ray chains, summed over
+the bundle's rays in another order, the suffix residual from a sequential
+prefix here and a cumsum there), bit-identical across two launches. B6 at
+64 channels: within f32_sum_bound. A 3DGRT train step card vs CPU: loss
+rtol 1e-4, gradients within golden.rows_agree(1e-4), bit-identical on the
+card across two runs."""
 import os
 import shutil
 
@@ -368,3 +375,106 @@ def test_grt_golden_trace_on_the_card(dev):
     rep, ok = golden.compare(out, golden.load_grt())
     assert ok, rep
 
+
+
+def b8_inputs(dev, passes):
+    """B8's inputs at grt_inputs' shapes: the card's forward output and a
+    seeded cotangent (rows 6-7 get none)."""
+    args = grt_inputs(dev, passes)
+    out = bundle_trace._launch(*args)
+    gen = torch.Generator(dev).manual_seed(passes)
+    g = torch.randn(out.shape, device=dev, generator=gen)
+    g[:, 6:] = 0.0
+    return args[:4] + (out, g) + args[4:]
+
+
+def assert_b8_close(k, p):
+    nz_k, nz_p = (k != 0).any(1), (p != 0).any(1)
+    assert torch.equal(nz_k, nz_p)
+    col = p.abs().amax(0)
+    assert bool(((k - p).abs() <= 1e-4 * col + 1e-30).all())
+    assert int(nz_k.sum()) > 1000 and not k[:, 13:16].any()
+
+
+@pytest.mark.parametrize("passes", [0, 16])
+def test_bundle_trace_bwd_kernel_matches_plain(dev, passes):
+    args = b8_inputs(dev, passes)
+    before = cuda_build.launches["bundle_trace_bwd"]
+    k = bundle_trace._launch_backward(*args)
+    assert cuda_build.launches["bundle_trace_bwd"] == before + 1
+    p = bundle_trace.bundle_composite_backward_plain(*args)
+    torch.cuda.synchronize()
+    assert_b8_close(k, p)
+    assert torch.equal(bundle_trace._launch_backward(*args), k)
+    # Windows no walk reached are exact zeros.
+    data, _, ws, we, out = args[:5]
+    walked = torch.zeros(data.shape[0] // 128, dtype=torch.bool, device=dev)
+    for b in range(ws.shape[0]):
+        lo = int(ws[b])
+        walked[lo:lo + int(out[b, 7, 0])] = True
+    assert not k.view(-1, 128, 64)[~walked].any()
+
+
+def test_segment_sum_by_ids_64_channels_matches_plain(dev):
+    gen = torch.Generator(dev).manual_seed(2)
+    n, m = 5000, 60_000
+    ids = torch.sort(torch.randint(0, n + 50, (m,), device=dev,
+                                   generator=gen).to(torch.int32)).values
+    ids[1000:4000] = int(ids[1000])                     # one long segment
+    ids = torch.sort(ids).values
+    g = torch.randn((m, 64), device=dev, generator=gen)
+    before = cuda_build.launches["segment_sum_rows_by_ids"]
+    got = segment_sum.segment_sum_rows_by_ids(g, ids, n)
+    assert cuda_build.launches["segment_sum_rows_by_ids"] == before + 1
+    want = segment_sum.segment_sum_rows_by_ids_plain(g, ids, n)
+    lengths = torch.bincount(ids.long(), minlength=n + 50)[:n]
+    bound = segment_sum.f32_sum_bound(
+        segment_sum.segment_sum_rows_by_ids_plain(g.abs(), ids, n), lengths,
+        want)
+    assert got.shape == (n, 64)
+    assert bool(((got - want).abs() <= bound).all())
+    with pytest.raises(ValueError, match="F in"):
+        segment_sum.segment_sum_rows_by_ids(g[:, :24].contiguous(), ids, n)
+
+
+@pytest.mark.parametrize("walk_compact_fraction", [0.625, 0.0])
+def test_3dgrt_train_step_card_matches_cpu(dev, walk_compact_fraction):
+    """One preset_3dgrt train step on the card (B7, B8, B6 at 64 channels)
+    and on the CPU from the same parameters; the card's gradients are
+    bit-identical across two runs."""
+    from threedgrut_torch import optimizers, trainer
+    from threedgrut_torch.config import preset_3dgrt
+    cfg = preset_3dgrt()
+    cfg.render.isect_capacity = 1 << 18
+    cfg.render.walk_compact_fraction = walk_compact_fraction
+    res = (128, 96)
+    gt = np.random.default_rng(0).uniform(0, 1, (96, 128, 3)).astype(
+        np.float32)
+    results = []
+    for device in (dev, dev, "cpu"):
+        cuda_build.launches.clear()
+        p, cam, pose = scene(5000, res, device)
+        T = torch.tensor(look_at(np.array([0.3, -4.0, 1.0], np.float32),
+                                 np.zeros(3, np.float32),
+                                 np.array([0, 0, 1.0], np.float32)),
+                         device=device)
+        _, aux = trainer.step_fn(p, optimizers.init(p), T, cam,
+                                 torch.tensor(gt, device=device),
+                                 torch.ones((96, 128, 1), device=device),
+                                 4.0, res, 3, cfg, train=True)
+        assert not bool(aux["overflow"])
+        results.append(aux)
+        if device == dev:
+            assert dict(cuda_build.launches) == {
+                "bundle_trace_fwd": 1, "bundle_trace_bwd": 1,
+                "segment_sum_rows_by_ids": 1}
+    card, again, cpu = results
+    for k, g in card["grads"].items():
+        assert torch.equal(g, again["grads"][k]), k
+    torch.testing.assert_close(card["terms"]["total"].cpu(),
+                               cpu["terms"]["total"], rtol=1e-4, atol=0)
+    for k, g in cpu["grads"].items():
+        rep, ok = golden.rows_agree(card["grads"][k], g, 1e-4)
+        assert ok, (k, rep)
+    flips = int((card["visibility"].cpu() != cpu["visibility"]).sum())
+    assert flips <= max(1, int(1e-3 * cpu["visibility"].numel()))

@@ -10,6 +10,8 @@
 // (ray, row): pair_eval (tile_pair.cuh, the 3DGUT pair math, fields 0-12 of
 // the row) plus the two gates of intersectCustomParticle, v.u < 0 (in front
 // of the origin) and g <= 9 (canonical slab); alpha is 0 where not accepted.
+// The gates, the SH basis and the colour live in bundle_pair.cuh, shared
+// with the backward (B8), which must see exactly these hits.
 //
 // Per ray and window the semantics are the JAX kernel's: keys hit_t
 // (alpha > 0) or 3.4e38 go through exactly `passes` passes of odd-even
@@ -38,58 +40,13 @@
 // ~110 for the colour and sums per counted pair and ~2 x 64 x passes per
 // out-of-order ray-window for the network; device memory sees 32 KB per
 // walked window and 16 KB of rays and output per bundle.
-#include "tile_pair.cuh"
-
-#define ROW64 64
-#define BIG 3.4e38f
+#include "bundle_pair.cuh"
 
 namespace {
 
 struct Acc {
     float r, g, b, opa, dep, hits, tmin;
 };
-
-// Per-ray SH basis (bundle_trace.py _sh_basis_rows): entries past
-// (sh_degree + 1)^2 are not used.
-__device__ __forceinline__ void sh_basis(float x, float y, float z,
-                                         int sh_degree, float* bs) {
-    bs[0] = 0.28209479177387814f;
-    if (sh_degree >= 1) {
-        bs[1] = -0.4886025119029199f * y;
-        bs[2] = 0.4886025119029199f * z;
-        bs[3] = -0.4886025119029199f * x;
-    }
-    if (sh_degree >= 2) {
-        const float xx = x * x, yy = y * y, zz = z * z;
-        bs[4] = 1.0925484305920792f * x * y;
-        bs[5] = -1.0925484305920792f * y * z;
-        bs[6] = 0.31539156525252005f * (2.0f * zz - xx - yy);
-        bs[7] = -1.0925484305920792f * x * z;
-        bs[8] = 0.5462742152960396f * (xx - yy);
-        if (sh_degree >= 3) {
-            bs[9] = -0.5900435899266435f * y * (3.0f * xx - yy);
-            bs[10] = 2.890611442640554f * x * y * z;
-            bs[11] = -0.4570457994644658f * y * (4.0f * zz - xx - yy);
-            bs[12] = 0.3731763325901154f * z * (2.0f * zz - 3.0f * xx
-                                                - 3.0f * yy);
-            bs[13] = -0.4570457994644658f * x * (4.0f * zz - xx - yy);
-            bs[14] = 1.445305721320277f * z * (xx - yy);
-            bs[15] = -0.5900435899266435f * x * (xx - 3.0f * yy);
-        }
-    }
-}
-
-// Alpha of row q for the ray: pair_eval's acceptance and both gates.
-__device__ __forceinline__ float row_alpha(const float* q, const Ray& ray,
-                                           int degree, float min_response,
-                                           float min_alpha, float max_alpha,
-                                           float* hit_t) {
-    const Pair s = pair_eval(q, ray, degree, min_response, min_alpha,
-                             max_alpha, 1);
-    *hit_t = s.hit_t;
-    const bool ok = s.accept && s.vdotu < 0.0f && s.g <= 9.0f;
-    return ok ? s.alpha : 0.0f;
-}
 
 // One row in compositing order: T_before = carry * p; counted rows add
 // their weight; p accumulates the product.
@@ -103,18 +60,10 @@ __device__ __forceinline__ void composite_row(
         const float w = alpha * t_before;
         if (w > 0.0f) {
             float c[3];
-            for (int ch = 0; ch < 3; ++ch) {
-                const float* k = q + 16 + 16 * ch;
-                float s = 0.0f;
-                // Unrolled with static indices, so bs stays in registers.
-#pragma unroll
-                for (int i = 0; i < 16; ++i)
-                    if (i < nbasis) s += k[i] * bs[i];
-                c[ch] = fmaxf(s + 0.5f, 0.0f);
-            }
-            a.r += w * c[0];
-            a.g += w * c[1];
-            a.b += w * c[2];
+            raw_colours(q, bs, nbasis, c);
+            a.r += w * fmaxf(c[0], 0.0f);
+            a.g += w * fmaxf(c[1], 0.0f);
+            a.b += w * fmaxf(c[2], 0.0f);
             a.opa += w;
             a.dep += w * hit_t;
             a.hits += 1.0f;

@@ -26,7 +26,22 @@ passes are part of the result: a full sort would composite differently.
 
 `bundle_composite` launches csrc/bundle_trace_fwd.cu for CUDA tensors and
 runs `bundle_composite_plain` for CPU tensors. It is a
-torch.autograd.Function whose backward (kernel B8) is not ported yet.
+torch.autograd.Function whose backward is kernel B8
+(csrc/bundle_trace_bwd.cu; plain version `bundle_composite_backward_plain`):
+per-slot gradients [capF, 64] of the candidate rows (A 9, mean 3, opacity,
+3 zeros, 48 SH), exactly 0 on windows the forward's walk never reached. No
+gradient flows to the rays or the window ranges.
+
+Backward, per (ray, counted pair j) with q_j = colour . dC + hit_t dD + dO:
+the suffix sum_{k after j} w_k q_k, taken in the ray's compositing order (the
+re-sorted one), is the residual a_tot - prefix_j with a_tot rebuilt from the
+forward's rows 0-4; then
+  d_alpha = T_before q_j - (suffix + dT t_final) / max(1 - alpha, 1e-6)
+chains through alpha = min(opacity resp(g), max_alpha) (gated on
+alpha_raw < max_alpha), g = |v x u|^2 / |v|^2 and hit_t = |v.u| / |v|^2 to
+du, dv (the exact cross form), and dA[r][k] = du_r (o - mean)_k + dv_r d_k,
+dmean_k = -sum_r A[r][k] du_r, dopacity = resp d_alpha, and the SH rows
+basis_k w dC_c [raw colour_c > 0]; each summed over the bundle's rays.
 """
 from __future__ import annotations
 
@@ -34,10 +49,11 @@ import ctypes
 from typing import Optional
 
 import torch
+from torch.profiler import record_function
 
 from threedgrut_torch import constants as C
 from threedgrut_torch.ops import cuda_build
-from threedgrut_torch.ops.tile_raster import _tile_pairs
+from threedgrut_torch.ops.tile_raster import _response_grad, _tile_pairs
 
 CHUNK = 128          # rows per window: the flat layout's and re-sort's unit
 ROW64 = 64           # packed floats per candidate row
@@ -91,25 +107,17 @@ def oddeven_passes(key: torch.Tensor, vals, passes: int):
     return key, vals
 
 
-def _window(S, rays, basis, carry, degree, min_transmittance, min_response,
-            min_alpha, max_alpha, sorted_passes, stats):
-    """One window of B bundles: S [B, CHUNK, 64], rays [B, 8, PIX], basis
-    [B, 16, PIX], carry [B, PIX]. Returns the window's sums [B, 5, PIX]
-    (rgb, opacity, depth), hits [B, PIX] and the new carry."""
+def _window_weights(S, rays, carry, degree, min_transmittance,
+                    min_response, min_alpha, max_alpha, sorted_passes):
+    """Compositing weights of one window of B bundles: S [B, CHUNK, 64],
+    rays [B, 8, PIX], carry [B, PIX]. Returns (pair quantities, alpha,
+    1 - alpha, T_before, live, w), each [B, CHUNK, PIX] in row order, and
+    the row index at each compositing position (None without passes)."""
     q = _tile_pairs(S, rays, degree, min_response, min_alpha, max_alpha,
                     True)
     gates = (q["vdotu"] < 0.0) & (q["g"] <= C.MAX_PARTICLE_SQ_DISTANCE)
     alpha = torch.where(gates, q["alpha"], torch.zeros_like(q["alpha"]))
     one_m = 1.0 - alpha
-    if stats is not None:
-        live = carry > min_transmittance
-        # A ray's hits out of row order: a hit nearer than an earlier one.
-        before = torch.where(alpha > 0.0, q["hit_t"],
-                             torch.full_like(alpha, -BIG)).cummax(1).values
-        inverted = ((alpha[:, 1:] > 0.0)
-                    & (q["hit_t"][:, 1:] < before[:, :-1])).any(1)
-        stats["live_ray_windows"] += int(live.sum())
-        stats["inverted_ray_windows"] += int((inverted & live).sum())
     if sorted_passes:
         key = torch.where(alpha > 0.0, q["hit_t"],
                           torch.full_like(alpha, BIG))
@@ -125,14 +133,45 @@ def _window(S, rays, basis, carry, degree, min_transmittance, min_response,
     t_before = carry[:, None, :] * excl
     live = t_before > min_transmittance
     w = torch.where(live, alpha * t_before, torch.zeros_like(alpha))
-    sums = [torch.sum(w * torch.clamp(torch.matmul(
-        S[..., 16 + 16 * c:32 + 16 * c], basis) + 0.5, min=0.0), dim=1)
-        for c in range(3)]
+    return q, alpha, one_m, t_before, live, w, pos_s
+
+
+def _raw_colours(S, basis):
+    """Per-(row, ray) SH colour before its clamp, coeffs . basis + 0.5,
+    for red, green and blue: 3 x [B, CHUNK, PIX]."""
+    return [torch.matmul(S[..., 16 + 16 * c:32 + 16 * c], basis) + 0.5
+            for c in range(3)]
+
+
+def _next_carry(live, t_before, one_m, carry):
+    t_after = torch.where(live, t_before * one_m,
+                          torch.full_like(t_before, BIG))
+    return torch.minimum(t_after.amin(1), carry)
+
+
+def _window(S, rays, basis, carry, degree, min_transmittance, min_response,
+            min_alpha, max_alpha, sorted_passes, stats):
+    """One window of B bundles: S [B, CHUNK, 64], rays [B, 8, PIX], basis
+    [B, 16, PIX], carry [B, PIX]. Returns the window's sums [B, 5, PIX]
+    (rgb, opacity, depth), hits [B, PIX] and the new carry."""
+    q, alpha, one_m, t_before, live, w, _ = _window_weights(
+        S, rays, carry, degree, min_transmittance, min_response, min_alpha,
+        max_alpha, sorted_passes)
+    if stats is not None:
+        alive = carry > min_transmittance
+        # A ray's hits out of row order: a hit nearer than an earlier one.
+        before = torch.where(alpha > 0.0, q["hit_t"],
+                             torch.full_like(alpha, -BIG)).cummax(1).values
+        inverted = ((alpha[:, 1:] > 0.0)
+                    & (q["hit_t"][:, 1:] < before[:, :-1])).any(1)
+        stats["live_ray_windows"] += int(alive.sum())
+        stats["inverted_ray_windows"] += int((inverted & alive).sum())
+    sums = [torch.sum(w * torch.clamp(col, min=0.0), dim=1)
+            for col in _raw_colours(S, basis)]
     sums += [w.sum(1), (w * q["hit_t"]).sum(1)]
-    hits = (w > 0.0).sum(1).to(torch.float32)
-    t_after = torch.where(live, t_before * one_m, torch.full_like(w, BIG))
-    carry = torch.minimum(t_after.amin(1), carry)
-    return torch.stack(sums, dim=1), hits, carry
+    hits = (w > 0.0).sum(1).to(w.dtype)
+    return (torch.stack(sums, dim=1), hits,
+            _next_carry(live, t_before, one_m, carry))
 
 
 def bundle_composite_plain(data, rays, win_starts, win_ends, degree: int,
@@ -155,7 +194,7 @@ def bundle_composite_plain(data, rays, win_starts, win_ends, degree: int,
     nw = windows.shape[0]
     ws = torch.clamp(win_starts.long(), 0, nw)
     we = torch.clamp(win_ends.long(), 0, nw)
-    out = torch.zeros((nb, 8, PIX), dtype=torch.float32, device=dev)
+    out = torch.zeros((nb, 8, PIX), dtype=data.dtype, device=dev)
     carry = rays[:, 7].clone()
     basis = sh_basis_rows(rays, sh_degree)
     walking = we > ws
@@ -178,16 +217,124 @@ def bundle_composite_plain(data, rays, win_starts, win_ends, degree: int,
     return out
 
 
-def _launch(data, rays, win_starts, win_ends, degree, sh_degree,
-            min_transmittance, min_response, min_alpha, max_alpha,
-            sorted_passes):
+def _window_backward(S, rays, basis, carry, prefix, a_tot, go, t_final,
+                     degree, min_transmittance, min_response, min_alpha,
+                     max_alpha, sorted_passes):
+    """The backward of one window of B bundles (module docstring): S [B,
+    CHUNK, 64], rays and the output cotangent go [B, 8, PIX], basis [B, 16,
+    PIX], carry, prefix (the sum of w q over the earlier windows), a_tot
+    and t_final [B, PIX]. Returns the window's per-slot gradients [B,
+    CHUNK, 64], the new carry and the new prefix."""
+    q, alpha, one_m, t_before, live, w, pos_s = _window_weights(
+        S, rays, carry, degree, min_transmittance, min_response, min_alpha,
+        max_alpha, sorted_passes)
+    zero = torch.zeros_like(w)
+    dC = [go[:, c, None, :] for c in range(3)]
+    dO, dD, dT = go[:, 3, None, :], go[:, 4, None, :], go[:, 5, None, :]
+    cols = _raw_colours(S, basis)
+    qj = (torch.clamp(cols[0], min=0.0) * dC[0]
+          + torch.clamp(cols[1], min=0.0) * dC[1]
+          + torch.clamp(cols[2], min=0.0) * dC[2] + q["hit_t"] * dD + dO)
+    wq = w * qj
+    rest = (a_tot - prefix)[:, None, :]
+    if pos_s is not None:
+        # The suffix runs in the ray's compositing order: prefix sums there,
+        # mapped back to row order.
+        incl_s = torch.cumsum(torch.gather(wq, 1, pos_s), dim=1)
+        suffix = torch.empty_like(wq).scatter_(1, pos_s, rest - incl_s)
+    else:
+        suffix = rest - torch.cumsum(wq, dim=1)
+    inv_one_m = 1.0 / torch.clamp(one_m, min=1e-6)
+    counted = w > 0.0
+    d_alpha = torch.where(
+        counted,
+        t_before * qj - suffix * inv_one_m - dT * t_final[:, None, :]
+        * inv_one_m, zero)
+    unclamped = (q["alpha_raw"] < max_alpha) & counted
+    d_resp = torch.where(unclamped, S[..., 12:13] * d_alpha, zero)
+    d_opa = torch.where(unclamped, q["resp"] * d_alpha, zero)
+    d_g = d_resp * _response_grad(q["g"], q["resp"], degree)
+    d_hit = torch.where(counted, w * dD, zero)
+    inv_vsq = q["inv_vsq"]
+    d_m = torch.sign(q["vdotu"]) * inv_vsq * d_hit
+    d_crsq = d_g * inv_vsq
+    d_vsq = (-q["g"] * inv_vsq) * d_g + (-q["hit_t"] * inv_vsq) * d_hit
+    u, v, cr, w0 = q["u"], q["v"], q["cr"], q["w0"]
+    crxv = [cr[1] * v[2] - cr[2] * v[1], cr[2] * v[0] - cr[0] * v[2],
+            cr[0] * v[1] - cr[1] * v[0]]
+    uxcr = [u[1] * cr[2] - u[2] * cr[1], u[2] * cr[0] - u[0] * cr[2],
+            u[0] * cr[1] - u[1] * cr[0]]
+    du = [2.0 * d_crsq * crxv[i] + d_m * v[i] for i in range(3)]
+    dv = [2.0 * d_crsq * uxcr[i] + d_m * u[i] + 2.0 * d_vsq * v[i]
+          for i in range(3)]
+    d = [rays[:, 3 + k, None, :] for k in range(3)]
+    rows = [(du[r] * w0[k] + dv[r] * d[k]).sum(-1)
+            for r in range(3) for k in range(3)]
+    su = [x.sum(-1) for x in du]
+    rows += [-(S[..., k] * su[0] + S[..., 3 + k] * su[1]
+               + S[..., 6 + k] * su[2]) for k in range(3)]
+    rows.append(d_opa.sum(-1))
+    G = torch.stack(rows, dim=-1)                              # [B, CHUNK, 13]
+    gsh = [torch.matmul(torch.where(cols[c] > 0.0, w * dC[c], zero),
+                        basis.transpose(1, 2)) for c in range(3)]
+    G = torch.cat([G, torch.zeros_like(G[..., :3])] + gsh, dim=-1)
+    return (G, _next_carry(live, t_before, one_m, carry),
+            prefix + wq.sum(1))
+
+
+def bundle_composite_backward_plain(
+        data, rays, win_starts, win_ends, out, g_out, degree: int,
+        sh_degree: int, min_transmittance: float,
+        min_response: float = C.MIN_KERNEL_RESPONSE,
+        min_alpha: float = C.MIN_ALPHA, max_alpha: float = C.MAX_ALPHA,
+        sorted_passes: int = 0) -> torch.Tensor:
+    """Plain version of B8: per-slot gradients [capF, 64] of the candidate
+    rows for the output cotangent g_out [nb, 8, 256] (rows 6-7 unread),
+    given the forward's output `out`. The forward's loop over window index,
+    vectorised across the bundles still walking; windows no walk reached
+    stay exactly 0."""
+    nb = rays.shape[0]
+    windows = data.reshape(-1, CHUNK, ROW64)
+    nw = windows.shape[0]
+    grad = torch.zeros_like(windows)
+    ws = torch.clamp(win_starts.long(), 0, nw)
+    we = torch.clamp(win_ends.long(), 0, nw)
+    carry = rays[:, 7].clone()
+    prefix = torch.zeros_like(carry)
+    basis = sh_basis_rows(rays, sh_degree)
+    a_tot = (out[:, 0] * g_out[:, 0] + out[:, 1] * g_out[:, 1]
+             + out[:, 2] * g_out[:, 2] + out[:, 3] * g_out[:, 3]
+             + out[:, 4] * g_out[:, 4])
+    walking = we > ws
+    k = 0
+    while True:
+        b = torch.nonzero(walking & (ws + k < we)).reshape(-1)
+        if b.numel() == 0:
+            break
+        G, cb, pb = _window_backward(
+            windows[ws[b] + k], rays[b], basis[b], carry[b], prefix[b],
+            a_tot[b], g_out[b], out[b, 5], degree, min_transmittance,
+            min_response, min_alpha, max_alpha, sorted_passes)
+        grad[ws[b] + k] = G
+        carry[b], prefix[b] = cb, pb
+        walking[b] = (cb > min_transmittance).any(1)
+        k += 1
+    return grad.reshape(-1, ROW64)
+
+
+def _check_launch(data, rays, win_starts, win_ends, degree, sh_degree,
+                  sorted_passes, **bundle_buffers):
+    """Validate a compositor launch's inputs (and any further [nb, 8, 256]
+    f32 buffers) before their pointers go to C."""
     nb = rays.shape[0]
     cap = data.shape[0]
     cuda_build.checked_inputs(
         ("rays", rays, torch.float32, (nb, 8, PIX)),
         ("data", data, torch.float32, (cap, ROW64)),
         ("win_starts", win_starts, torch.int32, (nb,)),
-        ("win_ends", win_ends, torch.int32, (nb,)))
+        ("win_ends", win_ends, torch.int32, (nb,)),
+        *[(k, v, torch.float32, (nb, 8, PIX))
+          for k, v in bundle_buffers.items()])
     if cap % CHUNK:
         raise ValueError(f"the candidate rows must be a multiple of {CHUNK} "
                          f"(the kernel loads whole windows), got {cap}")
@@ -197,6 +344,15 @@ def _launch(data, rays, win_starts, win_ends, degree, sh_degree,
         raise ValueError(f"unsupported SH degree {sh_degree}")
     if sorted_passes < 0:
         raise ValueError(f"sorted_passes must be >= 0, got {sorted_passes}")
+
+
+def _launch(data, rays, win_starts, win_ends, degree, sh_degree,
+            min_transmittance, min_response, min_alpha, max_alpha,
+            sorted_passes):
+    nb = rays.shape[0]
+    cap = data.shape[0]
+    _check_launch(data, rays, win_starts, win_ends, degree, sh_degree,
+                  sorted_passes)
     out = torch.empty((nb, 8, PIX), dtype=torch.float32, device=rays.device)
     lib = cuda_build.library("bundle_trace_fwd",
                              [_P] * 5 + [_I] * 4 + [_F] * 4 + [_I, _P])
@@ -210,22 +366,68 @@ def _launch(data, rays, win_starts, win_ends, degree, sh_degree,
     return out
 
 
+def _launch_backward(data, rays, win_starts, win_ends, out, g_out, degree,
+                     sh_degree, min_transmittance, min_response, min_alpha,
+                     max_alpha, sorted_passes):
+    nb = rays.shape[0]
+    cap = data.shape[0]
+    _check_launch(data, rays, win_starts, win_ends, degree, sh_degree,
+                  sorted_passes, out=out, g_out=g_out)
+    # Zeroed: windows the walk never reaches keep an exact 0.
+    grad = torch.zeros((cap, ROW64), dtype=torch.float32, device=rays.device)
+    lib = cuda_build.library("bundle_trace_bwd",
+                             [_P] * 7 + [_I] * 4 + [_F] * 4 + [_I, _P])
+    stream = torch.cuda.current_stream(rays.device).cuda_stream
+    cuda_build.launches["bundle_trace_bwd"] += 1
+    cuda_build.check("bundle_trace_bwd", lib.bundle_trace_bwd(
+        data.data_ptr(), win_starts.data_ptr(), win_ends.data_ptr(),
+        rays.data_ptr(), out.data_ptr(), g_out.data_ptr(), grad.data_ptr(),
+        nb, cap // CHUNK, degree, sh_degree, min_transmittance, min_response,
+        min_alpha, max_alpha, int(sorted_passes), stream))
+    return grad
+
+
+def bundle_composite_backward(data, rays, win_starts, win_ends, out, g_out,
+                              degree: int, sh_degree: int,
+                              min_transmittance: float,
+                              min_response: float = C.MIN_KERNEL_RESPONSE,
+                              min_alpha: float = C.MIN_ALPHA,
+                              max_alpha: float = C.MAX_ALPHA,
+                              sorted_passes: int = 0) -> torch.Tensor:
+    """B8: per-slot gradients [capF, 64] of the candidate rows for the
+    output cotangent `g_out`, given the forward's output `out` (the JAX
+    package's _backward_windows, in row layout). Launches the kernel for
+    CUDA tensors; the plain version for CPU tensors."""
+    fn = (bundle_composite_backward_plain if rays.device.type == "cpu"
+          else _launch_backward)
+    with record_function("3dgrt.bwd_kernel"):
+        return fn(data, rays, win_starts, win_ends, out, g_out.contiguous(),
+                  degree, sh_degree, min_transmittance, min_response,
+                  min_alpha, max_alpha, sorted_passes)
+
+
+def composite_fn(device: torch.device):
+    """B7's entry for tensors on `device`: the kernel, or on the CPU its
+    plain version."""
+    return bundle_composite_plain if device.type == "cpu" else _launch
+
+
 class _BundleComposite(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, data, rays, win_starts, win_ends, degree, sh_degree,
-                min_transmittance, min_response, min_alpha, max_alpha,
-                sorted_passes):
-        fn = bundle_composite_plain if rays.device.type == "cpu" else _launch
-        return fn(data.detach(), rays.detach(), win_starts, win_ends, degree,
-                  sh_degree, min_transmittance, min_response, min_alpha,
-                  max_alpha, sorted_passes)
+    def forward(ctx, data, rays, win_starts, win_ends, *args):
+        data, rays = data.detach(), rays.detach()
+        out = composite_fn(rays.device)(data, rays, win_starts, win_ends,
+                                        *args)
+        ctx.save_for_backward(data, rays, win_starts, win_ends, out)
+        ctx.args = args
+        return out
 
     @staticmethod
     def backward(ctx, g_out):
-        raise NotImplementedError(
-            "the backward of the 3DGRT bundle compositor (kernel B8, "
-            "bundle_trace.py _backward_windows) is not ported yet: ROADMAP "
-            "queue A item 10 and queue B, B8")
+        data, rays, win_starts, win_ends, out = ctx.saved_tensors
+        g_data = bundle_composite_backward(data, rays, win_starts, win_ends,
+                                           out, g_out, *ctx.args)
+        return (g_data,) + (None,) * (3 + len(ctx.args))
 
 
 def bundle_composite(data, rays, win_starts, win_ends, degree: int,
@@ -236,8 +438,9 @@ def bundle_composite(data, rays, win_starts, win_ends, degree: int,
                      sorted_passes: int = 0) -> torch.Tensor:
     """B7: the [nb, 8, 256] output buffer (module docstring) of the flat
     candidate rows `data` [capF, 64] for the bundles of `rays`, each
-    walking its window range. Launches the kernel for CUDA tensors, the
-    plain version for CPU tensors. Differentiating it raises (B8)."""
+    walking its window range, differentiable in `data` through B8.
+    Launches the kernels for CUDA tensors, the plain versions for CPU
+    tensors."""
     return _BundleComposite.apply(
         data, rays, win_starts, win_ends, int(degree), int(sh_degree),
         float(min_transmittance), float(min_response), float(min_alpha),

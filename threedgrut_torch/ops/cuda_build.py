@@ -7,7 +7,7 @@ the library name carries a hash of the source and flags, so an edited
 source is rebuilt. `build()` compiles several sources at once, one nvcc
 process each, all started together.
 
-A kernel is a C entry of one source (`KERNELS`: name -> (source, renderer,
+A kernel is a C entry of one source (`KERNELS`: name -> (source, renderers,
 pass)); one source may hold several. Every wrapper that launches a kernel adds one to
 `launches[name]` at the launch, so a caller can show that a path really went
 through the kernels (`launches.clear()` resets the counts).
@@ -39,25 +39,28 @@ SOURCES: Dict[str, tuple] = {
     "tile_raster_bwd": ("--fmad=false",),
     "segment_sum": ("--fmad=false",),
     "bundle_trace_fwd": ("--fmad=false",),
+    "bundle_trace_bwd": ("--fmad=false",),
 }
-# kernel (its C entry and launch counter) -> (source stem, the renderer
-# whose path launches it: "gut" the tile rasterizer, "grt" the tracer; the
+# kernel (its C entry and launch counter) -> (source stem, the renderers
+# whose paths launch it: "gut" the tile rasterizer, "grt" the tracer; the
 # pass: "forward" in every render, "backward" only in a train step)
-KERNELS: Dict[str, Tuple[str, str, str]] = {
-    "cull_masks": ("cull_masks", "gut", "forward"),                 # B3
-    "expand_keys": ("expand_keys", "gut", "forward"),               # B4
-    "tile_raster_fwd": ("tile_raster_fwd", "gut", "forward"),       # B1
-    "tile_raster_bwd": ("tile_raster_bwd", "gut", "backward"),      # B2
-    "segment_sum_rows": ("segment_sum", "gut", "backward"),         # B5
-    "segment_sum_rows_by_ids": ("segment_sum", "gut", "backward"),  # B6
-    "bundle_trace_fwd": ("bundle_trace_fwd", "grt", "forward"),     # B7
+KERNELS: Dict[str, Tuple[str, Tuple[str, ...], str]] = {
+    "cull_masks": ("cull_masks", ("gut",), "forward"),              # B3
+    "expand_keys": ("expand_keys", ("gut",), "forward"),            # B4
+    "tile_raster_fwd": ("tile_raster_fwd", ("gut",), "forward"),    # B1
+    "tile_raster_bwd": ("tile_raster_bwd", ("gut",), "backward"),   # B2
+    "segment_sum_rows": ("segment_sum", ("gut",), "backward"),      # B5
+    "segment_sum_rows_by_ids": ("segment_sum", ("gut", "grt"),
+                                "backward"),                        # B6
+    "bundle_trace_fwd": ("bundle_trace_fwd", ("grt",), "forward"),  # B7
+    "bundle_trace_bwd": ("bundle_trace_bwd", ("grt",), "backward"),  # B8
 }
 
 
 def kernels_of(renderer: str, passes=("forward", "backward")):
     """Names of the kernels that `renderer`'s path launches in `passes`."""
     return [k for k, (_, r, p) in KERNELS.items()
-            if r == renderer and p in passes]
+            if renderer in r and p in passes]
 _BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

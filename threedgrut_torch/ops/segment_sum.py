@@ -1,10 +1,11 @@
 """Kernels B5 and B6: deterministic per-particle sums of slot cotangent rows
 over contiguous segments, port of threedgrut_tpu/ops/pallas/segment_sum.py.
 
-Rows are [m, 16] row-major and already grouped by particle (stably sorted by
-particle id); the sums are [n, 16]. (The JAX kernels take and return the
-channel-major [16, m] layout that its TPU compiler favours; the port keeps
-rows.)
+Rows are [m, F] row-major and already grouped by particle (stably sorted by
+particle id); the sums are [n, F]. F is 16 for B5 (the 3DGUT packed row)
+and 16 or 64 for B6 (the 3DGRT candidate row); the plain versions take any
+width. (The JAX kernels take and return the channel-major [F, m] layout
+that its TPU compiler favours; the port keeps rows.)
 
   * `segment_sum_rows` (B5): segment p is [min(ends[p-1], cap),
     min(ends[p], cap)) for the binning's inclusive slot-count cumsum `ends`.
@@ -22,7 +23,8 @@ import torch
 
 from threedgrut_torch.ops import cuda_build
 
-NCH = 16   # channels per row (the packed particle row)
+NCH = 16                # channels of B5's rows (the packed particle row)
+NCH_BY_IDS = (16, 64)   # the widths B6's kernel is instantiated for
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,15 +52,16 @@ def segment_sum_rows_by_ids_plain(g: torch.Tensor, ids_sorted: torch.Tensor,
     return out.to(torch.float32)
 
 
-def _check_rows(g):
-    if g.dim() != 2 or g.shape[1] != NCH:
-        raise ValueError(f"rows must be [m, {NCH}], got {tuple(g.shape)}")
+def _check_rows(g, widths):
+    if g.dim() != 2 or g.shape[1] not in widths:
+        raise ValueError(f"rows must be [m, F] with F in {widths}, got "
+                         f"{tuple(g.shape)}")
 
 
 def segment_sum_rows(g: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
     """B5: [cap, 16] rows grouped by particle, [n] int32 inclusive segment
     ends (monotone; clamped to cap) -> [n, 16] per-particle sums."""
-    _check_rows(g)
+    _check_rows(g, (NCH,))
     if g.device.type == "cpu":
         return segment_sum_rows_plain(g, ends)
     cap, n = g.shape[0], ends.shape[0]
@@ -75,21 +78,26 @@ def segment_sum_rows(g: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
 
 def segment_sum_rows_by_ids(g: torch.Tensor, ids_sorted: torch.Tensor,
                             n: int) -> torch.Tensor:
-    """B6: [m, 16] rows and their [m] int32 particle ids, sorted ascending
-    -> [n, 16] per-particle sums; rows with id >= n are dropped."""
-    _check_rows(g)
+    """B6: [m, F] rows (F 16 or 64) and their [m] int32 particle ids,
+    sorted ascending -> [n, F] per-particle sums; rows with id >= n are
+    dropped."""
     if g.device.type == "cpu":
+        if g.dim() != 2 or g.shape[1] % 8:
+            raise ValueError(f"rows must be [m, F] with F a multiple of 8, "
+                             f"got {tuple(g.shape)}")
         return segment_sum_rows_by_ids_plain(g, ids_sorted, n)
-    m = g.shape[0]
-    cuda_build.checked_inputs(("g", g, torch.float32, (m, NCH)),
+    _check_rows(g, NCH_BY_IDS)
+    m, f = g.shape
+    cuda_build.checked_inputs(("g", g, torch.float32, (m, f)),
                               ("ids_sorted", ids_sorted, torch.int32, (m,)))
-    out = torch.empty((n, NCH), dtype=torch.float32, device=g.device)
+    out = torch.empty((n, f), dtype=torch.float32, device=g.device)
     lib = cuda_build.library("segment_sum_rows_by_ids",
-                             [_P, _P, _I, _I, _P, _P])
+                             [_P, _P, _I, _I, _I, _P, _P])
     stream = torch.cuda.current_stream(g.device).cuda_stream
     cuda_build.launches["segment_sum_rows_by_ids"] += 1
     cuda_build.check("segment_sum_rows_by_ids", lib.segment_sum_rows_by_ids(
-        g.data_ptr(), ids_sorted.data_ptr(), m, n, out.data_ptr(), stream))
+        g.data_ptr(), ids_sorted.data_ptr(), m, n, f, out.data_ptr(),
+        stream))
     return out
 
 
@@ -98,7 +106,7 @@ def f32_sum_bound(abs_sums: torch.Tensor, lengths: torch.Tensor,
     """How far a sequential f32 sum of `lengths` terms may lie from the
     plain version's f64 sum rounded once: len * 2^-24 * sum|x| (the
     recursive-summation bound) plus 2^-23 * |sum| (the roundings of the
-    results). abs_sums [n, 16] are the segment sums of |x|."""
+    results). abs_sums [n, F] are the segment sums of |x|."""
     u = 2.0 ** -24
     return (lengths.to(abs_sums.dtype)[:, None] * u * abs_sums
             + 2 * u * sums.abs())

@@ -11,6 +11,12 @@ kernel B6 (segments from the sorted id column, for a compacted row subset).
 Tail slots carry id N and are dropped either way: the forward clamps N to
 N - 1, so autograd's own gather transpose would wrongly add their
 cotangents to particle N - 1.
+
+`gather_rows` is the 3DGRT candidate row gather (table[idx] for arbitrary,
+repeating ids): its backward (`unsort_gather_segment_sum`) stably sorts the
+ids, gathers the [m, 64] cotangent rows in that order and sums them with
+B6 at 64 channels. Neither transpose scatters, so both are deterministic
+(autograd's own, index_add_, uses atomics on the card).
 """
 from __future__ import annotations
 
@@ -79,9 +85,33 @@ def sorted_gather(packed: torch.Tensor, sorted_idx: torch.Tensor,
                                grad_precision)
 
 
+def unsort_gather_segment_sum(idx: torch.Tensor, g: torch.Tensor,
+                              n: int) -> torch.Tensor:
+    """The scatter-free transpose of table[idx] for wide rows (the JAX
+    package's unsort_gather_segment_sum): [m] int32 ids (rows with id >= n
+    dropped) and [m, F] f32 cotangent rows -> [n, F] per-particle sums, by a
+    stable sort of the ids, a row gather in that order and B6."""
+    with record_function("3dgrt.bwd_unsort"):
+        keys, order = torch.sort(idx, stable=True)
+        return segment_sum.segment_sum_rows_by_ids(g[order], keys.contiguous(),
+                                                   n)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.n = table.shape[0]
+        return table[idx.long()]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return unsort_gather_segment_sum(idx, g.contiguous(), ctx.n), None
+
+
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """table[idx] for arbitrary (repeating) row ids [m]: the forward of the
-    JAX package's gather_rows (the 3DGRT candidate row gather). Its
-    scatter-free backward (sort by id, then B6) comes with the 3DGRT train
-    step; the compositor behind it has no backward yet either."""
-    return table[idx.long()]
+    """table[idx] for arbitrary (repeating) int32 row ids [m] in [0, N):
+    the JAX package's gather_rows (the 3DGRT candidate row gather), with
+    the scatter-free backward `unsort_gather_segment_sum`."""
+    return _GatherRows.apply(table, idx)

@@ -1,6 +1,6 @@
 """3DGRT: volumetric Gaussian tracing of arbitrary rays, port of
-threedgrut_tpu/render/grt.py (the forward of its default "bundle" route and
-its exact "ray" oracle).
+threedgrut_tpu/render/grt.py (its default "bundle" route, forward and
+backward, and its exact "ray" oracle).
 
 Rays are grouped into bundles of 256. A two-level cone cull (super bundles
 of 16 Morton-adjacent bundles, then each bundle against its super's list)
@@ -12,9 +12,14 @@ composites each ray front to back with a bounded per-ray re-sort.
 
 Every stage of the fast path runs under a `torch.profiler.record_function`
 label: "3dgrt.cull", "3dgrt.flatten", "3dgrt.pack", "3dgrt.gather",
-"3dgrt.composite". The culls and the flat layout are discrete decisions and
-run without autograd. Gradients through the compositor need kernel B8, which
-is not ported yet: its backward raises.
+"3dgrt.composite", and in the backward "3dgrt.bwd_kernel" (B8),
+"3dgrt.bwd_compact" and "3dgrt.bwd_unsort" (the sort by particle id and
+B6). The culls and the flat layout are discrete decisions and run without
+autograd; gradients flow from the five parameter tensors through
+`pack_rows64` and the row gather into the compositor, whose backward is
+kernel B8. With `walk_capacity`, the gather and the compositor are one
+function (ops/fused_raster.composite_bundles) whose backward gathers only
+the windows the forward walked.
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ import torch
 from torch.profiler import record_function
 
 from threedgrut_torch import constants as C
-from threedgrut_torch.ops import bundle_trace
+from threedgrut_torch.ops import bundle_trace, fused_raster
 from threedgrut_torch.ops import particles as particle_ops
 from threedgrut_torch.ops import quaternion
 from threedgrut_torch.ops import sh as sh_ops
@@ -333,8 +338,7 @@ def pack_rows64(positions, quats, scales, opacities, features):
                       coeffs[:, :, 1], coeffs[:, :, 2]], dim=-1)
 
 
-def _unported(packed_cull, packed_l1, flat_cull, super_flat_capacity,
-              walk_capacity):
+def _unported(packed_cull, packed_l1, flat_cull, super_flat_capacity):
     if packed_cull or packed_l1:
         raise NotImplementedError(
             "3dgrt packed_cull/packed_l1 (the packed-key two-level cull) is "
@@ -344,22 +348,19 @@ def _unported(packed_cull, packed_l1, flat_cull, super_flat_capacity,
             "3dgrt flat_cull (flat-compacted super lists with "
             "_super_lists_expand, _flat_pairs_expand_sort and kernel B9) is "
             "not ported yet: ROADMAP queue A item 10 and queue B, B9")
-    if walk_capacity is not None:
-        raise NotImplementedError(
-            "3dgrt walk_capacity (fused_raster.composite_bundles, the 3DGRT "
-            "training path with kernel B8) is not ported yet: ROADMAP queue "
-            "A item 10 and queue B, B8")
 
 
 class BundleInputs(NamedTuple):
     """The bundle compositor's inputs for a set of rays (grt.prepare)."""
-    data: torch.Tensor        # [capF, 64] gathered rows, opacity masked
     rays: torch.Tensor        # [nb, 8, 256] o, d (0 if inactive), t_max, T0
     win_starts: torch.Tensor  # [nb] int32
     win_ends: torch.Tensor    # [nb] int32
     overflow: torch.Tensor    # [] bool
     visibility: torch.Tensor  # [N] bool, cone level
     counts: torch.Tensor      # [nb] int32 candidates per bundle
+    rows64: torch.Tensor      # [N, 64] packed rows (pack_rows64)
+    flat_idx: torch.Tensor    # [capF] int32 particle id per flat slot
+    valid: torch.Tensor       # [capF] bool: the slot holds a candidate
 
 
 def _rays_unit(rays_d):
@@ -367,28 +368,40 @@ def _rays_unit(rays_d):
     return rays_d / torch.clamp(dnorm, min=1e-12), dnorm[..., 0] > 1e-12
 
 
+def candidate_lists(positions, radius, valid, rays_o, rays_d,
+                    bundle_size: int, candidate_capacity: int,
+                    super_capacity: int = 8192,
+                    two_level_above: Optional[int] = None):
+    """Per-bundle candidate lists (bundle_candidates' outputs): the two-level
+    cull when it pays (more particles than `two_level_above`, by default
+    super_capacity, the JAX package's rule; nb a multiple of 16 and >= 32),
+    else the single-level one."""
+    nb = rays_o.shape[0] // bundle_size
+    above = super_capacity if two_level_above is None else two_level_above
+    if (positions.shape[0] > above and nb % SUPER_MULT == 0
+            and nb >= 2 * SUPER_MULT):
+        return bundle_candidates_twolevel(
+            positions, radius, valid, rays_o, rays_d, bundle_size,
+            candidate_capacity, super_capacity=super_capacity)
+    return bundle_candidates(positions, radius, valid,
+                             make_bundles(rays_o, rays_d, bundle_size),
+                             candidate_capacity)
+
+
 def _cull(positions, scales, opacities, rays_o, rays_dn, active,
           kernel_degree, bundle_size, candidate_capacity, super_capacity,
-          density_clamping):
-    """Per-bundle candidate lists: the two-level cull when it pays (more
-    particles than super_capacity, nb a multiple of 16 and >= 32), else
-    the single-level one. Inactive rays take a fixed direction."""
-    nb = rays_o.shape[0] // bundle_size
+          density_clamping, two_level_above=None):
+    """`candidate_lists` of the particles' bounding radii, without autograd.
+    Inactive rays take a fixed direction."""
     with torch.no_grad(), record_function("3dgrt.cull"):
         radius = bounding_radius(scales, opacities, kernel_degree,
                                  density_clamping=density_clamping)
-        valid = opacities >= C.MIN_ALPHA
         d_safe = torch.where(active[:, None], rays_dn,
                              torch.full_like(rays_dn, 1.0 / math.sqrt(3.0)))
-        if (positions.shape[0] > super_capacity and nb % SUPER_MULT == 0
-                and nb >= 2 * SUPER_MULT):
-            return bundle_candidates_twolevel(
-                positions.detach(), radius, valid, rays_o, d_safe,
-                bundle_size, candidate_capacity,
-                super_capacity=super_capacity)
-        return bundle_candidates(positions.detach(), radius, valid,
-                                 make_bundles(rays_o, d_safe, bundle_size),
-                                 candidate_capacity)
+        return candidate_lists(positions.detach(), radius,
+                               opacities >= C.MIN_ALPHA, rays_o, d_safe,
+                               bundle_size, candidate_capacity,
+                               super_capacity, two_level_above)
 
 
 def prepare(positions, quats, scales, opacities, features, rays_o, rays_d,
@@ -396,16 +409,19 @@ def prepare(positions, quats, scales, opacities, features, rays_o, rays_d,
             candidate_capacity: int = 2048, initial_transmittance=1.0,
             t_max=None, density_clamping: bool = False,
             super_capacity: int = 8192,
-            flat_capacity: Optional[int] = None) -> BundleInputs:
-    """Everything of the bundle route before compositing (256-ray bundles):
-    cull, flat layout, packed rows and their gather, packed rays."""
+            flat_capacity: Optional[int] = None,
+            two_level_above: Optional[int] = None) -> BundleInputs:
+    """Everything of the bundle route before the row gather (256-ray
+    bundles): cull, flat layout, packed rows and rays. Differentiable in
+    the five parameter tensors through the packed rows."""
     r_total = rays_o.shape[0]
     nb = r_total // 256
     dev = rays_o.device
     rays_dn, active = _rays_unit(rays_d)
     cand_idx, counts, overflow, visibility = _cull(
         positions, scales, opacities, rays_o, rays_dn, active, kernel_degree,
-        256, candidate_capacity, super_capacity, density_clamping)
+        256, candidate_capacity, super_capacity, density_clamping,
+        two_level_above)
     if flat_capacity is None:
         flat_capacity = nb * (-(-cand_idx.shape[1] // CHUNK) * CHUNK)
     with torch.no_grad(), record_function("3dgrt.flatten"):
@@ -425,11 +441,25 @@ def prepare(positions, quats, scales, opacities, features, rays_o, rays_d,
                                 torch.zeros_like(rays_dn)),
             tmx[:, None], t0[:, None]], dim=-1)
         rays = rays.reshape(nb, 256, 8).transpose(1, 2).contiguous()
+    return BundleInputs(rays, win_starts, win_ends, overflow, visibility,
+                        counts, rows64, flat_idx, valid)
+
+
+def gather_candidates(inp: BundleInputs) -> torch.Tensor:
+    """The compositor's candidate rows [capF, 64]: the packed rows gathered
+    into the flat layout (gather_rows, whose backward is the sort by
+    particle id and B6), with the opacity (channel 12) of the slots that
+    hold no candidate set to 0."""
     with record_function("3dgrt.gather"):
-        data = gather_rows(rows64, flat_idx)
-        data[:, 12] *= valid.to(data.dtype)
-    return BundleInputs(data, rays, win_starts, win_ends, overflow,
-                        visibility, counts)
+        data = gather_rows(inp.rows64, inp.flat_idx)
+        valid = inp.valid.to(data.dtype)
+        if data.requires_grad:
+            # Out of place, so that autograd records it (a copy of the
+            # rows; a trace without gradients masks in place).
+            return torch.cat([data[:, :12], data[:, 12:13] * valid[:, None],
+                              data[:, 13:]], dim=1)
+        data[:, 12] *= valid
+        return data
 
 
 def trace(positions, quats, scales, opacities, features, rays_o, rays_d,
@@ -444,7 +474,8 @@ def trace(positions, quats, scales, opacities, features, rays_o, rays_d,
           packed_cull: bool = False, packed_l1: bool = False,
           flat_cull: bool = False,
           super_flat_capacity: Optional[int] = None,
-          walk_capacity: Optional[int] = None) -> TraceResult:
+          walk_capacity: Optional[int] = None,
+          two_level_above: Optional[int] = None) -> TraceResult:
     """Trace arbitrary rays through the particles, on the device of the
     inputs (post-activation tensors).
 
@@ -465,9 +496,17 @@ def trace(positions, quats, scales, opacities, features, rays_o, rays_d,
     128; None = nb * candidate list width); overflow of it, of a bundle's
     `candidate_capacity` or of a super list's `super_capacity` is reported
     in `overflow`: grow and trace again. `visibility` is the cone-level bit
-    (the particle entered some candidate list), a superset of the hits."""
-    _unported(packed_cull, packed_l1, flat_cull, super_flat_capacity,
-              walk_capacity)
+    (the particle entered some candidate list), a superset of the hits.
+    The two-level cull runs above `two_level_above` particles (None:
+    above super_capacity, the JAX package's rule).
+
+    The bundle route is differentiable in the five parameter tensors: B8
+    is the compositor's backward, and the row gather's is the sort by
+    particle id and B6. With `walk_capacity` in (0, capF) (a multiple of
+    256) the gather and compositor are fused_raster.composite_bundles,
+    whose backward sums only the rows of the windows the forward walked
+    when they fit in walk_capacity rows."""
+    _unported(packed_cull, packed_l1, flat_cull, super_flat_capacity)
     if order not in ("bundle", "ray"):
         raise ValueError(f"unknown order {order!r}")
     r_total = rays_o.shape[0]
@@ -479,12 +518,23 @@ def trace(positions, quats, scales, opacities, features, rays_o, rays_d,
         inp = prepare(positions, quats, scales, opacities, features, rays_o,
                       rays_d, kernel_degree, candidate_capacity,
                       initial_transmittance, t_max, density_clamping,
-                      super_capacity, flat_capacity)
-        with record_function("3dgrt.composite"):
-            out = bundle_trace.bundle_composite(
-                inp.data, inp.rays, inp.win_starts, inp.win_ends,
-                kernel_degree, sh_degree, min_transmittance,
-                sorted_passes=sorted_passes)
+                      super_capacity, flat_capacity, two_level_above)
+        fused = (walk_capacity is not None
+                 and 0 < walk_capacity < inp.flat_idx.shape[0])
+        if fused:
+            with record_function("3dgrt.composite"):
+                out = fused_raster.composite_bundles(
+                    inp.rows64, inp.flat_idx, inp.valid, inp.rays,
+                    inp.win_starts, inp.win_ends, kernel_degree, sh_degree,
+                    min_transmittance, sorted_passes=sorted_passes,
+                    walk_capacity=walk_capacity)
+        else:
+            data = gather_candidates(inp)
+            with record_function("3dgrt.composite"):
+                out = bundle_trace.bundle_composite(
+                    data, inp.rays, inp.win_starts, inp.win_ends,
+                    kernel_degree, sh_degree, min_transmittance,
+                    sorted_passes=sorted_passes)
 
         def unrow(i):
             return out[:, i, :].reshape(r_total)
@@ -497,7 +547,8 @@ def trace(positions, quats, scales, opacities, features, rays_o, rays_d,
     rays_dn, active = _rays_unit(rays_d)
     cand_idx, counts, overflow, visibility = _cull(
         positions, scales, opacities, rays_o, rays_dn, active, kernel_degree,
-        bundle_size, candidate_capacity, super_capacity, density_clamping)
+        bundle_size, candidate_capacity, super_capacity, density_clamping,
+        two_level_above)
     return _trace_ray_order(
         positions, quats, scales, opacities, features, rays_o, rays_dn,
         active, cand_idx, counts, overflow, visibility, sh_degree,

@@ -1,8 +1,8 @@
 """Training harness, port of threedgrut_tpu/trainer.py: the train step
 (render -> background -> 0.8 L1 + 0.2 DSSIM -> backward -> Adam or
-SelectiveAdam), the eval step (3DGUT or, with render.method = 3dgrt, the
-3DGRT trace), progressive SH, capacity growth on overflow, and checkpoints
-in the JAX package's .npz format.
+SelectiveAdam) and the eval step, each through the 3DGUT rasterizer or,
+with render.method = 3dgrt, the 3DGRT trace; progressive SH, capacity
+growth on overflow, and checkpoints in the JAX package's .npz format.
 
 PyTorch runs eagerly, so a step is a sequence of calls rather than one
 compiled program; each phase runs under a `torch.profiler.record_function`
@@ -33,6 +33,9 @@ from threedgrut_torch.render import grt, gut
 # The capacity ceiling of the binning: particle ids and slots are packed
 # with 8 row bits into one 32-bit word (ops/tiles.py).
 MAX_ISECT_CAPACITY = (1 << 24) - 256
+# The 3DGRT super lists' width in the JAX package (grt.trace's default), and
+# the particle count above which its two-level cull runs.
+GRT_SUPER_CAPACITY = 8192
 
 
 def render_params(g: Gaussians):
@@ -49,6 +52,18 @@ def walk_capacity_for(cfg: Config,
     if frac <= 0.0:
         return None
     return -(-int(isect_capacity * frac) // 256) * 256
+
+
+def grt_super_lists(isect_capacity: int) -> Dict[str, int]:
+    """The 3DGRT cull's super-list arguments for a capacity. The JAX package
+    leaves the super lists at trace's 8192 whatever the capacity, so a scene
+    with more particles than that in one super cone overflows at every
+    capacity the trainer grows to (ROADMAP C7). Here the super lists grow
+    with the capacity, while the two-level cull runs above 8192 particles
+    as there: wherever the JAX package does not overflow, the candidate
+    lists are its own."""
+    return dict(super_capacity=max(GRT_SUPER_CAPACITY, isect_capacity // 32),
+                two_level_above=GRT_SUPER_CAPACITY)
 
 
 def step_fn(params: Gaussians, opt_state: optimizers.AdamState, T_to_world,
@@ -70,22 +85,18 @@ def step_fn(params: Gaussians, opt_state: optimizers.AdamState, T_to_world,
         pose_end = pose_from_matrix(T_end)
         pose = SensorPose(q_start=pose.q_start, t_start=pose.t_start,
                           q_end=pose_end.q_start, t_end=pose_end.t_start)
-    if cfg.render.method == "3dgrt" and train:
-        raise NotImplementedError(
-            "a 3dgrt train step needs the bundle compositor's backward "
-            "(kernel B8), which is not ported yet: ROADMAP queue A item 10 "
-            "and queue B, B8")
     if cfg.render.method not in ("3dgut", "3dgrt"):
         raise ValueError(f"unknown render.method {cfg.render.method!r}")
     jitter = None
-    if train and cfg.render.ray_jitter:
+    if train and cfg.render.ray_jitter and cfg.render.method == "3dgut":
+        # The trace takes no jitter (as the JAX package's).
         jitter = torch.rand((resolution[1], resolution[0], 2),
                             generator=generator, device=dev)
     with torch.set_grad_enabled(train):
         with record_function("train.forward"):
             if cfg.render.method == "3dgrt":
-                # The eval step only (see above); its visibility is the
-                # cone-level bit, as the JAX package's.
+                # The visibility is the cone-level bit, as the JAX
+                # package's (training ands it with the hits below).
                 out, overflow = grt.render(
                     *render_params(params), camera, pose, resolution,
                     sh_degree=sh_degree,
@@ -95,7 +106,10 @@ def step_fn(params: Gaussians, opt_state: optimizers.AdamState, T_to_world,
                     flat_capacity=isect_capacity, T_to_world=T_to_world,
                     density_clamping=(
                         cfg.render.particle_kernel_density_clamping),
-                    surfel=cfg.render.surfel_primitive, device=dev)
+                    surfel=cfg.render.surfel_primitive,
+                    walk_capacity=(walk_capacity_for(cfg, isect_capacity)
+                                   if train else None),
+                    **grt_super_lists(isect_capacity), device=dev)
             else:
                 out, overflow = gut.render(
                     *render_params(params), camera, pose, resolution,
