@@ -12,14 +12,18 @@ Phases, each of which fails the run on a miss:
      tile_raster_fwd, B2 tile_raster_bwd, B5/B6 segment_sum, B7
      bundle_trace_fwd, B8 bundle_trace_bwd) in parallel, with nvcc's
      register/smem/spill report;
-  3. golden: the card's render of the golden scene and its 3DGRT trace
-     against the JAX reference's stored outputs (threedgrut_torch/golden/);
+  3. golden: the card's render of the golden scene (also with 16 re-sort
+     passes and with row termination) and its 3DGRT trace against the JAX
+     reference's stored outputs (threedgrut_torch/golden/);
   4. parity: api.render on the card (kernels) against api.render on the CPU
      (the plain versions) at 100k Gaussians, 400x400, both visibility
      modes; one Trainer.train_step on the card against the same step on
      the CPU from the same parameters (loss, image, gradients, updated
      parameters, moments), on the fused path's compact branch (B6) and
-     its dense fallback (B5), and on the two-stage path (B5); then 3DGRT:
+     its dense fallback (B5), and on the two-stage path (B5); the same
+     with preset_3dgut_sorted (16 passes; compact and dense branch) and
+     with row termination (compact); one sorted Trainer.eval_view (the
+     flags leg and hit visibility); then 3DGRT:
      api.trace on tools/bench_grt.py's 100k scene (the central 128x128
      rays of its grid, 64 bundles, the two-level cull), api.render(method=
      "3dgrt") (32 bundles) and one Trainer.eval_view of preset_3dgrt; then
@@ -32,7 +36,10 @@ Phases, each of which fails the run on a miss:
   6. train main path: Trainer.train_step at full width (bench.py's scene,
      camera and Config defaults), 6 steps, the last with
      walk_compact_fraction=0 (the dense branch, B5); losses, step ms,
-     rays/s, peak memory, launch counts, and a bench.py-shaped JSON line;
+     rays/s, peak memory, launch counts (B1 and B2 once a step), and a
+     bench.py-shaped JSON line; then the same 6 steps with
+     preset_3dgut_sorted (B1 and B2's sorted legs) and with
+     row_termination=True, each with its own JSON line ("mode");
   7. 3DGRT main path: api.trace at tools/bench_grt.py's inference
      configuration (100k Gaussians, 512x512 rays, 16 re-sort passes), 6
      traces, then at its 1M capacities, 3 traces; overflow, launch counts,
@@ -47,13 +54,15 @@ Phases, each of which fails the run on a miss:
      the backward's branch and the share of particles with a gradient;
   9. kernels: each kernel against its plain version on the card at the
      main paths' shapes (B3, B4 and every TileBinning field exactly equal;
-     B1, B2, B7 and B8 (16 and 0 passes) within stated tolerances; B5, B6
+     B1, B2 (also their 16-pass and row-terminated legs, at the sorted and
+     row-terminated train paths' inputs, two launches bit-identical), B7
+     and B8 (16 and 0 passes) within stated tolerances; B5, B6
      at 16 and at 64 channels within the f32 summation bound), timed with
      CUDA events beside its bound and, for B5 and B6, one PyTorch call
      computing the same sums;
-  10. profile: one full-width frame, one full-width train step, one 100k
-     trace and one 100k fwd+bwd under torch.profiler, for the device's busy
-     share and the time per stage.
+  10. profile: one full-width frame, one full-width train step (default
+     and sorted), one 100k trace and one 100k fwd+bwd under
+     torch.profiler, for the device's busy share and the time per stage.
 
 Each path checks the kernels of its own renderer and pass
 (cuda_build.kernels_of; B6 is in both renderers' backward).
@@ -94,14 +103,18 @@ FLOP_PAIR = 75
 # skip the reduction).
 FLOP_REDUCE = 16
 FLOP_CHAIN = 108
+# The odd-even network of B1 and B2's sorted legs (csrc/tile_pair.cuh
+# oddeven_network) and of B7 and B8: a compare and a select for each of the
+# 64 compare-exchanges of a pass. B1 and B2 count the passes a live
+# pixel-window runs (a pixel stops after two quiet passes).
+FLOP_SWAP = 2
 # B7 (csrc/bundle_trace_fwd.cu): the pair math and both gates (80) and the
 # compositing step (6) per (live ray, walked row); per counted pair the SH
 # colour (3 x 16 products and sums, the +0.5 and clamp: 102) and the 10
-# accumulating operations; a compare and a select per pair of the network,
-# 64 pairs per pass, per live ray-window whose hits are out of row order.
+# accumulating operations; FLOP_SWAP per pair of the network, 64 pairs per
+# pass, per live ray-window whose hits are out of row order.
 FLOP_GRT_PAIR = 86
 FLOP_GRT_COUNTED = 112
-FLOP_GRT_SWAP = 2
 # B8 (csrc/bundle_trace_bwd.cu): the pair math of B7 (FLOP_GRT_PAIR) per
 # (live ray, walked row) and its network; per counted pair the gradient
 # chain (the colour and suffix ~120, the pair chain ~110, the 48 SH products
@@ -269,38 +282,72 @@ def train_setup(fields, res, cap, gt, dev, walk_compact_fraction=0.625,
 
 def train_parity(dev, tag):
     """One train step on the card and on the CPU from the same parameters,
-    f32 gradients, on each way the gradient reduction can go, within
-    step_agreement's tolerances."""
+    f32 gradients, on each way the gradient reduction can go, with the
+    default legs, with preset_3dgut_sorted (16 passes) and with row
+    termination, within step_agreement's tolerances; then one sorted
+    Trainer.eval_view card vs CPU within golden.compare."""
+    from threedgrut_torch import golden
+    from threedgrut_torch.config import Config, preset_3dgut_sorted
     from threedgrut_torch.model.gaussians import bench_scene
     from threedgrut_torch.ops import cuda_build
     fields = bench_scene(PARITY_N, seed=0, specular_std=0.1)
     gt = np.random.default_rng(0).uniform(
         0, 1, (PARITY_RES[1], PARITY_RES[0], 3)).astype(np.float32)
+    rowterm = Config()
+    rowterm.render.row_termination = True
     # The fused path's compact branch (B6); the fused path with a walk
     # capacity of one window, which the walk exceeds, so its backward falls
     # back to the dense unsort (B5); and the two-stage path (B5).
     b5, b6 = "segment_sum_rows", "segment_sum_rows_by_ids"
-    for frac, kernel, other in ((0.625, b6, b5), (256 / PARITY_CAP, b5, b6),
-                                (0.0, b5, b6)):
+    one_window = 256 / PARITY_CAP
+    for mode, cfg, frac, kernel, other in (
+            ("default", None, 0.625, b6, b5),
+            ("default", None, one_window, b5, b6),
+            ("default", None, 0.0, b5, b6),
+            ("sorted16", preset_3dgut_sorted(), 0.625, b6, b5),
+            ("sorted16", preset_3dgut_sorted(), one_window, b5, b6),
+            ("row_termination", rowterm, 0.625, b6, b5)):
         runs = {}
         for device in (dev, "cpu"):
             tr, view = train_setup(fields, PARITY_RES, PARITY_CAP, gt,
-                                   device, frac, low_precision_grads=False)
+                                   device, frac, low_precision_grads=False,
+                                   cfg=cfg)
             cuda_build.launches.clear()
             aux = tr.train_step(view)
             runs[device] = (tr, aux, dict(cuda_build.launches))
         (tg, ag, lg), (tc, ac, _) = runs[dev], runs["cpu"]
         if (lg.get(kernel, 0) != 1 or lg.get(other, 0) != 0
                 or lg.get("tile_raster_bwd", 0) != 1):
-            fail(f"train parity (walk_compact_fraction={frac}) did not run "
-                 f"B2 and {kernel} once and {other} never: {lg}")
+            fail(f"train parity ({mode}, walk_compact_fraction={frac}) did "
+                 f"not run B2 and {kernel} once and {other} never: {lg}")
         rep, ok = step_agreement(tg, ag, tc, ac)
-        print(f"train step card vs CPU, {PARITY_N} Gaussians {PARITY_RES}, "
-              f"walk_compact_fraction={frac} ({kernel}): {json.dumps(rep)} "
-              f"{tag}", flush=True)
+        print(f"train step card vs CPU ({mode}), {PARITY_N} Gaussians "
+              f"{PARITY_RES}, walk_compact_fraction={frac} ({kernel}): "
+              f"{json.dumps(rep)} {tag}", flush=True)
         if not ok:
             fail(f"the train step on the card disagrees with the plain path "
-                 f"(walk_compact_fraction={frac})")
+                 f"({mode}, walk_compact_fraction={frac})")
+
+    auxs = []
+    for device in (dev, "cpu"):
+        tr, view = train_setup(fields, PARITY_RES, PARITY_CAP, gt, device,
+                               cfg=preset_3dgut_sorted())
+        cuda_build.launches.clear()
+        auxs.append(tr.eval_view(view))
+        if device == dev and dict(cuda_build.launches) != {
+                k: 1 for k in cuda_build.kernels_of("gut", ("forward",))}:
+            fail(f"the sorted eval step launched {dict(cuda_build.launches)}")
+    rep, ok = golden.compare(
+        *[dict(rgb=a["pred"], opacity=a["opacity"], depth=a["depth"],
+               transmittance=1.0 - a["opacity"], hit_count=a["hit_count"],
+               visibility=a["visibility"]) for a in auxs])
+    print(f"Trainer.eval_view (preset_3dgut_sorted) card vs CPU, "
+          f"{PARITY_N} Gaussians {PARITY_RES}: {json.dumps(rep)} psnr "
+          f"{float(auxs[0]['psnr']):.6f} / {float(auxs[1]['psnr']):.6f} "
+          f"{tag}", flush=True)
+    if not ok or any(bool(a["overflow"]) for a in auxs):
+        fail("the sorted eval step on the card disagrees with the plain "
+             "path")
 
 
 def step_agreement(tg, ag, tc, ac):
@@ -583,7 +630,7 @@ def grt_record(data, inp, launches, train_launches, tag):
             + nb * 8,
             FLOP_GRT_PAIR * 128 * stats["live_ray_windows"]
             + FLOP_GRT_COUNTED * float(k[:, 6].sum())
-            + FLOP_GRT_SWAP * 64 * passes * stats["inverted_ray_windows"])
+            + FLOP_SWAP * 64 * passes * stats["inverted_ray_windows"])
 
     ms16, plain16, _, k16 = timing[16]
     bound, bound0 = b7_bound(16), b7_bound(0)
@@ -935,7 +982,7 @@ def b8_record(data, inp, b7_runs, launches, walk, tag):
             FLOP_GRT_PAIR * 128 * stats["live_ray_windows"]
             + (FLOP_GRT_BWD_CHAIN + FLOP_GRT_BWD_REDUCE)
             * float(out[:, 6].sum())
-            + FLOP_GRT_SWAP * 64 * passes * stats["inverted_ray_windows"])
+            + FLOP_SWAP * 64 * passes * stats["inverted_ray_windows"])
 
     ms16, plain16, _, out16, k16 = timing[16]
     bound, bound0 = b8_bound(16), b8_bound(0)
@@ -1003,17 +1050,18 @@ def render_retry(api, params, cam, T, res, cap, dev, **kw):
     fail("overflow persists after 8 doublings")
 
 
-def train_main_path(dev, tag):
+def train_main_path(dev, tag, cfg=None, mode="default"):
     """TRAIN_STEPS Trainer.train_step calls at full width on bench.py's
-    scene (no specular), camera, zero ground truth and Config() defaults;
-    the last step takes the dense branch (walk_compact_fraction=0, B5).
-    Fails unless every value is finite, the loss falls from the first step
-    to the last, and every kernel was launched."""
+    scene (no specular), camera, zero ground truth and Config() defaults
+    (or `cfg`, named `mode`); the last step takes the dense branch
+    (walk_compact_fraction=0, B5). Fails unless every value is finite, no
+    step overflows, every step launched B1 and B2 once, the loss falls from
+    the first step to the last, and every kernel was launched."""
     from threedgrut_torch.model.gaussians import bench_scene
     from threedgrut_torch.ops import cuda_build
     gt = np.zeros((MAIN_RES[1], MAIN_RES[0], 3), np.float32)
     tr, view = train_setup(bench_scene(MAIN_N, seed=0), MAIN_RES, MAIN_CAP,
-                           gt, dev)
+                           gt, dev, cfg=cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_build.launches.clear()
@@ -1021,40 +1069,51 @@ def train_main_path(dev, tag):
     for k in range(TRAIN_STEPS):
         if k == TRAIN_STEPS - 1:
             tr.cfg.render.walk_compact_fraction = 0.0
+        before = dict(cuda_build.launches)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         aux = tr.train_step(view)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(aux["terms"]["total"]))
+        step = {n: v - before.get(n, 0)
+                for n, v in cuda_build.launches.items()}
         finite = all(bool(torch.isfinite(x).all()) for x in
                      [aux["pred"], *aux["grads"].values(),
                       *(getattr(tr.params, f) for f in aux["grads"])])
         if not (finite and math.isfinite(losses[-1])):
-            fail(f"train step {k + 1}: a value is not finite")
+            fail(f"train step {k + 1} ({mode}): a value is not finite")
         if bool(aux["overflow"]):
-            fail(f"train step {k + 1} overflowed its capacity")
-        print(f"train step {k + 1}: loss {losses[-1]:.6f} psnr "
+            fail(f"train step {k + 1} ({mode}) overflowed its capacity")
+        if (step.get("tile_raster_fwd") != 1
+                or step.get("tile_raster_bwd") != 1):
+            fail(f"train step {k + 1} ({mode}) launched {step}")
+        print(f"train step {k + 1} ({mode}): loss {losses[-1]:.6f} psnr "
               f"{float(aux['psnr']):.4f} visible "
               f"{int(aux['visibility'].sum())} {step_ms[-1]:.3f} ms "
               f"walk_compact_fraction "
-              f"{tr.cfg.render.walk_compact_fraction} {tag}", flush=True)
+              f"{tr.cfg.render.walk_compact_fraction} overflow False "
+              f"{tag}", flush=True)
     tr.cfg.render.walk_compact_fraction = 0.625
     launches = dict(cuda_build.launches)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"train main path launches: {launches}", flush=True)
+    print(f"train main path ({mode}) launches: {launches}", flush=True)
     for kname in cuda_build.kernels_of("gut"):
         if launches.get(kname, 0) <= 0:
-            fail(f"kernel {kname} was not launched on the train main path")
+            fail(f"kernel {kname} was not launched on the train main path "
+                 f"({mode})")
     if not losses[-1] < losses[0]:
-        fail(f"the loss did not fall: {losses}")
+        fail(f"the loss did not fall ({mode}): {losses}")
     ms = float(np.median(step_ms[1:5]))
     rays_s = MAIN_RES[0] * MAIN_RES[1] / (ms / 1e3)
+    print(f"train step ms ({mode}, median of steps 2-5): {ms:.3f}; rays/s "
+          f"{rays_s:.4e}; max_memory_allocated {peak:.3f} GiB {tag}",
+          flush=True)
     print(json.dumps({
         "metric": "rays_per_s_fwd_bwd_1M_gaussians", "value": rays_s,
         "unit": "rays/s/chip", "vs_baseline": rays_s / BASELINE_RAYS_PER_S,
         "backend": "cuda", "device": torch.cuda.get_device_name(0),
-        "n_gaussians": MAIN_N, "resolution": list(MAIN_RES),
+        "mode": mode, "n_gaussians": MAIN_N, "resolution": list(MAIN_RES),
         "iters": 4, "isect_capacity": tr.isect_capacity,
         "isect_overflow": False, "step_ms": ms,
         "max_memory_allocated_gib": peak}), flush=True)
@@ -1170,6 +1229,137 @@ def backward_records(tr, view, launches, tag):
     return records
 
 
+def option_records(runs, tag):
+    """B1 and B2's sorted and row-terminated legs against their plain
+    versions on the card, each on the inputs its own train main path gives
+    it (`runs`: {mode: (trainer, view, launches, passes, row_termination)}):
+    rays row 7 from tiles.row_last_touch for row termination, the output
+    cotangent of the loss for B2. B1: rows 0-5 within 2e-4 + 1e-4 |plain|,
+    hit counts off by at most 1 on at most 0.1% of the pixels, walked slots
+    equal on all but 0.1% of the tiles; B2: within 1e-5 x each column's
+    max, the same nonzero slots; each kernel's two launches bit-identical.
+    Bounds from this run's work: the pair math of the walked slots, B2's
+    chain and reduction of its live pairs, and 2 operations per
+    compare-exchange of the passes its live pixel-windows ran."""
+    from threedgrut_torch.cameras import pose_from_matrix
+    from threedgrut_torch.model import losses
+    from threedgrut_torch.ops import tile_raster, tiles
+    from threedgrut_torch.render import gut
+    from threedgrut_torch.trainer import render_params
+    records = []
+    for mode, (tr, view, launches, passes, rowterm) in runs.items():
+        dev = tr.device
+        cap, res, cam = tr.isect_capacity, view.resolution, view.camera
+        pose = pose_from_matrix(torch.as_tensor(view.T_to_world, device=dev))
+        gt = torch.as_tensor(view.rgb_gt, device=dev)
+        with torch.no_grad():
+            proj, binning, packed, grid = gut.prepare_packed(
+                *render_params(tr.params), cam, pose, res, cap)
+            n = packed.shape[0]
+            data = packed[torch.clamp(binning.sorted_particle_idx,
+                                      max=n - 1).long()]
+            rays = gut.packed_world_rays(cam, pose, grid)
+            if rowterm:
+                rays[:, 7] = tiles.row_last_touch(binning, proj, grid)
+        legs = (passes, rowterm)
+        fwd = (data, binning.tile_starts, binning.tile_ends, rays, 2, 1e-4,
+               0.0113, 1.0 / 255.0, 0.99, False)
+        # B1, with the hit counts (aux_outputs) for the checks and B2's
+        # live pairs.
+        ko, _ = tile_raster._launch(*fwd, True, False, *legs)
+        same = torch.equal(ko, tile_raster._launch(*fwd, True, False,
+                                                   *legs)[0])
+        stats = {}
+        po, _ = tile_raster.tile_composite_plain(*fwd, True, False, *legs,
+                                                 stats=stats)
+        d = (ko - po).abs()
+        within = bool((d[:, 0:6] <= 2e-4 + 1e-4 * po[:, 0:6].abs()).all())
+        dh = d[:, 6]
+        hits_ok = float(dh.max()) <= 1 and int((dh > 0).sum()) <= max(
+            1, math.floor(1e-3 * dh.numel()))
+        walk_diff = int((d[:, 7, 0] > 0).sum())
+        print(f"B1 {mode}: per-row max |kernel - plain| "
+              f"{d.amax(dim=(0, 2)).tolist()}; pixels whose hit count "
+              f"differs {int((dh > 0).sum())}; tiles whose walk differs "
+              f"{walk_diff}; bit-identical {same}; network {stats}",
+              flush=True)
+        if not (within and hits_ok and same and walk_diff <= max(
+                1, math.floor(1e-3 * ko.shape[0]))):
+            fail(f"B1 ({mode}) disagrees with its plain version")
+        walked = int(ko[:, 7, 0].sum())
+        live = float(ko[:, 6].sum())
+        ntiles = rays.shape[0]
+        net_ops = FLOP_SWAP * 64 * stats.get("network_passes", 0)
+        b1_in = fwd + (False, False) + legs
+        b1_bound = bound_ms(ntiles * 8 * 256 * 4 * 2 + ntiles * 8
+                            + walked * 64, FLOP_PAIR * 256 * walked + net_ops)
+        records.append(dict(
+            name=f"tile_raster_fwd[{mode}]", route="cuda",
+            source="threedgrut_torch/csrc/tile_raster_fwd.cu",
+            replaces="threedgrut_tpu/ops/pallas/tile_raster.py:1171",
+            sorted_passes=passes, row_termination=rowterm,
+            launches=launches.get("tile_raster_fwd", 0), launches_forward=0,
+            max_abs_err=float(d[:, 0:6].max()),
+            ms=cuda_ms(lambda: tile_raster._launch(*b1_in), 10),
+            plain_ms=cuda_ms(lambda: tile_raster.tile_composite_plain(
+                *b1_in), 1, warmup=0),
+            bound_ms=b1_bound[0], bound_by=b1_bound[1], library_ms=None,
+            walked_slots=walked, network=stats))
+        if passes:
+            # The same walk with a 1-pass network: what the rest costs.
+            one = b1_in[:-2] + (1, rowterm)
+            records[-1]["ms_passes1"] = cuda_ms(
+                lambda: tile_raster._launch(*one), 10)
+
+        out, _ = tile_raster._launch(*b1_in)
+        o = out.clone().requires_grad_(True)
+        img = gut.tile_unpack(o, grid)[:res[1], :res[0]]
+        loss, _ = losses.total_loss(img[..., 0:3], gt)
+        g_out = torch.autograd.grad(loss, o)[0].contiguous()
+        b2_in = fwd[:4] + (out, g_out) + fwd[4:] + (False,) + legs
+        k2 = tile_raster._launch_backward(*b2_in)
+        same = torch.equal(k2, tile_raster._launch_backward(*b2_in))
+        p2 = tile_raster.tile_composite_backward_plain(*b2_in)
+        nz_k, nz_p = k2.abs().sum(1) > 0, p2.abs().sum(1) > 0
+        d2 = (k2 - p2).abs()
+        col = p2.abs().amax(0)
+        within = bool((d2 <= 1e-5 * col + 1e-30).all())
+        print(f"B2 {mode}: max |kernel - plain| {float(d2.max()):.3e}; "
+              f"worst |kernel - plain| / column max "
+              f"{float((d2 / col.clamp(min=1e-30)).max()):.3e}; nonzero "
+              f"slots {int(nz_k.sum())} kernel, {int(nz_p.sum())} plain; "
+              f"bit-identical {same}", flush=True)
+        if not (torch.equal(nz_k, nz_p) and within and same):
+            fail(f"B2 ({mode}) disagrees with its plain version")
+        b2_bound = bound_ms(ntiles * 8 * 256 * 4 * 3 + ntiles * 8
+                            + walked * 64 * 2,
+                            FLOP_PAIR * 256 * walked
+                            + (FLOP_CHAIN + FLOP_REDUCE) * live + net_ops)
+        records.append(dict(
+            name=f"tile_raster_bwd[{mode}]", route="cuda",
+            source="threedgrut_torch/csrc/tile_raster_bwd.cu",
+            replaces="threedgrut_tpu/ops/pallas/tile_raster.py:1269",
+            sorted_passes=passes, row_termination=rowterm,
+            launches=launches.get("tile_raster_bwd", 0), launches_forward=0,
+            max_abs_err=float(d2.max()),
+            ms=cuda_ms(lambda: tile_raster._launch_backward(*b2_in), 10),
+            plain_ms=cuda_ms(
+                lambda: tile_raster.tile_composite_backward_plain(*b2_in), 1,
+                warmup=0),
+            bound_ms=b2_bound[0], bound_by=b2_bound[1], library_ms=None,
+            live_pairs=live))
+        if passes:
+            out1, _ = tile_raster._launch(*one)
+            one2 = b2_in[:4] + (out1,) + b2_in[5:-2] + (1, rowterm)
+            records[-1]["ms_passes1"] = cuda_ms(
+                lambda: tile_raster._launch_backward(*one2), 10)
+        print(f"B1/B2 {mode}: walked slots {walked}, live pairs {live:.0f}, "
+              f"B1 {records[-2]['ms']:.4f} ms (bound "
+              f"{records[-2]['bound_ms']:.4f}), B2 {records[-1]['ms']:.4f} "
+              f"ms (bound {records[-1]['bound_ms']:.4f}) {tag}", flush=True)
+    return records
+
+
 def sums_record(name, kernel, plain, args, lengths, n_rows, nbytes, library,
                 launches, tag):
     """A record of B5 or B6 (`name`) on the rows args[0] against its plain
@@ -1220,6 +1410,7 @@ def main() -> int:
     from threedgrut_torch import api, golden
     from threedgrut_torch.cameras import example_camera, pose_from_matrix
     from threedgrut_torch.model.gaussians import bench_scene, from_numpy
+    from threedgrut_torch.config import Config, preset_3dgut_sorted
     from threedgrut_torch.ops import cuda_build, expand, tile_raster, tiles
     from threedgrut_torch.render import gut
 
@@ -1259,6 +1450,18 @@ def main() -> int:
     print(f"golden vs JAX reference: {json.dumps(rep)}", flush=True)
     if not ok:
         fail("the card's golden frame is outside the tolerances")
+    for mode, kw in golden.SORTED_MODES.items():
+        with torch.no_grad():
+            sout, _ = render_retry(api, gparams, example_camera(
+                golden.RESOLUTION, dev), golden.camera_to_world(),
+                golden.RESOLUTION, golden.ISECT_CAPACITY, dev,
+                hit_visibility=True, **kw)
+        rep, ok = golden.compare(sout, golden.load_sorted(mode))
+        print(f"golden ({mode}: {kw}) vs JAX reference: {json.dumps(rep)}",
+              flush=True)
+        if not ok:
+            fail(f"the card's golden frame ({mode}) is outside the "
+                 f"tolerances")
     go, gd = golden.grt_rays()
     with torch.no_grad():
         gtrace = api.trace(gparams, go, gd, device=dev,
@@ -1337,6 +1540,15 @@ def main() -> int:
 
     # ---- 6. train main path at full width --------------------------------
     tr, view, train_launches, train_rec = train_main_path(dev, tag)
+    rowterm_cfg = Config()
+    rowterm_cfg.render.row_termination = True
+    option_runs = {}
+    for mode, cfg, passes, rowterm in (
+            ("sorted16", preset_3dgut_sorted(), 16, False),
+            ("row_termination", rowterm_cfg, 0, True)):
+        tr_m, view_m, launches_m, rec_m = train_main_path(dev, tag, cfg, mode)
+        option_runs[mode] = (tr_m, view_m, launches_m, passes, rowterm)
+        train_rec[mode] = rec_m
 
     # ---- 7. 3DGRT main path: bench_grt's configurations ------------------
     grt_launches, (gp, g_o, g_d, g_inp) = grt_main_path(dev, tag)
@@ -1465,6 +1677,7 @@ def main() -> int:
         bound_ms=b1_bound[0], bound_by=b1_bound[1], library_ms=None))
 
     records += backward_records(tr, view, train_launches, tag)
+    records += option_records(option_runs, tag)
     from threedgrut_torch.render import grt
     with torch.no_grad():
         g_data = grt.gather_candidates(g_inp)
@@ -1484,6 +1697,11 @@ def main() -> int:
     print(f"profiled frame: {json.dumps(breakdown)} {tag}", flush=True)
     tbreak = profile_run(lambda: tr.train_step(view), ("train.", "3dgut."))
     print(f"profiled train step: {json.dumps(tbreak)} {tag}", flush=True)
+    tr_s, view_s = option_runs["sorted16"][:2]
+    sbreak = profile_run(lambda: tr_s.train_step(view_s),
+                         ("train.", "3dgut."))
+    print(f"profiled train step (preset_3dgut_sorted): {json.dumps(sbreak)} "
+          f"{tag}", flush=True)
 
     def trace():
         with torch.no_grad():
@@ -1500,7 +1718,8 @@ def main() -> int:
     print(f"profiled 3DGRT fwd+bwd (100k): {json.dumps(fbbreak)} {tag}",
           flush=True)
     if min(breakdown["device_busy_ms"], tbreak["device_busy_ms"],
-           gbreak["device_busy_ms"], fbbreak["device_busy_ms"]) <= 0.0:
+           sbreak["device_busy_ms"], gbreak["device_busy_ms"],
+           fbbreak["device_busy_ms"]) <= 0.0:
         fail("the profiler recorded no device time")
 
     for r in records:
@@ -1518,6 +1737,12 @@ def main() -> int:
     print(f"train step ms (median of steps 2-5): {train_rec['step_ms']:.3f}; "
           f"rays/s {train_rec['rays_per_s']:.4e}; max_memory_allocated "
           f"{train_rec['peak_gib']:.3f} GiB {tag}", flush=True)
+    for mode in option_runs:
+        r = train_rec[mode]
+        print(f"train step ms ({mode}, median of steps 2-5): "
+              f"{r['step_ms']:.3f}; rays/s {r['rays_per_s']:.4e}; "
+              f"max_memory_allocated {r['peak_gib']:.3f} GiB {tag}",
+              flush=True)
     print(f"chip_smoke wall {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

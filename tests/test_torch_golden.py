@@ -1,13 +1,16 @@
 """The golden image of threedgrut_torch/golden/ stays what the JAX reference
 renders, and the port on the CPU reproduces it and the 3DGRT golden trace.
 
-Run as `python -m tests.test_torch_golden` to rewrite the stored frame, and
-as `python -m tests.test_torch_golden grt` to rewrite the 3DGRT trace."""
+Run as `python -m tests.test_torch_golden` to rewrite the stored frame, as
+`python -m tests.test_torch_golden grt` to rewrite the 3DGRT trace and as
+`python -m tests.test_torch_golden sorted` to rewrite the sorted and
+row-terminated frames."""
 import hashlib
 from pathlib import Path
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 import torch
 
 from threedgrut_tpu import api as japi
@@ -20,8 +23,9 @@ from threedgrut_torch.cameras import example_camera, pose_from_matrix
 from threedgrut_torch.model.gaussians import from_numpy
 
 
-def render_golden_jax():
-    """JAX api.render outputs (hit_visibility=True) of the golden scene."""
+def render_golden_jax(**kw):
+    """JAX api.render outputs (hit_visibility=True) of the golden scene, with
+    api.render keywords `kw`."""
     f = golden.scene()
     params = JGaussians(**{k: jnp.asarray(v) for k, v in f.items()})
     w, h = golden.RESOLUTION
@@ -32,9 +36,19 @@ def render_golden_jax():
     out, overflow = japi.render(
         params, cam, jpose(jnp.asarray(golden.camera_to_world())),
         golden.RESOLUTION, isect_capacity=golden.ISECT_CAPACITY,
-        hit_visibility=True)
+        hit_visibility=True, **kw)
     assert not bool(overflow)
     return {k: np.asarray(getattr(out, k)) for k in golden.OUTPUTS}
+
+
+def render_sorted_golden_jax():
+    """The golden frame in every mode of golden.SORTED_MODES, keyed
+    "<mode>/<output>"."""
+    outs = {}
+    for mode, kw in golden.SORTED_MODES.items():
+        for k, v in render_golden_jax(**kw).items():
+            outs[f"{mode}/{k}"] = v
+    return outs
 
 
 def trace_grt_golden_jax():
@@ -49,11 +63,9 @@ def trace_grt_golden_jax():
     return {k: np.asarray(getattr(out, k)) for k in golden.OUTPUTS}
 
 
-def grt_provenance() -> str:
-    """sha256 of what the 3DGRT golden trace was made from: every source
-    file of the JAX package (its trace path runs through most of them), the
-    scene, the rays and the trace settings. The regenerator stores it in the
-    file; a change to any of them makes the stored trace stale."""
+def _sources_and_scene():
+    """A sha256 fed with every source file of the JAX package and the golden
+    scene."""
     h = hashlib.sha256()
     root = Path(japi.__file__).resolve().parent
     for f in sorted(root.rglob("*.py")):
@@ -63,9 +75,30 @@ def grt_provenance() -> str:
     for k in sorted(f):
         h.update(k.encode())
         h.update(np.ascontiguousarray(f[k]).tobytes())
+    return h
+
+
+def grt_provenance() -> str:
+    """sha256 of what the 3DGRT golden trace was made from: every source
+    file of the JAX package (its trace path runs through most of them), the
+    scene, the rays and the trace settings. The regenerator stores it in the
+    file; a change to any of them makes the stored trace stale."""
+    h = _sources_and_scene()
     for a in golden.grt_rays():
         h.update(np.ascontiguousarray(a).tobytes())
     h.update(repr(sorted(golden.GRT_TRACE_KW.items())).encode())
+    return h.hexdigest()
+
+
+def sorted_provenance() -> str:
+    """sha256 of what the sorted golden frames were made from: the JAX
+    package's sources, the scene, the camera, the resolution, the capacity
+    and each mode's keywords."""
+    h = _sources_and_scene()
+    h.update(np.ascontiguousarray(golden.camera_to_world()).tobytes())
+    h.update(repr((golden.RESOLUTION, golden.ISECT_CAPACITY,
+                   sorted((k, sorted(v.items()))
+                          for k, v in golden.SORTED_MODES.items()))).encode())
     return h.hexdigest()
 
 
@@ -124,6 +157,36 @@ def test_grt_golden_file_is_current():
     assert stored == grt_provenance()
 
 
+@pytest.mark.parametrize("mode", sorted(golden.SORTED_MODES))
+def test_port_matches_sorted_golden_on_cpu(mode):
+    """The port's plain path reproduces the stored JAX frame in the sorted
+    and the row-terminated mode (the flags leg gives the visibility),
+    within golden.compare."""
+    params = from_numpy(golden.scene(), device="cpu")
+    T = torch.as_tensor(golden.camera_to_world())
+    with torch.no_grad():
+        out, overflow = tapi.render(
+            params, example_camera(golden.RESOLUTION, "cpu"),
+            pose_from_matrix(T), golden.RESOLUTION,
+            isect_capacity=golden.ISECT_CAPACITY, hit_visibility=True,
+            device="cpu", **golden.SORTED_MODES[mode])
+    assert not bool(overflow)
+    rep, ok = golden.compare(out, golden.load_sorted(mode))
+    assert ok, rep
+
+
+def test_sorted_golden_file_is_current():
+    """The stored sorted golden frames were made by this JAX package from
+    these inputs: rewrite them with `python -m tests.test_torch_golden
+    sorted` when this fails. The 16 passes change the frame against the
+    default golden frame (else the file would hold nothing new)."""
+    with np.load(golden.SORTED_PATH) as d:
+        stored = str(d["provenance"])
+    assert stored == sorted_provenance()
+    d = np.abs(golden.load_sorted("sorted")["rgb"] - golden.load()["rgb"])
+    assert d.max() > 1e-3
+
+
 if __name__ == "__main__":
     import sys
     import jax
@@ -132,6 +195,9 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["grt"]:
         path, outs = golden.GRT_PATH, trace_grt_golden_jax()
         outs["provenance"] = np.array(grt_provenance())
+    elif sys.argv[1:] == ["sorted"]:
+        path, outs = golden.SORTED_PATH, render_sorted_golden_jax()
+        outs["provenance"] = np.array(sorted_provenance())
     else:
         path, outs = golden.PATH, render_golden_jax()
     np.savez_compressed(path, **outs)

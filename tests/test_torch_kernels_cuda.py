@@ -23,7 +23,8 @@ the bundle's rays in another order, the suffix residual from a sequential
 prefix here and a cumsum there), bit-identical across two launches. B6 at
 64 channels: within f32_sum_bound. A 3DGRT train step card vs CPU: loss
 rtol 1e-4, gradients within golden.rows_agree(1e-4), bit-identical on the
-card across two runs."""
+card across two runs. B1 and B2 with sorted passes and row termination:
+the default legs' tolerances, and two launches bit-identical."""
 import os
 import shutil
 
@@ -121,6 +122,83 @@ def test_tile_raster_kernel_matches_plain(dev, emit_flags):
     if emit_flags:
         assert torch.equal(kf > 0, pf > 0)
         torch.testing.assert_close(kf, pf, atol=2e-4, rtol=1e-4)
+
+
+# (sorted_passes, row termination: None, "touch" (tiles.row_last_touch) or
+# "mid" (every pixel of a tile ends at its midpoint slot), emit_flags)
+OPTION_CASES = [(16, None, False), (16, None, True), (0, "touch", False),
+                (0, "mid", True), (16, "mid", False)]
+OPTION_IDS = ["sorted16", "sorted16-flags", "rowterm", "rowterm-mid-flags",
+              "sorted16-rowterm-mid"]
+
+
+def option_inputs(dev, rowterm):
+    """prepared()'s scene with rays row 7 filled for row termination."""
+    proj, binning, data, grid, rays = prepared(dev)
+    if rowterm == "touch":
+        rays[:, 7] = tiles.row_last_touch(binning, proj, grid)
+    elif rowterm == "mid":
+        s, e = binning.tile_starts, binning.tile_ends
+        mid = torch.where(e > s, torch.div(s + e, 2, rounding_mode="floor"),
+                          -1)
+        rays[:, 7] = mid.to(torch.float32)[:, None]
+    return binning, data, rays
+
+
+@pytest.mark.parametrize("passes,rowterm,emit_flags", OPTION_CASES,
+                         ids=OPTION_IDS)
+def test_tile_raster_option_legs_match_plain(dev, passes, rowterm,
+                                             emit_flags):
+    """B1's sorted and row-terminated legs against the plain version on the
+    card: the same tolerances as the default leg (the same per-pair alpha,
+    keys and products in the same order), the flagged slots exact; two
+    launches bit-identical."""
+    binning, data, rays = option_inputs(dev, rowterm)
+    args = (data, binning.tile_starts, binning.tile_ends, rays, 2, 1e-4,
+            0.0113, 1.0 / 255.0, 0.99, False, True, emit_flags, passes,
+            rowterm is not None)
+    ko, kf = tile_raster._launch(*args)
+    ko2, kf2 = tile_raster._launch(*args)
+    po, pf = tile_raster.tile_composite_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(ko, ko2)
+    torch.testing.assert_close(ko[:, 0:6], po[:, 0:6], atol=2e-4, rtol=1e-4)
+    assert torch.equal(ko[:, 6:8], po[:, 6:8])
+    if emit_flags:
+        assert torch.equal(kf, kf2)
+        assert torch.equal(kf > 0, pf > 0)
+        torch.testing.assert_close(kf, pf, atol=2e-4, rtol=1e-4)
+    if rowterm == "mid":
+        walked = ko[:, 7, 0]
+        span = (binning.tile_ends - binning.tile_starts).to(walked.dtype)
+        assert bool((walked < span)[span > 2 * tile_raster.CHUNK].all())
+
+
+@pytest.mark.parametrize("passes,rowterm,emit_flags", OPTION_CASES,
+                         ids=OPTION_IDS)
+def test_tile_raster_bwd_option_legs_match_plain(dev, passes, rowterm,
+                                                 emit_flags):
+    """B2's sorted and row-terminated legs against the plain version on the
+    card (the default leg's tolerance, nonzero slots exact), two launches
+    bit-identical."""
+    del emit_flags
+    binning, data, rays = option_inputs(dev, rowterm)
+    fwd = (data, binning.tile_starts, binning.tile_ends, rays, 2, 1e-4,
+           0.0113, 1.0 / 255.0, 0.99, False, True, False)
+    legs = (passes, rowterm is not None)
+    out, _ = tile_raster._launch(*fwd, *legs)
+    g_out = torch.randn(out.shape, device=dev,
+                        generator=torch.Generator(dev).manual_seed(0))
+    args = fwd[:4] + (out, g_out) + fwd[4:10] + (True,) + legs
+    got = tile_raster._launch_backward(*args)
+    again = tile_raster._launch_backward(*args)
+    want = tile_raster.tile_composite_backward_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got.abs().sum(1) > 0, want.abs().sum(1) > 0)
+    scale = want.abs().amax(0) + 1e-30
+    assert bool(((got - want).abs() <= 1e-5 * scale).all())
+    assert int((got.abs().sum(1) > 0).sum()) > 1000
 
 
 def test_wrappers_reject_bad_shapes(dev):

@@ -164,11 +164,16 @@ def test_load_scene_reads_the_jax_checkpoint_format(tmp_path):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(sorted_passes=16), "sorted_passes"),
-    (dict(row_termination=True), "row_termination"),
+    # The sorted and row-terminated legs of the 3DGUT render are ported: a
+    # negative pass count is refused, and the tracer takes no row
+    # termination.
+    (dict(sorted_passes=-1), "sorted_passes"),
+    (dict(method="3dgrt", row_termination=True), "row_termination"),
     # The 3DGRT render is ported; its packed-key cull is not.
     (dict(method="3dgrt", packed_cull=True), "3dgrt"),
 ])
 def test_unported_options_raise(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
+    err = {"sorted_passes": ValueError,
+           "row_termination": TypeError}.get(match, NotImplementedError)
+    with pytest.raises(err, match=match):
         render_torch(from_numpy(scene(), device="cpu"), **kw)

@@ -32,7 +32,7 @@ class RenderConfig:
     # Per-ray re-sorted compositing ("sorted" mode, reference
     # configs/paper/3dgut/base_sorted.yaml k_buffer_size=16): number of
     # odd-even resort passes in the tile kernel; 0 = global depth order
-    # (the default). Not ported yet (B1's sorted_passes, ROADMAP queue B).
+    # (the default).
     k_buffer_passes: int = 0
     ray_jitter: bool = False      # sub-pixel AA jitter during training
     # Train-step backward only: round the per-slot cotangents to bf16

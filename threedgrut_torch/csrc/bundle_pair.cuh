@@ -12,7 +12,6 @@
 #include "tile_pair.cuh"
 
 #define ROW64 64
-#define BIG 3.4e38f
 
 // Per-ray SH basis (bundle_trace.py _sh_basis_rows); entries past
 // (sh_degree + 1)^2 are 0.

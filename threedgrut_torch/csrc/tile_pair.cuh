@@ -14,6 +14,7 @@
 #define CHUNK 128
 #define ROW_F 16
 #define PIX 256
+#define BIG 3.4e38f   // a pinned sort key
 
 // Generalized-Gaussian response exp(s_n g^(n/2)) (ops/particles.py
 // kernel_response; scales from constants.GG_SCALE).
@@ -109,4 +110,50 @@ __device__ __forceinline__ Pair pair_eval(const float* q, const Ray& r,
     const bool in_segment = !has_t_max || r.tmax <= 0.0f || s.hit_t <= r.tmax;
     s.accept = s.resp > min_response && s.alpha > min_alpha && in_segment;
     return s;
+}
+
+// The sorted mode's re-sort of one pixel's window (tile_raster.py
+// _oddeven_sort): `passes` passes of odd-even transposition over the CHUNK
+// keys, pass i comparing positions (j, j + 1) with j = i mod 2 and swapping
+// where key[j + 1] < key[j]; idx follows its key. A pixel stops once an odd
+// and an even pass in a row swapped nothing: its keys then stand still
+// under every later pass, so the result is that of all `passes` passes.
+__device__ __forceinline__ void oddeven_network(float* key,
+                                                unsigned char* idx,
+                                                int passes) {
+    int quiet = 0;
+    for (int i = 0; i < passes && quiet < 2; ++i) {
+        bool swapped = false;
+        for (int j = i & 1; j < CHUNK - 1; j += 2) {
+            const float ka = key[j], kb = key[j + 1];
+            if (kb < ka) {
+                key[j] = kb;
+                key[j + 1] = ka;
+                const unsigned char t = idx[j];
+                idx[j] = idx[j + 1];
+                idx[j + 1] = t;
+                swapped = true;
+            }
+        }
+        quiet = swapped ? 0 : quiet + 1;
+    }
+}
+
+// Sort keys of a sorted-mode window of rows [base, base + CHUNK) for a tile
+// owning slots [base + lo, base + hi): hit_t for every row of the tile,
+// accepted or not, -BIG before it and BIG after it (the rows of neighbour
+// tiles and padding stay in place).
+__device__ __forceinline__ void window_keys(const float* rows, const Ray& ray,
+                                            int lo, int hi, int degree,
+                                            float min_response,
+                                            float min_alpha, float max_alpha,
+                                            int has_t_max, float* key,
+                                            unsigned char* idx) {
+    for (int r = 0; r < CHUNK; ++r) {
+        key[r] = r < lo ? -BIG
+                 : r >= hi ? BIG
+                 : pair_eval(rows + r * ROW_F, ray, degree, min_response,
+                             min_alpha, max_alpha, has_t_max).hit_t;
+        idx[r] = (unsigned char)r;
+    }
 }

@@ -32,6 +32,19 @@
 // All arithmetic is f32 (the TPU's bf16 gradient matmuls were an economy of
 // its matrix unit; the bf16 rounding of the cotangents lives in the unsort).
 //
+// Two legs are compile-time template parameters, so the default (0 passes,
+// no row termination) compiles to the walk above and nothing else:
+//  * SORTED (passes > 0): each pixel's suffix runs in its own re-sorted
+//    order (B1's network, tile_pair.cuh), but a slot's 16 values sum over
+//    all 256 pixels at that row, so a window takes two passes (B8's design).
+//    Pass A replays B1's walk per pixel in compositing order and stores by
+//    ROW index w and d_alpha in per-thread arrays in local memory (1 KB
+//    beside the network's 640 B); pass B goes row by row over the tile's
+//    rows of the window, re-evaluates the pair for the pixels with w > 0,
+//    chains and reduces exactly as the default leg does.
+//  * ROWTERM: alpha is 0 past each pixel's last touch lt (rays row 7); the
+//    walk starts and stops where B1's does.
+//
 // Bound on this card: operations against 67 TFLOP/s f32. The pair math
 // (~75 operations) runs for every (pixel, walked slot); the gradient chain
 // (~108) and the 16 adds that sum its row over the tile run only for a live
@@ -77,6 +90,99 @@ __device__ __forceinline__ void warp_sum16(float v[16], int lane) {
     v[0] = v[0] + __shfl_xor_sync(FULL, v[0], 1);
 }
 
+// Cross-warp sums of a batch of kn slots (rows kb .. kb + kn - 1 of the
+// window at `base`) in warp order, one thread per (slot, field), written to
+// their gradient rows.
+__device__ __forceinline__ void block_sums(float (*part)[SUB][ROW_F],
+                                           const float* rows, int kb, int kn,
+                                           int base, int p,
+                                           float* __restrict__ grad) {
+    for (int idx = p; idx < kn * ROW_F; idx += PIX) {
+        const int j = idx / ROW_F, f = idx % ROW_F;
+        float val;
+        if (f >= 9 && f < 12) {
+            // dmean_k = -sum_r A[r][k] sum_pix du_r
+            const float* q = rows + (kb + j) * ROW_F;
+            float su[3];
+            for (int r = 0; r < 3; ++r) {
+                su[r] = part[0][j][9 + r];
+                for (int i = 1; i < PIX / 32; ++i)
+                    su[r] = su[r] + part[i][j][9 + r];
+            }
+            const int k = f - 9;
+            val = -(q[k] * su[0] + q[3 + k] * su[1] + q[6 + k] * su[2]);
+        } else {
+            val = part[0][j][f];
+            for (int i = 1; i < PIX / 32; ++i) val = val + part[i][j][f];
+        }
+        grad[(size_t)(base + kb + j) * ROW_F + f] = val;
+    }
+}
+
+// The 16 per-slot entries of a live pair (w > 0) of row q: the chain of
+// d_alpha through alpha, g and hit_t to du, dv, and on to the row's fields.
+__device__ __forceinline__ void slot_grads(const float* q, const Pair& s,
+                                           const Ray& ray, float w,
+                                           float d_alpha, float dCr,
+                                           float dCg, float dCb, float dD,
+                                           int degree, float max_alpha,
+                                           int aux_grads, float v[ROW_F]) {
+    const bool unclamped = s.alpha_raw < max_alpha;
+    const float d_resp = unclamped ? q[12] * d_alpha : 0.0f;
+    const float d_opa = unclamped ? s.resp * d_alpha : 0.0f;
+    const float d_g = d_resp * kernel_response_grad(s.g, s.resp, degree);
+    const float d_crsq = d_g * s.inv_vsq;
+    float d_vsq = (-s.g * s.inv_vsq) * d_g;
+    float d_m = 0.0f;
+    if (aux_grads) {
+        const float d_hit = w * dD;
+        const float sgn = (float)((s.vdotu > 0.0f) - (s.vdotu < 0.0f));
+        d_m = sgn * s.inv_vsq * d_hit;
+        d_vsq = d_vsq + (-s.hit_t * s.inv_vsq) * d_hit;
+    }
+    const float crxv0 = s.cy * s.vz - s.cz * s.vy;
+    const float crxv1 = s.cz * s.vx - s.cx * s.vz;
+    const float crxv2 = s.cx * s.vy - s.cy * s.vx;
+    const float uxcr0 = s.uy * s.cz - s.uz * s.cy;
+    const float uxcr1 = s.uz * s.cx - s.ux * s.cz;
+    const float uxcr2 = s.ux * s.cy - s.uy * s.cx;
+    const float du[3] = {2.0f * d_crsq * crxv0 + d_m * s.vx,
+                         2.0f * d_crsq * crxv1 + d_m * s.vy,
+                         2.0f * d_crsq * crxv2 + d_m * s.vz};
+    const float dv[3] = {
+        2.0f * d_crsq * uxcr0 + d_m * s.ux + 2.0f * d_vsq * s.vx,
+        2.0f * d_crsq * uxcr1 + d_m * s.uy + 2.0f * d_vsq * s.vy,
+        2.0f * d_crsq * uxcr2 + d_m * s.uz + 2.0f * d_vsq * s.vz};
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+        v[3 * r + 0] = du[r] * s.w0x + dv[r] * ray.dx;
+        v[3 * r + 1] = du[r] * s.w0y + dv[r] * ray.dy;
+        v[3 * r + 2] = du[r] * s.w0z + dv[r] * ray.dz;
+        v[9 + r] = du[r];
+    }
+    v[12] = d_opa;
+    v[13] = w * dCr;
+    v[14] = w * dCg;
+    v[15] = w * dCb;
+}
+
+// One batch's 16 values per lane (zero where the pixel's pair is not live)
+// summed over the warp into part[warp][j].
+__device__ __forceinline__ void warp_part(float v[ROW_F], bool live, int lane,
+                                          float* part_wj) {
+    if (__any_sync(FULL, live)) {
+        warp_sum16(v, lane);
+        if ((lane & 1) == 0) {
+            const int f = ((lane >> 4) & 1) * 8 + ((lane >> 3) & 1) * 4
+                          + ((lane >> 2) & 1) * 2 + ((lane >> 1) & 1);
+            part_wj[f] = v[0];
+        }
+    } else if (lane < ROW_F) {
+        part_wj[lane] = 0.0f;
+    }
+}
+
+template <bool SORTED, bool ROWTERM>
 __global__ void __launch_bounds__(PIX)
 tile_raster_bwd_kernel(const float* __restrict__ data,
                        const int* __restrict__ starts,
@@ -87,14 +193,16 @@ tile_raster_bwd_kernel(const float* __restrict__ data,
                        float* __restrict__ grad, int degree,
                        float min_transmittance, float min_response,
                        float min_alpha, float max_alpha, int has_t_max,
-                       int aux_grads) {
+                       int aux_grads, int passes) {
     __shared__ __align__(16) float rows[CHUNK * ROW_F];
     __shared__ float part[PIX / 32][SUB][ROW_F];
 
     const int t = blockIdx.x;
     const int p = threadIdx.x;
     const int lane = p & 31, warp = p >> 5;
-    const Ray ray = load_ray(rays + (size_t)t * 8 * PIX, p);
+    const float* rt = rays + (size_t)t * 8 * PIX;
+    const Ray ray = load_ray(rt, p);
+    const float lt = ROWTERM ? rt[7 * PIX + p] : 0.0f;
     const float* fo = fwd + (size_t)t * 8 * PIX;
     const float* go = gout + (size_t)t * 8 * PIX;
     const float dCr = go[0 * PIX + p], dCg = go[1 * PIX + p],
@@ -112,7 +220,9 @@ tile_raster_bwd_kernel(const float* __restrict__ data,
 
     float T = 1.0f, prefix = 0.0f;
     int g = w0;
-    while (g < w1) {
+    bool walk = true;
+    if constexpr (ROWTERM) walk = __syncthreads_or(lt >= (float)(w0 * CHUNK));
+    while (walk && g < w1) {
         const float4* src = reinterpret_cast<const float4*>(
             data + (size_t)g * CHUNK * ROW_F);
         float4* dst = reinterpret_cast<float4*>(rows);
@@ -123,112 +233,143 @@ tile_raster_bwd_kernel(const float* __restrict__ data,
         const int base = g * CHUNK;
         const int lo = max(start, base) - base;
         const int hi = min(end, base + CHUNK) - base;
-        for (int kb = lo; kb < hi; kb += SUB) {
-            const int kn = min(hi - kb, SUB);
-            for (int j = 0; j < kn; ++j) {
-                const float* q = rows + (kb + j) * ROW_F;
-                const Pair s = pair_eval(q, ray, degree, min_response,
-                                         min_alpha, max_alpha, has_t_max);
-                float v[ROW_F];
+        if constexpr (SORTED) {
+            // Pass A: B1's walk of this pixel in compositing order; w and
+            // d_alpha stored by row.
+            float wgt[CHUNK], dal[CHUNK];
+            bool go_px = T > min_transmittance;
+            if constexpr (ROWTERM) go_px = go_px && (float)(base + lo) <= lt;
+            if (go_px) {
+                float key[CHUNK];
+                unsigned char idx[CHUNK];
+                window_keys(rows, ray, lo, hi, degree, min_response,
+                            min_alpha, max_alpha, has_t_max, key, idx);
+                oddeven_network(key, idx, passes);
+                float prod = 1.0f, tmin = BIG;
+                for (int k = 0; k < CHUNK; ++k) {
+                    const int row = idx[k];
+                    const bool mine = row >= lo && row < hi;
+                    const float* q = rows + row * ROW_F;
+                    float alpha = 0.0f, hit_t = 0.0f;
+                    if (mine) {
+                        const Pair s = pair_eval(q, ray, degree, min_response,
+                                                 min_alpha, max_alpha,
+                                                 has_t_max);
+                        alpha = s.accept ? s.alpha : 0.0f;
+                        if (ROWTERM && (float)(base + row) > lt) alpha = 0.0f;
+                        hit_t = s.hit_t;
+                    }
+                    const float one_m = 1.0f - alpha;
+                    const float t_before = T * prod;
+                    float w = 0.0f, d_alpha = 0.0f;
+                    if (t_before > min_transmittance) {
+                        w = alpha * t_before;
+                        if (w > 0.0f) {
+                            float qj = q[13] * dCr + q[14] * dCg + q[15] * dCb;
+                            qj = aux_grads ? qj + hit_t * dD + dO : qj + dO;
+                            prefix = prefix + w * qj;
+                            const float suffix = a_tot - prefix;
+                            const float inv_one_m =
+                                1.0f / fmaxf(one_m, 1e-6f);
+                            d_alpha = t_before * qj - suffix * inv_one_m;
+                            if (aux_grads)
+                                d_alpha = d_alpha - dT * t_final * inv_one_m;
+                        }
+                        tmin = fminf(tmin, t_before * one_m);
+                    }
+                    prod *= one_m;
+                    if (mine) {
+                        wgt[row] = w;
+                        dal[row] = d_alpha;
+                    }
+                }
+                T = fminf(tmin, T);
+            }
+            // Pass B: the tile's rows in order, summed over the pixels.
+            for (int kb = lo; kb < hi; kb += SUB) {
+                const int kn = min(hi - kb, SUB);
+                for (int j = 0; j < kn; ++j) {
+                    const int row = kb + j;
+                    const float* q = rows + row * ROW_F;
+                    float v[ROW_F];
 #pragma unroll
-                for (int i = 0; i < ROW_F; ++i) v[i] = 0.0f;
-                bool live = false;
-                if (s.accept && T > min_transmittance) {
-                    const float t_before = T;
-                    const float w = s.alpha * T;
-                    float qj = q[13] * dCr + q[14] * dCg + q[15] * dCb;
-                    qj = aux_grads ? qj + s.hit_t * dD + dO : qj + dO;
-                    prefix = prefix + w * qj;
-                    T *= 1.0f - s.alpha;
-                    live = w > 0.0f;
+                    for (int i = 0; i < ROW_F; ++i) v[i] = 0.0f;
+                    const bool live = go_px && wgt[row] > 0.0f;
                     if (live) {
-                        const float suffix = a_tot - prefix;
-                        const float inv_one_m =
-                            1.0f / fmaxf(1.0f - s.alpha, 1e-6f);
-                        float d_alpha = t_before * qj - suffix * inv_one_m;
-                        if (aux_grads)
-                            d_alpha = d_alpha - dT * t_final * inv_one_m;
-                        const bool unclamped = s.alpha_raw < max_alpha;
-                        const float d_resp = unclamped ? q[12] * d_alpha : 0.0f;
-                        const float d_opa = unclamped ? s.resp * d_alpha : 0.0f;
-                        const float d_g =
-                            d_resp * kernel_response_grad(s.g, s.resp, degree);
-                        const float d_crsq = d_g * s.inv_vsq;
-                        float d_vsq = (-s.g * s.inv_vsq) * d_g;
-                        float d_m = 0.0f;
-                        if (aux_grads) {
-                            const float d_hit = w * dD;
-                            const float sgn = (float)((s.vdotu > 0.0f)
-                                                      - (s.vdotu < 0.0f));
-                            d_m = sgn * s.inv_vsq * d_hit;
-                            d_vsq = d_vsq + (-s.hit_t * s.inv_vsq) * d_hit;
-                        }
-                        const float crxv0 = s.cy * s.vz - s.cz * s.vy;
-                        const float crxv1 = s.cz * s.vx - s.cx * s.vz;
-                        const float crxv2 = s.cx * s.vy - s.cy * s.vx;
-                        const float uxcr0 = s.uy * s.cz - s.uz * s.cy;
-                        const float uxcr1 = s.uz * s.cx - s.ux * s.cz;
-                        const float uxcr2 = s.ux * s.cy - s.uy * s.cx;
-                        const float du[3] = {2.0f * d_crsq * crxv0 + d_m * s.vx,
-                                             2.0f * d_crsq * crxv1 + d_m * s.vy,
-                                             2.0f * d_crsq * crxv2 + d_m * s.vz};
-                        const float dv[3] = {
-                            2.0f * d_crsq * uxcr0 + d_m * s.ux + 2.0f * d_vsq * s.vx,
-                            2.0f * d_crsq * uxcr1 + d_m * s.uy + 2.0f * d_vsq * s.vy,
-                            2.0f * d_crsq * uxcr2 + d_m * s.uz + 2.0f * d_vsq * s.vz};
-#pragma unroll
-                        for (int r = 0; r < 3; ++r) {
-                            v[3 * r + 0] = du[r] * s.w0x + dv[r] * ray.dx;
-                            v[3 * r + 1] = du[r] * s.w0y + dv[r] * ray.dy;
-                            v[3 * r + 2] = du[r] * s.w0z + dv[r] * ray.dz;
-                            v[9 + r] = du[r];
-                        }
-                        v[12] = d_opa;
-                        v[13] = w * dCr;
-                        v[14] = w * dCg;
-                        v[15] = w * dCb;
+                        const Pair s = pair_eval(q, ray, degree, min_response,
+                                                 min_alpha, max_alpha,
+                                                 has_t_max);
+                        slot_grads(q, s, ray, wgt[row], dal[row], dCr, dCg,
+                                   dCb, dD, degree, max_alpha, aux_grads, v);
                     }
+                    warp_part(v, live, lane, part[warp][j]);
                 }
-                if (__any_sync(FULL, live)) {
-                    warp_sum16(v, lane);
-                    if ((lane & 1) == 0) {
-                        const int f = ((lane >> 4) & 1) * 8 + ((lane >> 3) & 1) * 4
-                                      + ((lane >> 2) & 1) * 2 + ((lane >> 1) & 1);
-                        part[warp][j][f] = v[0];
-                    }
-                } else if (lane < ROW_F) {
-                    part[warp][j][lane] = 0.0f;
-                }
+                __syncthreads();
+                block_sums(part, rows, kb, kn, base, p, grad);
+                __syncthreads();
             }
-            __syncthreads();
-            // Cross-warp sums in warp order; one thread per (slot, field).
-            for (int idx = p; idx < kn * ROW_F; idx += PIX) {
-                const int j = idx / ROW_F, f = idx % ROW_F;
-                float val;
-                if (f >= 9 && f < 12) {
-                    // dmean_k = -sum_r A[r][k] sum_pix du_r
+        } else {
+            for (int kb = lo; kb < hi; kb += SUB) {
+                const int kn = min(hi - kb, SUB);
+                for (int j = 0; j < kn; ++j) {
                     const float* q = rows + (kb + j) * ROW_F;
-                    float su[3];
-                    for (int r = 0; r < 3; ++r) {
-                        su[r] = part[0][j][9 + r];
-                        for (int i = 1; i < PIX / 32; ++i)
-                            su[r] = su[r] + part[i][j][9 + r];
+                    const Pair s = pair_eval(q, ray, degree, min_response,
+                                             min_alpha, max_alpha, has_t_max);
+                    float v[ROW_F];
+#pragma unroll
+                    for (int i = 0; i < ROW_F; ++i) v[i] = 0.0f;
+                    bool live = false;
+                    bool take = s.accept && T > min_transmittance;
+                    if constexpr (ROWTERM)
+                        take = take && (float)(base + kb + j) <= lt;
+                    if (take) {
+                        const float t_before = T;
+                        const float w = s.alpha * T;
+                        float qj = q[13] * dCr + q[14] * dCg + q[15] * dCb;
+                        qj = aux_grads ? qj + s.hit_t * dD + dO : qj + dO;
+                        prefix = prefix + w * qj;
+                        T *= 1.0f - s.alpha;
+                        live = w > 0.0f;
+                        if (live) {
+                            const float suffix = a_tot - prefix;
+                            const float inv_one_m =
+                                1.0f / fmaxf(1.0f - s.alpha, 1e-6f);
+                            float d_alpha = t_before * qj - suffix * inv_one_m;
+                            if (aux_grads)
+                                d_alpha = d_alpha - dT * t_final * inv_one_m;
+                            slot_grads(q, s, ray, w, d_alpha, dCr, dCg, dCb,
+                                       dD, degree, max_alpha, aux_grads, v);
+                        }
                     }
-                    const int k = f - 9;
-                    val = -(q[k] * su[0] + q[3 + k] * su[1] + q[6 + k] * su[2]);
-                } else {
-                    val = part[0][j][f];
-                    for (int i = 1; i < PIX / 32; ++i) val = val + part[i][j][f];
+                    warp_part(v, live, lane, part[warp][j]);
                 }
-                grad[(size_t)(base + kb + j) * ROW_F + f] = val;
+                __syncthreads();
+                block_sums(part, rows, kb, kn, base, p, grad);
+                __syncthreads();
             }
-            __syncthreads();
         }
         // The walk stops exactly where the forward's did.
-        const int alive = __syncthreads_or(T > min_transmittance);
+        bool more = T > min_transmittance;
+        if constexpr (ROWTERM) more = more && lt >= (float)((g + 1) * CHUNK);
+        const int alive = __syncthreads_or(more);
         ++g;
         if (!alive) break;
     }
+}
+
+template <bool SORTED, bool ROWTERM>
+static void launch_bwd(const void* data, const void* starts,
+                       const void* ends, const void* rays, const void* fwd,
+                       const void* gout, void* grad, int num_tiles,
+                       int degree, float min_transmittance,
+                       float min_response, float min_alpha, float max_alpha,
+                       int has_t_max, int aux_grads, int passes,
+                       cudaStream_t stream) {
+    tile_raster_bwd_kernel<SORTED, ROWTERM><<<num_tiles, PIX, 0, stream>>>(
+        (const float*)data, (const int*)starts, (const int*)ends,
+        (const float*)rays, (const float*)fwd, (const float*)gout,
+        (float*)grad, degree, min_transmittance, min_response, min_alpha,
+        max_alpha, has_t_max, aux_grads, passes);
 }
 
 extern "C" int tile_raster_bwd(const void* data, const void* starts,
@@ -237,13 +378,17 @@ extern "C" int tile_raster_bwd(const void* data, const void* starts,
                                int num_tiles, int degree,
                                float min_transmittance, float min_response,
                                float min_alpha, float max_alpha,
-                               int has_t_max, int aux_grads, void* stream) {
+                               int has_t_max, int aux_grads, int passes,
+                               int row_termination, void* stream) {
     if (num_tiles > 0) {
-        tile_raster_bwd_kernel<<<num_tiles, PIX, 0, (cudaStream_t)stream>>>(
-            (const float*)data, (const int*)starts, (const int*)ends,
-            (const float*)rays, (const float*)fwd, (const float*)gout,
-            (float*)grad, degree, min_transmittance, min_response, min_alpha,
-            max_alpha, has_t_max, aux_grads);
+        auto fn = passes > 0
+                      ? (row_termination ? launch_bwd<true, true>
+                                         : launch_bwd<true, false>)
+                      : (row_termination ? launch_bwd<false, true>
+                                         : launch_bwd<false, false>);
+        fn(data, starts, ends, rays, fwd, gout, grad, num_tiles, degree,
+           min_transmittance, min_response, min_alpha, max_alpha, has_t_max,
+           aux_grads, passes, (cudaStream_t)stream);
     }
     return (int)cudaGetLastError();
 }

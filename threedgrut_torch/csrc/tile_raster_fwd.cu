@@ -23,14 +23,38 @@
 // tiles are disjoint, so there are no races; the wrapper pre-zeroes flags and
 // slots past the early exit stay 0.
 //
+// Two legs are compile-time template parameters, so the default (0 passes,
+// no row termination) compiles to the loop above and nothing else:
+//  * SORTED (passes > 0, the "sorted" k-buffer mode): per pixel and window,
+//    the keys of window_keys (tile_pair.cuh: hit_t of every row of the tile,
+//    rows of other tiles pinned) go through the odd-even network, and the
+//    pixel composites its window in that order: T_before = carry * (the
+//    product of 1 - alpha before it), counted while T_before > min_T; the
+//    carry becomes min(carry, min over counted rows of T_before (1 - alpha)).
+//    A pixel whose carry is already <= min_T skips the window. The keys and
+//    row indices live in per-thread arrays in local memory (640 B), alpha
+//    is evaluated again in compositing order. A slot's flag is the max of
+//    its row's weight over the pixels (atomicMax on the bits of a
+//    non-negative float in shared memory: the max does not depend on the
+//    order).
+//  * ROWTERM (row_termination): rays row 7 holds each pixel's last-touch
+//    slot lt; alpha is 0 past it (keys unchanged). The tile starts only if
+//    some lt >= 128 w0, and stops after window g unless some pixel has
+//    T > min_T and lt >= 128 (g + 1). A pixel whose lt lies before the
+//    tile's first row of the window composites nothing there.
+//
 // Bound on this card: ~60 f32 operations per (pixel, walked slot) against
 // 67 TFLOP/s; the rows come from shared memory as broadcasts, device memory
 // sees only 64 bytes per walked slot. Design: no prefix scans (the TPU
 // kernel's Hillis-Steele ladder and triangular matmuls existed only because
 // its vector unit cannot run a per-pixel sequential loop); the sequential
-// per-pixel recurrence is the cheapest exact form on a SIMT core.
+// per-pixel recurrence is the cheapest exact form on a SIMT core. The sorted
+// leg adds the keys' pair math and, per pass run, 2 operations for each of
+// the 64 compare-exchanges; the pass count each pixel runs depends on how
+// far its hits are out of row order.
 #include "tile_pair.cuh"
 
+template <bool SORTED, bool ROWTERM>
 __global__ void __launch_bounds__(PIX)
 tile_raster_fwd_kernel(const float* __restrict__ data,
                        const int* __restrict__ starts,
@@ -39,14 +63,17 @@ tile_raster_fwd_kernel(const float* __restrict__ data,
                        float* __restrict__ out, float* __restrict__ flags,
                        int degree, float min_transmittance,
                        float min_response, float min_alpha, float max_alpha,
-                       int has_t_max, int aux_outputs) {
+                       int has_t_max, int aux_outputs, int passes) {
     __shared__ __align__(16) float rows[CHUNK * ROW_F];
     __shared__ float warp_max[PIX / 32][CHUNK];
+    __shared__ unsigned int row_max[CHUNK];
 
     const int t = blockIdx.x;
     const int p = threadIdx.x;
     const int lane = p & 31, warp = p >> 5;
-    const Ray ray = load_ray(rays + (size_t)t * 8 * PIX, p);
+    const float* rt = rays + (size_t)t * 8 * PIX;
+    const Ray ray = load_ray(rt, p);
+    const float lt = ROWTERM ? rt[7 * PIX + p] : 0.0f;
 
     const int start = starts[t], end = ends[t];
     const int w0 = start / CHUNK;
@@ -55,48 +82,108 @@ tile_raster_fwd_kernel(const float* __restrict__ data,
     float T = 1.0f, r = 0.0f, gcol = 0.0f, b = 0.0f, opa = 0.0f, dep = 0.0f,
           hits = 0.0f;
     int g = w0;
-    while (g < w1) {
+    bool walk = true;
+    if constexpr (ROWTERM) walk = __syncthreads_or(lt >= (float)(w0 * CHUNK));
+    while (walk && g < w1) {
         // Cooperative load of the window: 512 float4, two per thread.
         const float4* src = reinterpret_cast<const float4*>(
             data + (size_t)g * CHUNK * ROW_F);
         float4* dst = reinterpret_cast<float4*>(rows);
         dst[p] = src[p];
         dst[p + PIX] = src[p + PIX];
+        if (SORTED && p < CHUNK) row_max[p] = 0u;
         __syncthreads();
 
         const int base = g * CHUNK;
         const int lo = max(start, base) - base;
         const int hi = min(end, base + CHUNK) - base;
-        for (int k = lo; k < hi; ++k) {
-            const float* q = rows + k * ROW_F;
-            const Pair s = pair_eval(q, ray, degree, min_response, min_alpha,
-                                     max_alpha, has_t_max);
-            float w = 0.0f;
-            if (s.accept && T > min_transmittance) {
-                w = s.alpha * T;
-                r += w * q[13];
-                gcol += w * q[14];
-                b += w * q[15];
-                opa += w;
-                if (aux_outputs) {
-                    dep += w * s.hit_t;
-                    hits += 1.0f;
+        if constexpr (SORTED) {
+            bool go = T > min_transmittance;
+            if constexpr (ROWTERM) go = go && (float)(base + lo) <= lt;
+            if (go) {
+                float key[CHUNK];
+                unsigned char idx[CHUNK];
+                window_keys(rows, ray, lo, hi, degree, min_response,
+                            min_alpha, max_alpha, has_t_max, key, idx);
+                oddeven_network(key, idx, passes);
+                float prod = 1.0f, tmin = BIG;
+                for (int k = 0; k < CHUNK; ++k) {
+                    const int row = idx[k];
+                    const float* q = rows + row * ROW_F;
+                    float alpha = 0.0f, hit_t = 0.0f;
+                    if (row >= lo && row < hi) {
+                        const Pair s = pair_eval(q, ray, degree, min_response,
+                                                 min_alpha, max_alpha,
+                                                 has_t_max);
+                        alpha = s.accept ? s.alpha : 0.0f;
+                        if (ROWTERM && (float)(base + row) > lt) alpha = 0.0f;
+                        hit_t = s.hit_t;
+                    }
+                    const float one_m = 1.0f - alpha;
+                    const float t_before = T * prod;
+                    if (t_before > min_transmittance) {
+                        const float w = alpha * t_before;
+                        if (w > 0.0f) {
+                            r += w * q[13];
+                            gcol += w * q[14];
+                            b += w * q[15];
+                            opa += w;
+                            if (aux_outputs) {
+                                dep += w * hit_t;
+                                hits += 1.0f;
+                            }
+                            if (flags != nullptr)
+                                atomicMax(&row_max[row], __float_as_uint(w));
+                        }
+                        tmin = fminf(tmin, t_before * one_m);
+                    }
+                    prod *= one_m;
                 }
-                T *= 1.0f - s.alpha;
+                T = fminf(tmin, T);
             }
-            if (flags != nullptr) {
-                float m = w;
-                for (int off = 16; off > 0; off >>= 1)
-                    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-                if (lane == 0) warp_max[warp][k] = m;
+        } else {
+            for (int k = lo; k < hi; ++k) {
+                const float* q = rows + k * ROW_F;
+                const Pair s = pair_eval(q, ray, degree, min_response,
+                                         min_alpha, max_alpha, has_t_max);
+                float w = 0.0f;
+                bool take = s.accept && T > min_transmittance;
+                if constexpr (ROWTERM) take = take && (float)(base + k) <= lt;
+                if (take) {
+                    w = s.alpha * T;
+                    r += w * q[13];
+                    gcol += w * q[14];
+                    b += w * q[15];
+                    opa += w;
+                    if (aux_outputs) {
+                        dep += w * s.hit_t;
+                        hits += 1.0f;
+                    }
+                    T *= 1.0f - s.alpha;
+                }
+                if (flags != nullptr) {
+                    float m = w;
+                    for (int off = 16; off > 0; off >>= 1)
+                        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+                    if (lane == 0) warp_max[warp][k] = m;
+                }
             }
         }
-        // The barrier also keeps `rows` and `warp_max` until every thread is
-        // done with them: the next window writes them only after its load.
-        const int alive = __syncthreads_or(T > min_transmittance);
+        // The barrier also keeps `rows` and the flag buffers until every
+        // thread is done with them: the next window writes them only after
+        // its load.
+        bool more = T > min_transmittance;
+        if constexpr (ROWTERM) more = more && lt >= (float)((g + 1) * CHUNK);
+        const int alive = __syncthreads_or(more);
         if (flags != nullptr && p >= lo && p < hi) {
-            float m = warp_max[0][p];
-            for (int i = 1; i < PIX / 32; ++i) m = fmaxf(m, warp_max[i][p]);
+            float m;
+            if constexpr (SORTED) {
+                m = __uint_as_float(row_max[p]);
+            } else {
+                m = warp_max[0][p];
+                for (int i = 1; i < PIX / 32; ++i)
+                    m = fmaxf(m, warp_max[i][p]);
+            }
             flags[base + p] = m;
         }
         ++g;
@@ -114,18 +201,36 @@ tile_raster_fwd_kernel(const float* __restrict__ data,
     o[7 * PIX + p] = (float)(min(max(g * CHUNK, start), end) - start);
 }
 
+template <bool SORTED, bool ROWTERM>
+static void launch_fwd(const void* data, const void* starts,
+                       const void* ends, const void* rays, void* out,
+                       void* flags, int num_tiles, int degree,
+                       float min_transmittance, float min_response,
+                       float min_alpha, float max_alpha, int has_t_max,
+                       int aux_outputs, int passes, cudaStream_t stream) {
+    tile_raster_fwd_kernel<SORTED, ROWTERM><<<num_tiles, PIX, 0, stream>>>(
+        (const float*)data, (const int*)starts, (const int*)ends,
+        (const float*)rays, (float*)out, (float*)flags, degree,
+        min_transmittance, min_response, min_alpha, max_alpha, has_t_max,
+        aux_outputs, passes);
+}
+
 extern "C" int tile_raster_fwd(const void* data, const void* starts,
                                const void* ends, const void* rays, void* out,
                                void* flags, int num_tiles, int degree,
                                float min_transmittance, float min_response,
                                float min_alpha, float max_alpha,
-                               int has_t_max, int aux_outputs, void* stream) {
+                               int has_t_max, int aux_outputs, int passes,
+                               int row_termination, void* stream) {
     if (num_tiles > 0) {
-        tile_raster_fwd_kernel<<<num_tiles, PIX, 0, (cudaStream_t)stream>>>(
-            (const float*)data, (const int*)starts, (const int*)ends,
-            (const float*)rays, (float*)out, (float*)flags, degree,
-            min_transmittance, min_response, min_alpha, max_alpha, has_t_max,
-            aux_outputs);
+        auto fn = passes > 0
+                      ? (row_termination ? launch_fwd<true, true>
+                                         : launch_fwd<true, false>)
+                      : (row_termination ? launch_fwd<false, true>
+                                         : launch_fwd<false, false>);
+        fn(data, starts, ends, rays, out, flags, num_tiles, degree,
+           min_transmittance, min_response, min_alpha, max_alpha, has_t_max,
+           aux_outputs, passes, (cudaStream_t)stream);
     }
     return (int)cudaGetLastError();
 }

@@ -17,6 +17,13 @@ Regenerating it runs the Pallas compositor in interpret mode for minutes, so
 no test does; the file also stores a hash of the JAX package's sources and
 of these inputs, which the same test file checks, and `python -m
 tests.test_torch_golden grt` rewrites it.
+
+`gut_sorted_2k_64.npz` holds the JAX package's `api.render` outputs
+(hit_visibility=True) of the golden frame in the two modes of SORTED_MODES:
+16 re-sort passes (the "sorted" k-buffer mode of preset_3dgut_sorted) and
+row termination, under the keys "<mode>/<output>". It stores a provenance
+hash as the 3DGRT file does; `python -m tests.test_torch_golden sorted`
+rewrites it.
 """
 from __future__ import annotations
 
@@ -31,6 +38,10 @@ from threedgrut_torch.model.gaussians import bench_scene
 
 PATH = Path(__file__).resolve().parent / "gut_2k_64.npz"
 GRT_PATH = Path(__file__).resolve().parent / "grt_2k_128.npz"
+SORTED_PATH = Path(__file__).resolve().parent / "gut_sorted_2k_64.npz"
+# api.render keywords of each mode of the sorted golden file.
+SORTED_MODES = {"sorted": dict(sorted_passes=16),
+                "rowterm": dict(row_termination=True)}
 N = 2000
 RESOLUTION = (64, 64)
 ISECT_CAPACITY = 1 << 13
@@ -91,6 +102,13 @@ def load_grt() -> Dict[str, np.ndarray]:
     """The stored JAX outputs of the 3DGRT golden trace."""
     with np.load(GRT_PATH) as d:
         return {k: d[k] for k in OUTPUTS}
+
+
+def load_sorted(mode: str) -> Dict[str, np.ndarray]:
+    """The stored JAX outputs of the golden frame in mode `mode` of
+    SORTED_MODES (hit_visibility=True render)."""
+    with np.load(SORTED_PATH) as d:
+        return {k: d[f"{mode}/{k}"] for k in OUTPUTS}
 
 
 def load() -> Dict[str, np.ndarray]:

@@ -53,7 +53,8 @@ from torch.profiler import record_function
 
 from threedgrut_torch import constants as C
 from threedgrut_torch.ops import cuda_build
-from threedgrut_torch.ops.tile_raster import _response_grad, _tile_pairs
+from threedgrut_torch.ops.tile_raster import (_response_grad, _tile_pairs,
+                                              oddeven_passes)
 
 CHUNK = 128          # rows per window: the flat layout's and re-sort's unit
 ROW64 = 64           # packed floats per candidate row
@@ -85,26 +86,6 @@ def sh_basis_rows(rays: torch.Tensor, sh_degree: int) -> torch.Tensor:
                  C.SH_C3[5] * z * (xx - yy), C.SH_C3[6] * x * (xx - 3.0 * yy)]
     rows += [torch.zeros_like(x)] * (16 - len(rows))
     return torch.stack(rows, dim=1)
-
-
-def oddeven_passes(key: torch.Tensor, vals, passes: int):
-    """`passes` passes of odd-even transposition along dim 1 of key [B, K,
-    ...]: pass i swaps positions (j, j+1), j = i mod 2, where key[j+1] <
-    key[j]. Returns (key, vals) permuted alike."""
-    k = key.shape[1]
-    for i in range(passes):
-        lo = slice(i % 2, k - 1, 2)
-        hi = slice(i % 2 + 1, k, 2)
-        swap = key[:, hi] < key[:, lo]
-        out = []
-        for x in [key] + list(vals):
-            a, b = x[:, lo], x[:, hi]
-            x = x.clone()
-            x[:, lo] = torch.where(swap, b, a)
-            x[:, hi] = torch.where(swap, a, b)
-            out.append(x)
-        key, vals = out[0], out[1:]
-    return key, vals
 
 
 def _window_weights(S, rays, carry, degree, min_transmittance,

@@ -102,7 +102,7 @@ class _CompositeParticles(torch.autograd.Function):
         fn = (tile_raster.tile_composite_plain if rays.device.type == "cpu"
               else tile_raster._launch)
         out, _ = fn(data_sorted, tile_starts, tile_ends, rays, *args[:6],
-                    aux_outputs, False)
+                    aux_outputs, False, *args[7:])
         ctx.save_for_backward(sorted_idx, particle_ends, data_sorted,
                               tile_starts, tile_ends, rays, out)
         ctx.n, ctx.args = n, args
@@ -138,11 +138,15 @@ def composite_particles(packed, sorted_idx, particle_ends, tile_starts,
                         has_t_max: bool = True, aux_grads: bool = True,
                         aux_outputs: bool = True,
                         low_precision_grads: bool = False,
-                        walk_capacity: int = 0) -> torch.Tensor:
+                        walk_capacity: int = 0, sorted_passes: int = 0,
+                        row_termination: bool = False) -> torch.Tensor:
     """tile_composite(packed[sorted_idx], ...)[0], differentiable in the
     packed rows [N, 16] through B2 and the walked-window-compacted unsort.
     The forward equals the two-stage path's. `walk_capacity` (a multiple of
-    256 below the slot capacity) bounds the compacted unsort."""
+    256 below the slot capacity) bounds the compacted unsort.
+    `sorted_passes` and `row_termination` select B1's and B2's sorted and
+    row-terminated legs; the walked counts, and so the compaction, are
+    those of the row-terminated walk."""
     cap = sorted_idx.shape[0]
     n = packed.shape[0]
     if not (walk_capacity % 256 == 0 and 0 < walk_capacity < cap):
@@ -154,9 +158,10 @@ def composite_particles(packed, sorted_idx, particle_ends, tile_starts,
                          f"exceed 2^24")
     if not aux_outputs and aux_grads:
         raise ValueError("aux_outputs=False requires aux_grads=False")
+    tile_raster.check_passes(sorted_passes)
     args = (int(degree), float(min_transmittance), float(min_response),
             float(min_alpha), float(max_alpha), bool(has_t_max),
-            bool(aux_grads))
+            bool(aux_grads), int(sorted_passes), bool(row_termination))
     return _CompositeParticles.apply(
         packed, sorted_idx, particle_ends, tile_starts, tile_ends, rays,
         args, bool(aux_outputs), int(walk_capacity),

@@ -13,6 +13,24 @@ runs `tile_composite_plain` for CPU tensors. It is a torch.autograd.Function
 whose backward is kernel B2 (csrc/tile_raster_bwd.cu; plain version
 `tile_composite_backward_plain`): per-slot gradients [cap, 16] of the packed
 rows, exactly 0 on slots the forward's walk never reached.
+
+Two options change the semantics, as in the JAX kernel:
+  * `sorted_passes` > 0 (the "sorted" k-buffer mode): per pixel and
+    absolute 128-slot window (slots 128 w ... 128 w + 127, so CHUNK is part
+    of the result), the keys hit_t of the tile's rows, accepted or not,
+    with rows before the tile's start pinned at -3.4e38 and rows at or past
+    its end at +3.4e38, go through exactly `sorted_passes` passes of
+    odd-even transposition (pass i compares positions (j, j+1), j = i mod 2,
+    swapping where key[j+1] < key[j]). The exclusive product of 1 - alpha
+    in that order gives T_before = carry * excl; a row counts while
+    T_before > min_transmittance; the carry becomes min(carry, min over
+    counted rows of T_before (1 - alpha)). The emitted flag of a slot is
+    the max over the tile's pixels of that row's weight.
+  * `row_termination`: rays row 7 holds each pixel's last-touch slot lt
+    (tiles.row_last_touch); alpha is 0 where the slot index exceeds lt
+    (before the sort: such rows keep their key). A tile starts only if some
+    lt >= 128 w0 and stops after window g unless some pixel has
+    T > min_transmittance and lt >= 128 (g + 1).
 """
 from __future__ import annotations
 
@@ -71,6 +89,33 @@ def _tile_pairs(S, ray, degree, min_response, min_alpha, max_alpha,
                 vdotu=vdotu, hit_t=hit_t)
 
 
+def oddeven_passes(key: torch.Tensor, vals, passes: int, activity=None):
+    """`passes` passes of odd-even transposition along dim 1 of key [B, K,
+    ...]: pass i swaps positions (j, j+1), j = i mod 2, where key[j+1] <
+    key[j]. Returns (key, vals) permuted alike. A list `activity` gets,
+    per pass, whether it swapped anything in each lane [B, ...]."""
+    k = key.shape[1]
+    for i in range(passes):
+        lo = slice(i % 2, k - 1, 2)
+        hi = slice(i % 2 + 1, k, 2)
+        swap = key[:, hi] < key[:, lo]
+        if activity is not None:
+            activity.append(swap.any(1))
+        out = []
+        for x in [key] + list(vals):
+            a, b = x[:, lo], x[:, hi]
+            x = x.clone()
+            x[:, lo] = torch.where(swap, b, a)
+            x[:, hi] = torch.where(swap, a, b)
+            out.append(x)
+        key, vals = out[0], out[1:]
+    return key, vals
+
+
+BIG = 3.4e38         # sort key pinning a row outside the tile's range
+TILE_BATCH = 64      # tiles per step of the plain versions' window walk
+
+
 def _tile_weights(alpha, min_transmittance):
     """Front-to-back transmittance of one tile: (one_m, incl, t_before, w),
     each [K, PIX]. torch.cumprod runs in slot order, the kernels' order."""
@@ -82,16 +127,169 @@ def _tile_weights(alpha, min_transmittance):
     return one_m, incl, t_before, w
 
 
-def _walked(incl, s, e, min_transmittance):
+def _row_gate(alpha, rows, lt):
+    """Row termination: alpha [..., K, PIX] is 0 where the slot index rows
+    [..., K] exceeds the pixel's last touch lt [..., PIX]."""
+    keep = rows.to(torch.float32)[..., None] <= lt[..., None, :]
+    return torch.where(keep, alpha, torch.zeros_like(alpha))
+
+
+def _walked(incl, s, e, min_transmittance, lt=None):
     """Slots the walk of tile range [s, e) covers before its early exit:
     it stops after the first window at whose end no pixel has
-    T > min_transmittance (T is non-increasing)."""
+    T > min_transmittance (T is non-increasing) and, with row termination,
+    a last touch lt at or past the next window. A row-terminated tile whose
+    pixels all end before its first window walks nothing."""
     w_lo, w_hi = s // CHUNK, (e - 1) // CHUNK + 1
+    if lt is not None and not bool((lt >= float(w_lo * CHUNK)).any()):
+        return 0
     last = [min(e, (j + 1) * CHUNK) - s - 1 for j in range(w_lo, w_hi)]
-    alive = (incl[last] > min_transmittance).any(1)            # [windows]
+    alive = incl[last] > min_transmittance                     # [windows, PIX]
+    if lt is not None:
+        nxt = torch.tensor([float((j + 1) * CHUNK) for j in range(w_lo, w_hi)],
+                           device=lt.device)
+        alive = alive & (lt[None, :] >= nxt[:, None])
+    alive = alive.any(1)
     n_walk = len(last) if bool(alive.all()) else int(
         torch.argmin(alive.to(torch.int32))) + 1
     return min(max((w_lo + n_walk) * CHUNK, s), e) - s
+
+
+def _passes_run(activity, passes):
+    """Passes the kernels' network runs per lane: it stops after the first
+    pass that follows a pass with no swap and swaps nothing itself."""
+    act = torch.stack(activity)                            # [passes, B, PIX]
+    run = torch.full(act.shape[1:], passes, device=act.device)
+    if passes > 1:
+        i = torch.arange(2, passes + 1, device=act.device)[:, None, None]
+        run = torch.where(~act[1:] & ~act[:-1], i, run).amin(0)
+    return run
+
+
+def _window_weights(S, rays, rows, s, e, carry, lt, degree,
+                    min_transmittance, min_response, min_alpha, max_alpha,
+                    has_t_max, sorted_passes, stats=None):
+    """Sorted-mode compositing weights of one absolute window of B tiles:
+    S [B, CHUNK, 16] its rows, rays [B, 8, PIX], rows [B, CHUNK] their slot
+    indices, s, e [B] the tile ranges, carry [B, PIX], lt [B, PIX] or None.
+    Returns (pair quantities, 1 - alpha, T_before, live, w), each [B,
+    CHUNK, PIX] in row order, and the row at each compositing position. A
+    `stats` dict counts the network's work as the kernels do it:
+    "live_pixel_windows" (pixels that run it: carry > min_T and, with row
+    termination, lt at or past the tile's first row of the window) and
+    "network_passes" (the passes those run, _passes_run)."""
+    q = _tile_pairs(S, rays, degree, min_response, min_alpha, max_alpha,
+                    has_t_max)
+    in_range = (rows >= s[:, None]) & (rows < e[:, None])
+    alpha = torch.where(in_range[..., None], q["alpha"],
+                        torch.zeros_like(q["alpha"]))
+    if lt is not None:
+        alpha = _row_gate(alpha, rows, lt)
+    one_m = 1.0 - alpha
+    key = torch.where((rows < s[:, None])[..., None],
+                      torch.full_like(alpha, -BIG), q["hit_t"])
+    key = torch.where((rows >= e[:, None])[..., None],
+                      torch.full_like(alpha, BIG), key)
+    pos = torch.arange(CHUNK, device=S.device)[None, :, None].expand(
+        alpha.shape)
+    activity = [] if stats is not None else None
+    _, (om_s, pos_s) = oddeven_passes(key, [one_m, pos], sorted_passes,
+                                      activity)
+    if stats is not None:
+        go = carry > min_transmittance
+        if lt is not None:
+            first = torch.maximum(rows[:, 0], s).to(torch.float32)
+            go &= first[:, None] <= lt
+        stats["live_pixel_windows"] += int(go.sum())
+        stats["network_passes"] += int(
+            (_passes_run(activity, sorted_passes) * go).sum())
+    incl = torch.cumprod(om_s, dim=1)
+    excl = torch.cat([torch.ones_like(incl[:, :1]), incl[:, :-1]], dim=1)
+    excl = torch.empty_like(excl).scatter_(1, pos_s, excl)
+    t_before = carry[:, None, :] * excl
+    live = t_before > min_transmittance
+    w = torch.where(live, alpha * t_before, torch.zeros_like(alpha))
+    return q, one_m, t_before, live, w, pos_s
+
+
+def _window_walk(tile_starts, tile_ends, rays, row_termination,
+                 min_transmittance, step):
+    """Walk every tile's absolute windows, vectorised across the tiles:
+    step k calls step(b, wi, carry_b) for the tiles b still walking with
+    window wi = w0 + k, which returns their new carry. Returns (carry
+    [num_tiles, PIX], slots walked [num_tiles]), the walk stopping as the
+    kernels' does (module docstring)."""
+    s = tile_starts.long()
+    e = tile_ends.long()
+    w0 = torch.div(s, CHUNK, rounding_mode="floor")
+    w1 = torch.where(e > s, torch.div(e - 1, CHUNK, rounding_mode="floor")
+                     + 1, w0)
+    carry = torch.ones((rays.shape[0], PIX), device=rays.device)
+    lt = rays[:, 7] if row_termination else None
+    walking = e > s
+    if lt is not None:
+        walking &= (lt >= (w0 * CHUNK).to(torch.float32)[:, None]).any(1)
+    walked = torch.zeros_like(w0)
+    k = 0
+    while True:
+        step_tiles = torch.nonzero(walking & (w0 + k < w1)).reshape(-1)
+        if step_tiles.numel() == 0:
+            break
+        for b in step_tiles.split(TILE_BATCH):
+            wi = w0[b] + k
+            cb = step(b, wi, carry[b])
+            carry[b] = cb
+            walked[b] += 1
+            alive = cb > min_transmittance
+            if lt is not None:
+                alive &= lt[b] >= ((wi + 1) * CHUNK).to(torch.float32)[:, None]
+            walking[b] = alive.any(1)
+        k += 1
+    gf = (w0 + walked) * CHUNK
+    return carry, torch.minimum(torch.maximum(gf, s), e) - s
+
+
+def _composite_windows(data_sorted, tile_starts, tile_ends, rays, degree,
+                       min_transmittance, min_response, min_alpha, max_alpha,
+                       has_t_max, aux_outputs, emit_flags, sorted_passes,
+                       row_termination, stats):
+    """Plain B1 in the sorted mode, window by window (the re-sort runs in
+    absolute windows): step k takes window w0 + k of every tile still
+    walking, vectorised across them."""
+    num_tiles = rays.shape[0]
+    windows = data_sorted.view(-1, CHUNK, ROW_F)
+    out = torch.zeros((num_tiles, 8, PIX), dtype=torch.float32,
+                      device=rays.device)
+    flags = (torch.zeros(windows.shape[:2], dtype=torch.float32,
+                         device=rays.device) if emit_flags else None)
+    s, e = tile_starts.long(), tile_ends.long()
+    lt = rays[:, 7] if row_termination else None
+    lane = torch.arange(CHUNK, device=rays.device)
+
+    def step(b, wi, carry):
+        S = windows[wi]
+        q, one_m, t_before, live, w, _ = _window_weights(
+            S, rays[b], wi[:, None] * CHUNK + lane, s[b], e[b], carry,
+            None if lt is None else lt[b], degree, min_transmittance,
+            min_response, min_alpha, max_alpha, has_t_max, sorted_passes,
+            stats)
+        out[b, 0:3] += torch.matmul(S[..., 13:16].transpose(1, 2), w)
+        out[b, 3] += w.sum(1)
+        if aux_outputs:
+            out[b, 4] += (w * q["hit_t"]).sum(1)
+            out[b, 6] += (w > 0.0).sum(1).to(torch.float32)
+        if emit_flags:
+            # Rows of other tiles carry w == 0: their flags stay as set.
+            flags.index_add_(0, wi, w.amax(2))
+        t_after = torch.where(live, t_before * one_m,
+                              torch.full_like(t_before, BIG))
+        return torch.minimum(t_after.amin(1), carry)
+
+    carry, walked = _window_walk(tile_starts, tile_ends, rays,
+                                 row_termination, min_transmittance, step)
+    out[:, 5] = carry
+    out[:, 7] = walked.to(torch.float32)[:, None]
+    return out, (flags.reshape(-1) if emit_flags else None)
 
 
 def tile_composite_plain(data_sorted, tile_starts, tile_ends, rays,
@@ -100,9 +298,20 @@ def tile_composite_plain(data_sorted, tile_starts, tile_ends, rays,
                          min_alpha: float = C.MIN_ALPHA,
                          max_alpha: float = C.MAX_ALPHA,
                          has_t_max: bool = True, aux_outputs: bool = True,
-                         emit_flags: bool = False):
-    """Plain version of B1: a loop over tiles, each tile's whole slot range
-    at once, transmittance by torch.cumprod. Returns (out, flags or None)."""
+                         emit_flags: bool = False, sorted_passes: int = 0,
+                         row_termination: bool = False, stats=None):
+    """Plain version of B1. Without passes: a loop over tiles, each tile's
+    whole slot range at once, transmittance by torch.cumprod; with passes,
+    window by window (and a `stats` dict gets the network's work,
+    _window_weights). Returns (out, flags or None)."""
+    if sorted_passes:
+        if stats is not None:
+            stats.update(live_pixel_windows=0, network_passes=0)
+        return _composite_windows(
+            data_sorted, tile_starts, tile_ends, rays, degree,
+            min_transmittance, min_response, min_alpha, max_alpha,
+            has_t_max, aux_outputs, emit_flags, sorted_passes,
+            row_termination, stats)
     num_tiles = rays.shape[0]
     dev = rays.device
     out = torch.zeros((num_tiles, 8, PIX), dtype=torch.float32, device=dev)
@@ -115,19 +324,23 @@ def tile_composite_plain(data_sorted, tile_starts, tile_ends, rays,
         s, e = starts[t], ends[t]
         if e <= s:
             continue
+        lt = rays[t, 7] if row_termination else None
         S = data_sorted[s:e]                              # [K, 16]
         q = _tile_pairs(S, rays[t], degree, min_response, min_alpha,
                         max_alpha, has_t_max)
-        _, incl, t_before, w = _tile_weights(q["alpha"], min_transmittance)
+        alpha = q["alpha"]
+        if lt is not None:
+            alpha = _row_gate(alpha, torch.arange(s, e, device=dev), lt)
+        _, incl, t_before, w = _tile_weights(alpha, min_transmittance)
         out[t, 0:3] = S[:, 13:16].T @ w
         out[t, 3] = w.sum(0)
         if aux_outputs:
             out[t, 4] = (w * q["hit_t"]).sum(0)
             out[t, 6] = (w > 0.0).sum(0).to(torch.float32)
         live = t_before > min_transmittance
-        t_after = torch.where(live, incl, torch.full_like(incl, 3.4e38))
+        t_after = torch.where(live, incl, torch.full_like(incl, BIG))
         out[t, 5] = torch.clamp(t_after.min(0).values, max=1.0)
-        out[t, 7] = float(_walked(incl, s, e, min_transmittance))
+        out[t, 7] = float(_walked(incl, s, e, min_transmittance, lt))
         if emit_flags:
             flags[s:e] = w.max(1).values
     return out, flags
@@ -154,6 +367,123 @@ def _response_grad(g, resp, degree: int):
     return resp * s * 4.0 * (g * g) * g
 
 
+def _slot_grads(S, ray, q, one_m, t_before, w, qj, suffix, t_final, g,
+                degree: int, max_alpha: float, aux_grads: bool):
+    """The 16 per-slot gradient entries of rows S [..., K, 16] summed over
+    the pixels of rays ray [..., 8, PIX], given the pair quantities q, the
+    compositing state (1 - alpha, T_before, w, each [..., K, PIX]), q_j, the
+    suffix sum_{k after j} w_k q_k, the forward's final transmittance
+    t_final [..., 1, PIX] and the output cotangent g [..., 8, PIX] (module
+    docstring of the JAX kernel: d_alpha, then the exact cross form).
+    Returns [..., K, 16]; pixels with w == 0 contribute exactly 0."""
+    dC = [g[..., c:c + 1, :] for c in range(3)]
+    dD, dT = g[..., 4:5, :], g[..., 5:6, :]
+    inv_one_m = 1.0 / torch.clamp(one_m, min=1e-6)
+    d_alpha = t_before * qj - suffix * inv_one_m
+    if aux_grads:
+        d_alpha = d_alpha - dT * t_final * inv_one_m
+    live = w > 0.0
+    zero = torch.zeros_like(w)
+    unclamped = (q["alpha_raw"] < max_alpha) & live
+    d_resp = torch.where(unclamped, S[..., 12:13] * d_alpha, zero)
+    d_opa = torch.where(unclamped, q["resp"] * d_alpha, zero)
+    d_g = d_resp * _response_grad(q["g"], q["resp"], degree)
+    inv_vsq = q["inv_vsq"]
+    d_crsq = d_g * inv_vsq
+    d_vsq = (-q["g"] * inv_vsq) * d_g
+    u, v, cr, w0 = q["u"], q["v"], q["cr"], q["w0"]
+    if aux_grads:
+        d_hit = torch.where(live, w * dD, zero)
+        d_m = torch.sign(q["vdotu"]) * inv_vsq * d_hit
+        d_vsq = d_vsq + (-q["hit_t"] * inv_vsq) * d_hit
+    else:
+        d_m = zero
+    crxv = [cr[1] * v[2] - cr[2] * v[1], cr[2] * v[0] - cr[0] * v[2],
+            cr[0] * v[1] - cr[1] * v[0]]
+    uxcr = [u[1] * cr[2] - u[2] * cr[1], u[2] * cr[0] - u[0] * cr[2],
+            u[0] * cr[1] - u[1] * cr[0]]
+    du = [torch.where(live, 2.0 * d_crsq * crxv[i] + d_m * v[i], zero)
+          for i in range(3)]
+    dv = [torch.where(live, 2.0 * d_crsq * uxcr[i] + d_m * u[i]
+                      + 2.0 * d_vsq * v[i], zero) for i in range(3)]
+    d = [ray[..., 3 + k:4 + k, :] for k in range(3)]
+    rows = [(du[r] * w0[k] + dv[r] * d[k]).sum(-1)
+            for r in range(3) for k in range(3)]
+    su = [x.sum(-1) for x in du]
+    rows += [-(S[..., k] * su[0] + S[..., 3 + k] * su[1]
+               + S[..., 6 + k] * su[2]) for k in range(3)]
+    rows.append(d_opa.sum(-1))
+    rows += [(w * dC[c]).sum(-1) for c in range(3)]
+    return torch.stack(rows, dim=-1)
+
+
+def _pixel_q(S, q, g, aux_grads):
+    """q_j = rgb . dC + hit_t dD + dO (dD only with aux_grads) per (slot,
+    pixel) of rows S [..., K, 16] for the output cotangent g [..., 8, PIX]."""
+    qj = (S[..., 13:14] * g[..., 0:1, :] + S[..., 14:15] * g[..., 1:2, :]
+          + S[..., 15:16] * g[..., 2:3, :])
+    if aux_grads:
+        return qj + q["hit_t"] * g[..., 4:5, :] + g[..., 3:4, :]
+    return qj + g[..., 3:4, :]
+
+
+def _total(out, g_out, aux_grads):
+    """a_tot = sum over all hits of w q, rebuilt from the forward's output
+    rows: rgb . dC + opacity dO (+ depth dD with aux_grads), [..., PIX]."""
+    a_tot = (out[..., 0, :] * g_out[..., 0, :]
+             + out[..., 1, :] * g_out[..., 1, :]
+             + out[..., 2, :] * g_out[..., 2, :]
+             + out[..., 3, :] * g_out[..., 3, :])
+    if aux_grads:
+        a_tot = a_tot + out[..., 4, :] * g_out[..., 4, :]
+    return a_tot
+
+
+def _composite_windows_backward(data_sorted, tile_starts, tile_ends, rays,
+                                out, g_out, degree, min_transmittance,
+                                min_response, min_alpha, max_alpha,
+                                has_t_max, aux_grads, sorted_passes,
+                                row_termination):
+    """Plain B2 in the sorted mode, window by window as _composite_windows:
+    the suffix runs in each pixel's compositing order (prefix sums there,
+    mapped back to row order), each row's entries sum over the tile's
+    pixels."""
+    windows = data_sorted.view(-1, CHUNK, ROW_F)
+    grad = torch.zeros_like(windows)
+    s, e = tile_starts.long(), tile_ends.long()
+    lt = rays[:, 7] if row_termination else None
+    lane = torch.arange(CHUNK, device=rays.device)
+    prefix = torch.zeros((rays.shape[0], PIX), device=rays.device)
+    a_tot = _total(out, g_out, aux_grads)
+
+    def step(b, wi, carry):
+        S = windows[wi]
+        rows = wi[:, None] * CHUNK + lane
+        q, one_m, t_before, live, w, pos_s = _window_weights(
+            S, rays[b], rows, s[b], e[b], carry,
+            None if lt is None else lt[b], degree, min_transmittance,
+            min_response, min_alpha, max_alpha, has_t_max, sorted_passes)
+        go = g_out[b]
+        qj = _pixel_q(S, q, go, aux_grads)
+        wq = w * qj
+        rest = (a_tot[b] - prefix[b])[:, None, :]
+        incl_s = torch.cumsum(torch.gather(wq, 1, pos_s), dim=1)
+        suffix = torch.empty_like(wq).scatter_(1, pos_s, rest - incl_s)
+        G = _slot_grads(S, rays[b], q, one_m, t_before, w, qj, suffix,
+                        out[b, 5:6], go, degree, max_alpha, aux_grads)
+        in_range = (rows >= s[b, None]) & (rows < e[b, None])
+        grad.index_add_(0, wi, torch.where(in_range[..., None], G,
+                                           torch.zeros_like(G)))
+        prefix[b] = prefix[b] + wq.sum(1)
+        t_after = torch.where(live, t_before * one_m,
+                              torch.full_like(t_before, BIG))
+        return torch.minimum(t_after.amin(1), carry)
+
+    _window_walk(tile_starts, tile_ends, rays, row_termination,
+                 min_transmittance, step)
+    return grad.reshape(-1, ROW_F)
+
+
 def tile_composite_backward_plain(data_sorted, tile_starts, tile_ends, rays,
                                   out, g_out, degree: int,
                                   min_transmittance: float,
@@ -161,12 +491,20 @@ def tile_composite_backward_plain(data_sorted, tile_starts, tile_ends, rays,
                                   min_alpha: float = C.MIN_ALPHA,
                                   max_alpha: float = C.MAX_ALPHA,
                                   has_t_max: bool = True,
-                                  aux_grads: bool = True):
+                                  aux_grads: bool = True,
+                                  sorted_passes: int = 0,
+                                  row_termination: bool = False):
     """Plain version of B2: per-slot gradients [cap, 16] of the packed rows
     for the output cotangent g_out [num_tiles, 8, 256], given the forward's
-    output `out`. A loop over tiles; the suffix sums come from the forward
-    totals (a_tot - cumsum), as in the kernel. Slots past a tile's early
-    exit, and slots of no tile, get exactly 0."""
+    output `out`. Without passes a loop over tiles; the suffix sums come
+    from the forward totals (a_tot - cumsum), as in the kernel; with passes
+    window by window. Slots past a tile's early exit, and slots of no tile,
+    get exactly 0."""
+    if sorted_passes:
+        return _composite_windows_backward(
+            data_sorted, tile_starts, tile_ends, rays, out, g_out, degree,
+            min_transmittance, min_response, min_alpha, max_alpha, has_t_max,
+            aux_grads, sorted_passes, row_termination)
     num_tiles = rays.shape[0]
     grad = torch.zeros_like(data_sorted)
     starts = tile_starts.tolist()
@@ -175,66 +513,29 @@ def tile_composite_backward_plain(data_sorted, tile_starts, tile_ends, rays,
         s, e = starts[t], ends[t]
         if e <= s:
             continue
+        lt = rays[t, 7] if row_termination else None
         S = data_sorted[s:e]
         q = _tile_pairs(S, rays[t], degree, min_response, min_alpha,
                         max_alpha, has_t_max)
-        one_m, incl, t_before, w = _tile_weights(q["alpha"],
-                                                 min_transmittance)
-        walked = _walked(incl, s, e, min_transmittance)
+        alpha = q["alpha"]
+        if lt is not None:
+            alpha = _row_gate(alpha, torch.arange(s, e, device=S.device), lt)
+        one_m, incl, t_before, w = _tile_weights(alpha, min_transmittance)
+        walked = _walked(incl, s, e, min_transmittance, lt)
         if walked <= 0:
             continue
         go, fo = g_out[t], out[t]
-        dC, dO = go[0:3], go[3][None, :]
-        dD, dT = go[4][None, :], go[5][None, :]
-        a_tot = fo[0] * dC[0] + fo[1] * dC[1] + fo[2] * dC[2] + fo[3] * dO[0]
-        if aux_grads:
-            a_tot = a_tot + fo[4] * dD[0]
-        qj = (S[:, 13:14] * dC[0][None, :] + S[:, 14:15] * dC[1][None, :]
-              + S[:, 15:16] * dC[2][None, :])
-        qj = qj + q["hit_t"] * dD + dO if aux_grads else qj + dO
-        suffix = a_tot[None, :] - torch.cumsum(w * qj, dim=0)
-        inv_one_m = 1.0 / torch.clamp(one_m, min=1e-6)
-        d_alpha = t_before * qj - suffix * inv_one_m
-        if aux_grads:
-            d_alpha = d_alpha - dT * fo[5][None, :] * inv_one_m
-        live = w > 0.0
-        zero = torch.zeros_like(w)
-        unclamped = (q["alpha_raw"] < max_alpha) & live
-        d_resp = torch.where(unclamped, S[:, 12:13] * d_alpha, zero)
-        d_opa = torch.where(unclamped, q["resp"] * d_alpha, zero)
-        d_g = d_resp * _response_grad(q["g"], q["resp"], degree)
-        inv_vsq = q["inv_vsq"]
-        d_crsq = d_g * inv_vsq
-        d_vsq = (-q["g"] * inv_vsq) * d_g
-        u, v, cr, w0 = q["u"], q["v"], q["cr"], q["w0"]
-        if aux_grads:
-            d_hit = torch.where(live, w * dD, zero)
-            d_m = torch.sign(q["vdotu"]) * inv_vsq * d_hit
-            d_vsq = d_vsq + (-q["hit_t"] * inv_vsq) * d_hit
-        else:
-            d_m = zero
-        crxv = [cr[1] * v[2] - cr[2] * v[1], cr[2] * v[0] - cr[0] * v[2],
-                cr[0] * v[1] - cr[1] * v[0]]
-        uxcr = [u[1] * cr[2] - u[2] * cr[1], u[2] * cr[0] - u[0] * cr[2],
-                u[0] * cr[1] - u[1] * cr[0]]
-        du = [torch.where(live, 2.0 * d_crsq * crxv[i] + d_m * v[i], zero)
-              for i in range(3)]
-        dv = [torch.where(live, 2.0 * d_crsq * uxcr[i] + d_m * u[i]
-                          + 2.0 * d_vsq * v[i], zero) for i in range(3)]
-        d = rays[t, 3:6]
-        rows = [(du[r] * w0[k] + dv[r] * d[k][None, :]).sum(1)
-                for r in range(3) for k in range(3)]
-        su = [x.sum(1) for x in du]
-        rows += [-(S[:, k] * su[0] + S[:, 3 + k] * su[1]
-                   + S[:, 6 + k] * su[2]) for k in range(3)]
-        rows.append(d_opa.sum(1))
-        rows += [(w * dC[c][None, :]).sum(1) for c in range(3)]
-        grad[s:s + walked] = torch.stack(rows, dim=1)[:walked]
+        qj = _pixel_q(S, q, go, aux_grads)
+        suffix = (_total(fo, go, aux_grads)[None, :]
+                  - torch.cumsum(w * qj, dim=0))
+        G = _slot_grads(S, rays[t], q, one_m, t_before, w, qj, suffix,
+                        fo[5:6], go, degree, max_alpha, aux_grads)
+        grad[s:s + walked] = G[:walked]
     return grad
 
 
 def _check_launch(data_sorted, tile_starts, tile_ends, rays, degree,
-                  **tile_buffers):
+                  sorted_passes, **tile_buffers):
     """Validate a compositor launch's inputs (and any further [num_tiles,
     8, 256] f32 buffers) before their pointers go to C."""
     cap = data_sorted.shape[0]
@@ -251,20 +552,28 @@ def _check_launch(data_sorted, tile_starts, tile_ends, rays, degree,
                          f"(the kernel loads whole windows), got {cap}")
     if degree not in C.GG_SCALE:
         raise ValueError(f"unsupported kernel degree {degree}")
+    check_passes(sorted_passes)
+
+
+def check_passes(sorted_passes: int) -> None:
+    if sorted_passes < 0:
+        raise ValueError(f"sorted_passes must be >= 0, got {sorted_passes}")
 
 
 def _launch(data_sorted, tile_starts, tile_ends, rays, degree,
             min_transmittance, min_response, min_alpha, max_alpha,
-            has_t_max, aux_outputs, emit_flags):
+            has_t_max, aux_outputs, emit_flags, sorted_passes=0,
+            row_termination=False):
     dev = rays.device
     cap = data_sorted.shape[0]
     num_tiles = rays.shape[0]
-    _check_launch(data_sorted, tile_starts, tile_ends, rays, degree)
+    _check_launch(data_sorted, tile_starts, tile_ends, rays, degree,
+                  sorted_passes)
     out = torch.empty((num_tiles, 8, PIX), dtype=torch.float32, device=dev)
     flags = (torch.zeros(cap, dtype=torch.float32, device=dev)
              if emit_flags else None)
     lib = cuda_build.library("tile_raster_fwd",
-                             [_P] * 6 + [_I, _I, _F, _F, _F, _F, _I, _I, _P])
+                             [_P] * 6 + [_I, _I] + [_F] * 4 + [_I] * 4 + [_P])
     stream = torch.cuda.current_stream(dev).cuda_stream
     cuda_build.launches["tile_raster_fwd"] += 1
     cuda_build.check("tile_raster_fwd", lib.tile_raster_fwd(
@@ -272,28 +581,31 @@ def _launch(data_sorted, tile_starts, tile_ends, rays, degree,
         rays.data_ptr(), out.data_ptr(),
         flags.data_ptr() if emit_flags else None, num_tiles, degree,
         min_transmittance, min_response, min_alpha, max_alpha,
-        int(bool(has_t_max)), int(bool(aux_outputs)), stream))
+        int(bool(has_t_max)), int(bool(aux_outputs)), int(sorted_passes),
+        int(bool(row_termination)), stream))
     return out, flags
 
 
 def _launch_backward(data_sorted, tile_starts, tile_ends, rays, out, g_out,
                      degree, min_transmittance, min_response, min_alpha,
-                     max_alpha, has_t_max, aux_grads):
+                     max_alpha, has_t_max, aux_grads, sorted_passes=0,
+                     row_termination=False):
     cap = data_sorted.shape[0]
     num_tiles = rays.shape[0]
     _check_launch(data_sorted, tile_starts, tile_ends, rays, degree,
-                  out=out, g_out=g_out)
+                  sorted_passes, out=out, g_out=g_out)
     # Zeroed: slots the walk never reaches keep an exact 0.
     grad = torch.zeros((cap, ROW_F), dtype=torch.float32, device=rays.device)
     lib = cuda_build.library("tile_raster_bwd",
-                             [_P] * 7 + [_I, _I, _F, _F, _F, _F, _I, _I, _P])
+                             [_P] * 7 + [_I, _I] + [_F] * 4 + [_I] * 4 + [_P])
     stream = torch.cuda.current_stream(rays.device).cuda_stream
     cuda_build.launches["tile_raster_bwd"] += 1
     cuda_build.check("tile_raster_bwd", lib.tile_raster_bwd(
         data_sorted.data_ptr(), tile_starts.data_ptr(), tile_ends.data_ptr(),
         rays.data_ptr(), out.data_ptr(), g_out.data_ptr(), grad.data_ptr(),
         num_tiles, degree, min_transmittance, min_response, min_alpha,
-        max_alpha, int(bool(has_t_max)), int(bool(aux_grads)), stream))
+        max_alpha, int(bool(has_t_max)), int(bool(aux_grads)),
+        int(sorted_passes), int(bool(row_termination)), stream))
     return grad
 
 
@@ -302,36 +614,43 @@ def tile_composite_backward(data_sorted, tile_starts, tile_ends, rays, out,
                             min_response: float = C.MIN_KERNEL_RESPONSE,
                             min_alpha: float = C.MIN_ALPHA,
                             max_alpha: float = C.MAX_ALPHA,
-                            has_t_max: bool = True, aux_grads: bool = True):
+                            has_t_max: bool = True, aux_grads: bool = True,
+                            sorted_passes: int = 0,
+                            row_termination: bool = False):
     """B2: per-slot gradients [cap, 16] of the packed rows for the output
     cotangent `g_out`, given the forward's output `out` (the JAX package's
     _backward_windows, in slot layout). `aux_grads=False` drops the depth
-    and transmittance cotangents (rows 4-5 of g_out are not read). Launches
+    and transmittance cotangents (rows 4-5 of g_out are not read);
+    `sorted_passes` and `row_termination` must be the forward's. Launches
     the kernel for CUDA tensors; the plain version for CPU tensors."""
     fn = (tile_composite_backward_plain if rays.device.type == "cpu"
           else _launch_backward)
     with record_function("3dgut.bwd_composite"):
         return fn(data_sorted, tile_starts, tile_ends, rays, out,
                   g_out.contiguous(), degree, min_transmittance,
-                  min_response, min_alpha, max_alpha, has_t_max, aux_grads)
+                  min_response, min_alpha, max_alpha, has_t_max, aux_grads,
+                  sorted_passes, row_termination)
 
 
 class _TileComposite(torch.autograd.Function):
     @staticmethod
     def forward(ctx, data_sorted, tile_starts, tile_ends, rays, degree,
                 min_transmittance, min_response, min_alpha, max_alpha,
-                has_t_max, aux_outputs, emit_flags, aux_grads):
+                has_t_max, aux_outputs, emit_flags, aux_grads, sorted_passes,
+                row_termination):
         fn = tile_composite_plain if rays.device.type == "cpu" else _launch
         data_sorted, rays = data_sorted.detach(), rays.detach()
         out, flags = fn(data_sorted, tile_starts, tile_ends, rays, degree,
                         min_transmittance, min_response, min_alpha,
-                        max_alpha, has_t_max, aux_outputs, emit_flags)
+                        max_alpha, has_t_max, aux_outputs, emit_flags,
+                        sorted_passes, row_termination)
         if flags is None:
             flags = torch.zeros(0, dtype=torch.float32, device=rays.device)
         ctx.mark_non_differentiable(flags)
         ctx.save_for_backward(data_sorted, tile_starts, tile_ends, rays, out)
         ctx.args = (degree, min_transmittance, min_response, min_alpha,
-                    max_alpha, has_t_max, aux_grads)
+                    max_alpha, has_t_max, aux_grads, sorted_passes,
+                    row_termination)
         ctx.emit_flags = emit_flags
         return out, flags
 
@@ -346,7 +665,7 @@ class _TileComposite(torch.autograd.Function):
         data_sorted, tile_starts, tile_ends, rays, out = ctx.saved_tensors
         g_data = tile_composite_backward(data_sorted, tile_starts, tile_ends,
                                          rays, out, g_out, *ctx.args)
-        return (g_data,) + (None,) * 12
+        return (g_data,) + (None,) * 14
 
 
 def tile_composite(data_sorted, tile_starts, tile_ends, rays, degree: int,
@@ -355,7 +674,8 @@ def tile_composite(data_sorted, tile_starts, tile_ends, rays, degree: int,
                    min_alpha: float = C.MIN_ALPHA,
                    max_alpha: float = C.MAX_ALPHA, has_t_max: bool = True,
                    aux_outputs: bool = True, emit_flags: bool = False,
-                   aux_grads: bool = True):
+                   aux_grads: bool = True, sorted_passes: int = 0,
+                   row_termination: bool = False):
     """B1 forward, differentiable in `data_sorted` through B2: returns
     (out, flags). `out` is the [num_tiles, 8, 256] output buffer (module
     docstring); `flags` is None unless `emit_flags`, then the per-slot max
@@ -364,7 +684,11 @@ def tile_composite(data_sorted, tile_starts, tile_ends, rays, degree: int,
     `aux_grads=False` asserts the loss reads only rgb and opacity: the
     backward then drops the depth and transmittance cotangents. A
     differentiable call with `aux_outputs=False` needs `aux_grads=False`
-    (the backward rebuilds its totals from the depth row)."""
+    (the backward rebuilds its totals from the depth row).
+    `sorted_passes` and `row_termination` select the sorted and the
+    row-terminated legs (module docstring; row termination reads rays row
+    7)."""
+    check_passes(sorted_passes)
     if (not aux_outputs and aux_grads and torch.is_grad_enabled()
             and data_sorted.requires_grad):
         raise ValueError("aux_outputs=False requires aux_grads=False")
@@ -372,5 +696,6 @@ def tile_composite(data_sorted, tile_starts, tile_ends, rays, degree: int,
         data_sorted, tile_starts, tile_ends, rays, degree,
         float(min_transmittance), float(min_response), float(min_alpha),
         float(max_alpha), bool(has_t_max), bool(aux_outputs),
-        bool(emit_flags), bool(aux_grads))
+        bool(emit_flags), bool(aux_grads), int(sorted_passes),
+        bool(row_termination))
     return out, (flags if emit_flags else None)

@@ -10,6 +10,10 @@ stable tile sort yields (tile, depth) order without a depth key.
 Overflow is data: `isect_capacity` is a fixed bound, `num_intersections`
 the true total, and `overflow` says whether the total exceeded it (the
 caller grows the capacity and retries).
+
+`row_last_touch` gives each pixel the last slot of its tile whose projected
+footprint reaches the pixel's row, the bound of the compositor's
+row-terminated mode.
 """
 from __future__ import annotations
 
@@ -98,3 +102,77 @@ def bin_particles(proj: Projection, tile_grid: Tuple[int, int],
         tile_starts=tstarts, tile_ends=tends, num_intersections=total,
         overflow=overflow, particle_ends=ends, particle_counts=counts,
         sorted_rowbits=sorted_rowbits)
+
+
+def particle_row_extent(proj: Projection) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """Per-particle global pixel-row interval [py0, py1] of the projected
+    footprint {power <= max_power} (the tile cull's conic and max_power):
+    for power = 0.5 (cx dx^2 + cz dy^2) + cb dx dy the extremal |dy| on the
+    level set is sqrt(2 mp cx / (cx cz - cb^2)); padded by 1 px."""
+    cx, cb, cz = proj.conic[:, 0], proj.conic[:, 1], proj.conic[:, 2]
+    det = cx * cz - cb * cb
+    safe = det > 1e-12
+    dy = torch.sqrt(torch.clamp(2.0 * proj.max_power * cx, min=0.0)
+                    / torch.where(safe, det, torch.ones_like(det)))
+    dy = torch.where(safe, dy, torch.full_like(dy, 1e9))
+    cy = proj.center[:, 1]
+    return torch.floor(cy - dy) - 1.0, torch.ceil(cy + dy) + 1.0
+
+
+ROW_BLOCK = 256      # slots per block of row_last_touch's fallback rule
+
+
+def row_last_touch(binning: TileBinning, proj: Projection,
+                   tile_grid: Tuple[int, int]) -> torch.Tensor:
+    """Per-pixel last-touch slot bound [num_tiles, 256] f32 for the
+    compositor's row-terminated mode (rays row 7): the index of the last
+    slot of the pixel's tile whose projected footprint reaches the pixel's
+    row within the tile, or -1. Bit-equal to the JAX package's.
+
+    The footprint rows come from the binning's row bits (y0 * 16 + y1, the
+    clipped tile-local extent) or, without them, from particle_row_extent.
+    The last touch is a segmented max over each tile's slots, with the JAX
+    package's blockwise rule kept: a tile whose whole slot range sits inside
+    one 256-slot block that it owns neither end of gets its last slot
+    (end - 1) in every row."""
+    gx, gy = tile_grid
+    num_tiles = gx * gy
+    cap = binning.sorted_particle_idx.shape[0]
+    n = proj.depth.shape[0]
+    dev = binning.sorted_tile.device
+    tile = binning.sorted_tile.long()
+    if binning.sorted_rowbits is not None:
+        rb = binning.sorted_rowbits
+        y0 = torch.div(rb, 16, rounding_mode="floor").to(torch.float32)
+        y1 = torch.remainder(rb, 16).to(torch.float32)
+    else:
+        py0, py1 = particle_row_extent(proj)
+        pid = torch.clamp(binning.sorted_particle_idx.long(), max=n - 1)
+        ty = torch.div(torch.clamp(tile, max=num_tiles - 1), gx,
+                       rounding_mode="floor").to(torch.float32)
+        y0 = torch.clamp(py0[pid] - ty * 16.0, 0.0, 15.0)
+        y1 = torch.clamp(py1[pid] - ty * 16.0, 0.0, 15.0)
+    real = tile < num_tiles
+    r = torch.arange(16, dtype=torch.float32, device=dev)
+    cover = (y0[:, None] <= r) & (r <= y1[:, None]) & real[:, None]
+    slotf = torch.arange(cap, dtype=torch.float32, device=dev)
+    f = torch.where(cover, slotf[:, None], torch.full_like(slotf[:1], -1.0))
+    lt = torch.full((num_tiles + 1, 16), -1.0, device=dev)
+    lt = lt.scatter_reduce(0, tile[:, None].expand(cap, 16), f, "amax")
+    lt = lt[:num_tiles]
+
+    s = binning.tile_starts.long()
+    e = binning.tile_ends.long()
+    has_any = e > s
+    b0 = torch.div(s, ROW_BLOCK, rounding_mode="floor")
+    b1 = torch.div(torch.clamp(e - 1, min=0), ROW_BLOCK,
+                   rounding_mode="floor")
+    blocks = tile.view(cap // ROW_BLOCK, ROW_BLOCK)
+    b0c = torch.clamp(b0, max=cap // ROW_BLOCK - 1)
+    tid = torch.arange(num_tiles, device=dev)
+    inside = (has_any & (b0 == b1) & (blocks[b0c, 0] != tid)
+              & (blocks[b0c, -1] != tid))
+    lt = torch.where(inside[:, None], (e - 1)[:, None].to(torch.float32), lt)
+    lt = torch.where(has_any[:, None], lt, torch.full_like(lt, -1.0))
+    return lt.repeat_interleave(16, dim=1)

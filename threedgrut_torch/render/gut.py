@@ -194,16 +194,11 @@ def render(positions, quats, scales, opacities, features, cam: Camera,
     `walk_capacity` (a multiple of 256 below `isect_capacity`) takes the
     fused path (ops/fused_raster.py), whose backward unsorts only the
     windows the forward walked when they fit in that many slots.
+    `sorted_passes` > 0 composites each pixel's hits of a 128-slot window
+    in the order of that many odd-even passes on their depths (the "sorted"
+    k-buffer mode); `row_termination` stops each pixel at the last slot
+    whose projected footprint reaches its row (ops/tiles.row_last_touch).
     """
-    if sorted_passes:
-        raise NotImplementedError(
-            "sorted_passes > 0 (the per-ray re-sorted k-buffer mode of B1) "
-            "is not ported yet: ROADMAP queue B, B1 options")
-    if row_termination:
-        raise NotImplementedError(
-            "row_termination (B1's per-pixel last-touch bound and "
-            "tiles.row_last_touch) is not ported yet: ROADMAP queue B, B1 "
-            "options")
     dev = resolve(device)
     positions, quats, scales, opacities, features = (
         x.to(dev) for x in (positions, quats, scales, opacities, features))
@@ -239,6 +234,9 @@ def render(positions, quats, scales, opacities, features, cam: Camera,
     with record_function("3dgut.rays"):
         rays = packed_world_rays(cam, pose, tile_grid, T_to_world, t_max,
                                  shutter=shutter, jitter=ray_jitter)
+        if row_termination:
+            with torch.no_grad():
+                rays[:, 7] = tile_ops.row_last_touch(binning, proj, tile_grid)
     with record_function("3dgut.composite"):
         if use_fused:
             out = fused_raster.composite_particles(
@@ -247,14 +245,16 @@ def render(positions, quats, scales, opacities, features, cam: Camera,
                 min_transmittance, has_t_max=t_max is not None,
                 aux_grads=aux_gradients, aux_outputs=aux_outputs,
                 low_precision_grads=low_precision_grads,
-                walk_capacity=walk_capacity)
+                walk_capacity=walk_capacity, sorted_passes=sorted_passes,
+                row_termination=row_termination)
             flags_slot = None
         else:
             out, flags_slot = tile_raster.tile_composite(
                 data_sorted, binning.tile_starts, binning.tile_ends, rays,
                 kernel_degree, min_transmittance,
                 has_t_max=t_max is not None, aux_outputs=aux_outputs,
-                emit_flags=hit_visibility, aux_grads=aux_gradients)
+                emit_flags=hit_visibility, aux_grads=aux_gradients,
+                sorted_passes=sorted_passes, row_termination=row_termination)
 
     img = tile_unpack(out, tile_grid)[:h, :w]
     # Visibility: projected to a renderable splat this frame; with
