@@ -8,13 +8,14 @@ threedgrut_torch/csrc/ into build/ on first use). Imports nothing of JAX.
 Phases, each of which fails the run on a miss:
 
   1. device: name, count, power limit; TF32 off for matmuls and cuDNN;
-  2. build: the seven sources (B3 cull_masks, B4 expand_keys, B1
+  2. build: the eight sources (B3 cull_masks, B4 expand_keys, B1
      tile_raster_fwd, B2 tile_raster_bwd, B5/B6 segment_sum, B7
-     bundle_trace_fwd, B8 bundle_trace_bwd) in parallel, with nvcc's
-     register/smem/spill report;
+     bundle_trace_fwd, B8 bundle_trace_bwd, B9 stream_compact) in
+     parallel, with nvcc's register/smem/spill report;
   3. golden: the card's render of the golden scene (also with 16 re-sort
-     passes and with row termination) and its 3DGRT trace against the JAX
-     reference's stored outputs (threedgrut_torch/golden/);
+     passes and with row termination) and its 3DGRT trace (on the dense
+     and on the flat cull) against the JAX reference's stored outputs
+     (threedgrut_torch/golden/);
   4. parity: api.render on the card (kernels) against api.render on the CPU
      (the plain versions) at 100k Gaussians, 400x400, both visibility
      modes; one Trainer.train_step on the card against the same step on
@@ -30,6 +31,8 @@ Phases, each of which fails the run on a miss:
      3DGRT training: bench_grt's fwd+bwd on those 128x128 rays (gradients
      of all five tensors, on the compact and the dense branch, the card
      run twice and bit-identical) and one preset_3dgrt Trainer.train_step;
+     then the flat cull against the dense two-level cull on the card at
+     bench_grt's 100k scene (per-bundle candidate lists, and api.trace);
   5. forward main path: api.render at full width (1M Gaussians of the
      benchmark scene, SH degree 3, 800x800), 5 orbit frames plus one
      hit-visibility frame, with the launch counts read around it;
@@ -45,27 +48,42 @@ Phases, each of which fails the run on a miss:
      traces, then at its 1M capacities, 3 traces; overflow, launch counts,
      the super-list maximum and flat total beside bench_grt's recorded
      counts, ms, rays/s, peak memory, and a bench_grt-shaped JSON line;
+     then the same with its BENCH_PACKED=flat mode (the flat cull, its
+     super flat capacities; the super flat total checked too, and
+     "flat_cull": true in the JSON line);
   8. 3DGRT train main path: bench_grt's fwd+bwd mode (100k, 6 steps; its
      1M capacities, 3 steps; walk_capacity 0.625 of the flat capacity) with
-     a bench_grt-shaped JSON line (`grt_trace_rays_per_s_fwd_bwd`), then 6
+     a bench_grt-shaped JSON line (`grt_trace_rays_per_s_fwd_bwd`), the
+     same on the flat cull, then 6
      preset_3dgrt Trainer.train_step calls on bench_grt's 100k scene at
      512x512 (the last through gather_rows' backward): per step ms, rays/s,
      peak memory, overflow and capacities, launches (B7, B8, B6 once each),
      the backward's branch and the share of particles with a gradient;
+  8b. the flat cull's legs at both bench_grt configurations: the
+     compact_kernel leg (B9's path: B9 launched once) against the
+     member-sort leg (equal) and the default expand-sort leg (equal up to
+     the order of equal depths), the default leg against the dense cull,
+     and each leg timed;
   9. kernels: each kernel against its plain version on the card at the
      main paths' shapes (B3, B4 and every TileBinning field exactly equal;
      B1, B2 (also their 16-pass and row-terminated legs, at the sorted and
      row-terminated train paths' inputs, two launches bit-identical), B7
      and B8 (16 and 0 passes) within stated tolerances; B5, B6
-     at 16 and at 64 channels within the f32 summation bound), timed with
+     at 16 and at 64 channels within the f32 summation bound; B9 at the
+     1M flat cull's inputs bit-equal and bit-identical), timed with
      CUDA events beside its bound and, for B5 and B6, one PyTorch call
      computing the same sums;
   10. profile: one full-width frame, one full-width train step (default
-     and sorted), one 100k trace and one 100k fwd+bwd under
+     and sorted), one 100k trace, one 100k fwd+bwd and one 1M trace on the
+     flat cull (its "3dgrt.cull" span split into its stages) under
      torch.profiler, for the device's busy share and the time per stage.
 
+Every max_memory_allocated figure is its phase's own: the peak since the
+phase began less what earlier phases still held then (phase_start).
+
 Each path checks the kernels of its own renderer and pass
-(cuda_build.kernels_of; B6 is in both renderers' backward).
+(cuda_build.kernels_of; B6 is in both renderers' backward; B9 runs only
+on the flat cull's compact_kernel leg, phase 8b).
 
 The line before the last holds the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. A failed phase prints FAIL and exits 1.
@@ -133,15 +151,19 @@ PARITY_RES = (400, 400)
 PARITY_CAP = 1 << 20
 TRAIN_STEPS = 6
 # tools/bench_grt.py's configurations (n, Gaussian scale range, candidate,
-# super and flat capacities, traces and fwd+bwd steps run here) and its
-# probe's recorded super-list maximum and flat total for each.
+# super, flat and super flat capacities, traces and fwd+bwd steps run here)
+# and its probe's recorded super-list maximum, flat total and super flat
+# total for each. At 100k bench_grt's comment records a super flat total of
+# 913,408, which its probe code does not give for its scene: the JAX
+# package's cull gives 521,984 there
+# (tests/test_torch_grt_flat.py::test_bench_grt_100k_super_flat_total).
 GRT_CONFIGS = [
     dict(name="100k", n=100_000, scales=(0.01, 0.05), cand=1792,
-         super_cap=24320, flat_cap=919296, traces=6, rec_super=22093,
-         rec_flat=835584),
+         super_cap=24320, flat_cap=919296, sflat_cap=1004800, traces=6,
+         rec_super=22093, rec_flat=835584, rec_sflat=521984),
     dict(name="1M", n=1_000_000, scales=(0.004, 0.02), cand=7680,
-         super_cap=216832, flat_cap=3384832, traces=3, rec_super=196936,
-         rec_flat=3076992),
+         super_cap=216832, flat_cap=3384832, sflat_cap=4591104, traces=3,
+         rec_super=196936, rec_flat=3076992, rec_sflat=4173696),
 ]
 # bench_grt's fwd+bwd walked-compaction bound: its BENCH_WALKFRAC default
 # of flat_capacity, rounded up to 256.
@@ -158,6 +180,21 @@ GRT_GRAD_LOOSE_SHARE = 0.05
 GRT_SIDE = 512
 GRT_PARITY_SIDE = 128
 GRT_PARITY_RES = (128, 64)
+
+
+def phase_start() -> int:
+    """Start a phase's memory record: the peak is reset, and the bytes
+    allocated now (earlier phases' live tensors) are returned, to be taken
+    off the phase's peak (phase_peak_gib)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def phase_peak_gib(base: int) -> float:
+    """The phase's peak device memory in GiB: the most allocated since
+    phase_start, less what was allocated when it started."""
+    return (torch.cuda.max_memory_allocated() - base) / 2**30
 
 
 def fail(msg: str) -> None:
@@ -418,10 +455,15 @@ def grt_bench_scene(n, scales, dev, side=GRT_SIDE, crop=None):
             torch.tensor(d.astype(np.float32), device=dev))
 
 
-def grt_trace_kw(cfg):
-    return dict(kernel_degree=4, candidate_capacity=cfg["cand"],
-                super_capacity=cfg["super_cap"], flat_capacity=cfg["flat_cap"],
-                sorted_passes=16)
+def grt_trace_kw(cfg, flat=False):
+    """grt.trace keywords of bench_grt's configuration `cfg`; `flat`: its
+    BENCH_PACKED=flat mode (the flat cull, super_flat_capacity)."""
+    kw = dict(kernel_degree=4, candidate_capacity=cfg["cand"],
+              super_capacity=cfg["super_cap"], flat_capacity=cfg["flat_cap"],
+              sorted_passes=16)
+    if flat:
+        kw.update(flat_cull=True, super_flat_capacity=cfg["sflat_cap"])
+    return kw
 
 
 def grt_parity(dev, tag):
@@ -496,30 +538,32 @@ def grt_parity(dev, tag):
         fail("the 3DGRT eval step on the card disagrees with the plain path")
 
 
-def grt_main_path(dev, tag):
-    """tools/bench_grt.py's configurations through api.trace, each with the
-    launch counts cleared just before and read just after its traces.
-    Returns ({name: launches}, the 100k scene and rays, the 100k inputs of
-    B7 from grt.prepare)."""
+def grt_main_path(dev, tag, flat=False):
+    """tools/bench_grt.py's configurations through api.trace (`flat`: its
+    BENCH_PACKED=flat mode, the flat cull), each with the launch counts
+    cleared just before and read just after its traces. Returns ({name:
+    launches}, the 100k scene and rays, the 100k inputs of B7 from
+    grt.prepare)."""
     from threedgrut_torch import api
-    from threedgrut_torch.constants import MIN_ALPHA
     from threedgrut_torch.ops import cuda_build
     from threedgrut_torch.render import grt
     launches, keep = {}, None
+    mode = "flat cull" if flat else "dense cull"
     for cfg in GRT_CONFIGS:
+        base = phase_start()
         params, o, d = grt_bench_scene(cfg["n"], cfg["scales"], dev)
-        kw = grt_trace_kw(cfg)
-        acts = [x.detach() for x in (
-            params.get_positions(), params.get_rotation(), params.get_scale(),
-            params.get_density(), params.get_features())]
+        kw = grt_trace_kw(cfg, flat)
+        acts = grt_acts(params)
         with torch.no_grad():
-            radius = grt.bounding_radius(acts[2], acts[3], 4)
-            b = grt.make_bundles(o, d, 256)
+            dn, active = grt._rays_unit(d)
+            p, radius, valid, d_safe = grt._cull_inputs(
+                acts[0], acts[2], acts[3], dn, active, 4, False)
+            b = grt.make_bundles(o, d_safe, 256)
             sup = grt.make_super_bundles(b, grt.bundle_morton_order(b), 16)
-            hit1, _ = grt._cone_hit(acts[0], radius, acts[3] >= MIN_ALPHA,
-                                    sup)
-            super_max = int(hit1.sum(1).max())
-            del hit1
+            counts1 = grt._cone_hit(p, radius, valid, sup)[0].sum(1)
+            super_max = int(counts1.max())
+            super_flat = int((-(-counts1 // 128) * 128).sum())
+            del counts1
             inp = grt.prepare(*acts, o, d, **{k: v for k, v in kw.items()
                                               if k != "sorted_passes"})
             flat_total = int((-(-inp.counts // 128) * 128).sum())
@@ -535,36 +579,41 @@ def grt_main_path(dev, tag):
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
             if bool(out.overflow):
-                fail(f"3DGRT {cfg['name']} trace {k + 1} overflowed")
+                fail(f"3DGRT {cfg['name']} ({mode}) trace {k + 1} "
+                     f"overflowed")
             for fld in ("rgb", "opacity", "depth", "transmittance",
                         "hit_count"):
                 if not bool(torch.isfinite(getattr(out, fld)).all()):
-                    fail(f"3DGRT {cfg['name']} trace {k + 1}: {fld} not "
-                         f"finite")
+                    fail(f"3DGRT {cfg['name']} ({mode}) trace {k + 1}: "
+                         f"{fld} not finite")
         got = dict(cuda_build.launches)
         launches[cfg["name"]] = got
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        print(f"3DGRT main path {cfg['name']} launches: {got}", flush=True)
-        if got.get("bundle_trace_fwd", 0) != cfg["traces"]:
-            fail(f"B7 ran {got.get('bundle_trace_fwd', 0)} times in "
-                 f"{cfg['traces']} traces at {cfg['name']}")
+        peak = phase_peak_gib(base)
+        print(f"3DGRT main path {cfg['name']} ({mode}) launches: {got}",
+              flush=True)
+        if got != {"bundle_trace_fwd": cfg["traces"]}:
+            fail(f"{cfg['traces']} traces at {cfg['name']} ({mode}) "
+                 f"launched {got}")
         for kname in cuda_build.kernels_of("grt", ("forward",)):
             if got.get(kname, 0) <= 0:
                 fail(f"kernel {kname} was not launched on the 3DGRT path")
         cover = float((out.opacity > 0.01).float().mean())
-        for what, v, rec in (("super-list maximum", super_max,
-                              cfg["rec_super"]),
-                             ("flat total", flat_total, cfg["rec_flat"])):
-            print(f"3DGRT {cfg['name']}: {what} {v} (bench_grt records "
+        checks = [("super-list maximum", super_max, cfg["rec_super"]),
+                  ("flat total", flat_total, cfg["rec_flat"])]
+        if flat:
+            checks.append(("super flat total", super_flat, cfg["rec_sflat"]))
+        for what, v, rec in checks:
+            print(f"3DGRT {cfg['name']} ({mode}): {what} {v} (recorded "
                   f"{rec}; {100 * (v - rec) / rec:+.4f}%)", flush=True)
             if abs(v - rec) > 1e-3 * rec:
                 fail(f"3DGRT {cfg['name']}: {what} {v} is not within 0.1% "
-                     f"of bench_grt's {rec}")
+                     f"of the recorded {rec}")
         steady = ms[1:5] if len(ms) >= 5 else ms[1:]
         med = float(np.median(steady))
         n_rays = o.shape[0]
-        print(f"3DGRT {cfg['name']}: trace ms {[round(x, 3) for x in ms]}; "
-              f"median of traces 2-{len(steady) + 1} {med:.3f} ms, rays/s "
+        print(f"3DGRT {cfg['name']} ({mode}): trace ms "
+              f"{[round(x, 3) for x in ms]}; median of traces "
+              f"2-{len(steady) + 1} {med:.3f} ms, rays/s "
               f"{n_rays / (med / 1e3):.4e}; coverage {cover:.4f}; "
               f"max_memory_allocated {peak:.3f} GiB {tag}", flush=True)
         print(json.dumps({
@@ -573,13 +622,194 @@ def grt_main_path(dev, tag):
             "backend": "cuda", "device": torch.cuda.get_device_name(0),
             "n_gaussians": cfg["n"], "n_rays": n_rays,
             "candidate_capacity": cfg["cand"],
-            "flat_capacity": cfg["flat_cap"], "packed_cull": False,
+            "flat_capacity": cfg["flat_cap"],
+            "super_flat_capacity": cfg["sflat_cap"] if flat else None,
+            "packed_cull": False, "flat_cull": flat,
             "candidate_overflow": False, "step_ms": med,
             "max_memory_allocated_gib": peak}), flush=True)
-        if keep is None:
+        if keep is None and not flat:
             keep = (params, o, d, inp)
-        del params, o, d, inp, out, acts
+        del params, o, d, inp, out, acts, p, radius, valid, d_safe
     return launches, keep
+
+
+def grt_flat_parity(dev, tag):
+    """The flat cull against the dense two-level cull on the card, at
+    tools/bench_grt.py's 100k scene and capacities (512x512 rays): each
+    bundle's candidate list through grt.prepare's win_starts, win_ends and
+    valid (golden.lists_agree: cone-margin flips and equal-depth reorders
+    each on at most TRACE_FLIP_SHARE of the candidates), and api.trace's
+    outputs within golden.compare at TRACE_FLIP_SHARE."""
+    from threedgrut_torch import api, golden
+    from threedgrut_torch.render import grt
+    cfg = GRT_CONFIGS[0]
+    params, o, d = grt_bench_scene(cfg["n"], cfg["scales"], dev)
+    acts = grt_acts(params)
+    lists, traces = {}, {}
+    for flat in (False, True):
+        kw = grt_trace_kw(cfg, flat)
+        with torch.no_grad():
+            inp = grt.prepare(*acts, o, d, **{k: v for k, v in kw.items()
+                                              if k != "sorted_passes"})
+            traces[flat] = api.trace(params, o, d, device=dev, **kw)
+        if bool(inp.overflow) or bool(traces[flat].overflow):
+            fail(f"3DGRT flat parity (flat_cull={flat}) overflowed")
+        lists[flat] = golden.bundle_lists(inp.flat_idx, inp.valid,
+                                          inp.win_starts, inp.win_ends)
+        del inp
+    rep, ok = golden.lists_agree(lists[True], lists[False],
+                                 golden.TRACE_FLIP_SHARE)
+    print(f"3DGRT flat cull vs dense two-level cull on the card, bench_grt "
+          f"100k, 512^2 rays, per-bundle lists: {json.dumps(rep)}", flush=True)
+    if not ok:
+        fail("the flat cull's candidate lists disagree with the dense cull's")
+    rep, ok = golden.compare(traces[True], traces[False],
+                             golden.TRACE_FLIP_SHARE)
+    print(f"api.trace flat_cull=True vs False on the card, bench_grt 100k: "
+          f"{json.dumps(rep)} {tag}", flush=True)
+    if not ok:
+        fail("the flat cull's trace disagrees with the dense cull's")
+
+
+def grt_cull_legs(dev, tag):
+    """The flat cull's legs at each of bench_grt's configurations on the
+    card, on api.trace's cull inputs: the compact_kernel leg (B9, the
+    launch counts cleared just before and read just after it) against the
+    member-sort leg (exactly equal lists: the same super lists and tie
+    order) and the default expand-sort leg (the same lists exactly up to
+    the order of equal depths, whose ties it breaks by particle id), and
+    the default leg against the dense two-level cull (golden.lists_agree at
+    TRACE_FLIP_SHARE). Each leg and the dense cull timed (host clock to a
+    synchronize, median of 3 after a warm run). Returns ({name: launches of
+    the B9 leg}, B9's arguments at the last configuration, {name: leg ms})."""
+    from threedgrut_torch import golden
+    from threedgrut_torch.ops import cuda_build, stream_compact
+    from threedgrut_torch.render import grt
+    launches, captured, leg_ms = {}, {}, {}
+    real = stream_compact.compact_streams
+
+    def capture(*args):
+        captured["args"] = args
+        return real(*args)
+
+    for cfg in GRT_CONFIGS:
+        params, o, d = grt_bench_scene(cfg["n"], cfg["scales"], dev)
+        acts = grt_acts(params)
+        del params
+        with torch.no_grad():
+            dn, active = grt._rays_unit(d)
+            cull_in = grt._cull_inputs(acts[0], acts[2], acts[3], dn, active,
+                                       4, False)
+        args = (*cull_in[:3], o, cull_in[3], 256, cfg["cand"])
+        kw = dict(super_capacity=cfg["super_cap"],
+                  super_flat_capacity=cfg["sflat_cap"],
+                  flat_capacity=cfg["flat_cap"])
+        legs = {"expand_sort": {}, "member_sort": dict(expand_sort=False),
+                "compact_kernel": dict(compact_kernel=True)}
+        outs = {}
+        for leg, lkw in legs.items():
+            cuda_build.launches.clear()
+            stream_compact.compact_streams = capture
+            try:
+                with torch.no_grad():
+                    out = grt.bundle_candidates_twolevel_flat(*args, **kw,
+                                                              **lkw)
+                torch.cuda.synchronize()
+            finally:
+                stream_compact.compact_streams = real
+            got = dict(cuda_build.launches)
+            if got != ({"compact_streams": 1} if lkw.get("compact_kernel")
+                       else {}):
+                fail(f"the flat cull's {leg} leg at {cfg['name']} launched "
+                     f"{got}")
+            if leg == "compact_kernel":
+                launches[cfg["name"]] = got
+            if bool(out[4]):
+                fail(f"the flat cull's {leg} leg overflowed at {cfg['name']}")
+            outs[leg] = golden.bundle_lists(*out[:4])
+        with torch.no_grad():
+            ci, counts, ovf, _ = grt.bundle_candidates_twolevel(
+                *args, super_capacity=cfg["super_cap"])
+        if bool(ovf):
+            fail(f"the dense two-level cull overflowed at {cfg['name']}")
+        ci, counts = ci.cpu().numpy(), counts.cpu().numpy()
+        dense = [ci[b, :c] for b, c in enumerate(counts.tolist())]
+        del ci
+        for name, (a, b, share) in {
+                "B9 leg vs member-sort leg": (outs["compact_kernel"],
+                                              outs["member_sort"], 0.0),
+                "B9 leg vs expand-sort leg": (outs["compact_kernel"],
+                                              outs["expand_sort"],
+                                              golden.TRACE_FLIP_SHARE),
+                "expand-sort leg vs dense two-level cull": (
+                    outs["expand_sort"], dense, golden.TRACE_FLIP_SHARE),
+        }.items():
+            rep, ok = golden.lists_agree(a, b, share)
+            print(f"3DGRT cull legs at {cfg['name']}, {name}: "
+                  f"{json.dumps(rep)}", flush=True)
+            if not ok or (name.startswith("B9") and rep["flipped"]):
+                fail(f"{name} at {cfg['name']}: the lists disagree")
+        times = {}
+        for leg, fn in (
+                ("dense_twolevel", lambda: grt.bundle_candidates_twolevel(
+                    *args, super_capacity=cfg["super_cap"])),
+                *((f"flat_{leg}", lambda lkw=lkw:
+                   grt.bundle_candidates_twolevel_flat(*args, **kw, **lkw))
+                  for leg, lkw in legs.items())):
+            runs = []
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    fn()
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t0) * 1e3)
+            times[leg] = float(np.median(runs[1:]))
+        leg_ms[cfg["name"]] = times
+        print(f"3DGRT cull legs at {cfg['name']} (ms, median of 3): "
+              f"{json.dumps(times)} {tag}", flush=True)
+        del acts, o, d, cull_in, args, outs, dense
+    return launches, captured["args"], leg_ms
+
+
+def b9_record(args, launches, leg_ms, tag):
+    """B9 against its plain version on the card at the 1M flat cull's
+    inputs `args`: both outputs bit-equal, two launches bit-identical.
+    Bound from this run's counts: bytes of the gid and mask of every slot
+    of the segments, 4 B of depth per hit and 8 B per output slot
+    written."""
+    from threedgrut_torch.ops import stream_compact
+    gid, bits, depth, seg_ws, seg_we = args[:5]
+    k = stream_compact.compact_streams(*args)
+    same = all(torch.equal(a, b) for a, b in
+               zip(k, stream_compact.compact_streams(*args)))
+    p = stream_compact.compact_streams_plain(*args)
+    equal = all(torch.equal(a, b) for a, b in zip(k, p))
+    slots = int((seg_we - seg_ws).sum()) * 128
+    hits = sum(int(((bits >> s) & 1).sum()) for s in range(16))
+    written = int((k[1] < stream_compact.FILL_DEPTH).sum())
+    err = float((k[1] - p[1]).abs().max().nan_to_num(0.0))
+    print(f"B9 at 1M: {seg_ws.shape[0]} segments, {slots} super slots, "
+          f"{hits} hits, {written} written of {k[0].shape[0]}; kernel == "
+          f"plain {equal}; bit-identical {same}", flush=True)
+    if not (equal and same and written > 0):
+        fail("B9 disagrees with its plain version")
+    b = bound_ms(8 * slots + 4 * hits + 8 * written, 0)
+    rec = dict(
+        name="compact_streams", route="cuda",
+        source="threedgrut_torch/csrc/stream_compact.cu",
+        replaces="threedgrut_tpu/ops/pallas/stream_compact.py:212",
+        launches=sum(v.get("compact_streams", 0) for v in launches.values()),
+        launches_forward=0, launches_grt_cull=launches, max_abs_err=err,
+        ms=cuda_ms(lambda: stream_compact.compact_streams(*args), 10),
+        plain_ms=cuda_ms(lambda: stream_compact.compact_streams_plain(*args),
+                         1, warmup=0),
+        bound_ms=b[0], bound_by=b[1], library_ms=None, segments=int(
+            seg_ws.shape[0]), super_slots=slots, hits=hits, written=written,
+        cull_leg_ms=leg_ms)
+    print(f"B9 at 1M: {rec['ms']:.4f} ms (bound {rec['bound_ms']:.4f}, "
+          f"plain {rec['plain_ms']:.3f} ms) {tag}", flush=True)
+    return rec
 
 
 def grt_record(data, inp, launches, train_launches, tag):
@@ -770,24 +1000,25 @@ def grt_train_parity(dev, tag):
         fail("the 3DGRT train step on the card disagrees with the plain path")
 
 
-def grt_fwd_bwd_main_path(dev, tag):
+def grt_fwd_bwd_main_path(dev, tag, flat=False):
     """tools/bench_grt.py's fwd+bwd mode as that file runs it without env
-    knobs: its seeded scene and capacities, 512x512 rays, 16 passes, loss
-    mean(rgb) + mean(opacity), gradients to positions and opacities (and its
-    1e-20 carried update), walk_capacity GRT_WALK_FRACTION of flat_capacity;
-    6 steps at 100k (median of steps 2-5), then its 1M capacities on the
-    dense two-level cull, 3 steps (median of steps 2-3). Returns ({name:
-    launches}, the 100k walk capacity)."""
+    knobs (`flat`: with BENCH_PACKED=flat, the flat cull): its seeded scene
+    and capacities, 512x512 rays, 16 passes, loss mean(rgb) +
+    mean(opacity), gradients to positions and opacities (and its 1e-20
+    carried update), walk_capacity GRT_WALK_FRACTION of flat_capacity; 6
+    steps at 100k (median of steps 2-5), then its 1M capacities, 3 steps
+    (median of steps 2-3). Returns ({name: launches}, the 100k walk
+    capacity)."""
     from threedgrut_torch.ops import cuda_build, fused_raster
     launches, want = {}, cuda_build.kernels_of("grt")
+    mode = "flat cull" if flat else "dense cull"
     for cfg in GRT_CONFIGS:
+        base = phase_start()
         params, o, d = grt_bench_scene(cfg["n"], cfg["scales"], dev)
         acts = grt_acts(params)
         del params
-        kw = grt_trace_kw(cfg)
+        kw = grt_trace_kw(cfg, flat)
         walk = grt_walk_capacity(cfg["flat_cap"])
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
         cuda_build.launches.clear()
         ms = []
         for k in range(cfg["traces"]):
@@ -805,27 +1036,29 @@ def grt_fwd_bwd_main_path(dev, tag):
                     for n, v in cuda_build.launches.items()
                     if v != before.get(n, 0)}
             if bool(out.overflow):
-                fail(f"3DGRT fwd+bwd {cfg['name']} step {k + 1} overflowed")
+                fail(f"3DGRT fwd+bwd {cfg['name']} ({mode}) step {k + 1} "
+                     f"overflowed")
             if not (math.isfinite(float(loss.detach()))
                     and bool(torch.isfinite(gp).all())
                     and bool(torch.isfinite(ga).all())):
-                fail(f"3DGRT fwd+bwd {cfg['name']} step {k + 1}: a value is "
-                     f"not finite")
+                fail(f"3DGRT fwd+bwd {cfg['name']} ({mode}) step {k + 1}: a "
+                     f"value is not finite")
             if step != {n: 1 for n in want}:
-                fail(f"3DGRT fwd+bwd {cfg['name']} step {k + 1} launched "
-                     f"{step}")
-            print(f"3DGRT fwd+bwd {cfg['name']} step {k + 1}: {ms[-1]:.3f} "
+                fail(f"3DGRT fwd+bwd {cfg['name']} ({mode}) step {k + 1} "
+                     f"launched {step}")
+            print(f"3DGRT fwd+bwd {cfg['name']} ({mode}) step {k + 1}: "
+                  f"{ms[-1]:.3f} "
                   f"ms, loss {float(loss.detach()):.6f}, overflow False, "
                   f"launches {step}, branch {dict(fused_raster.branches)}, "
                   f"particles with a nonzero gradient "
                   f"{nonzero_share([gp, ga]):.4f} "
                   f"{tag}", flush=True)
         launches[cfg["name"]] = dict(cuda_build.launches)
-        peak = torch.cuda.max_memory_allocated() / 2**30
+        peak = phase_peak_gib(base)
         steady = ms[1:5] if len(ms) >= 5 else ms[1:]
         med = float(np.median(steady))
         n_rays = o.shape[0]
-        print(f"3DGRT fwd+bwd {cfg['name']}: median of steps 2-"
+        print(f"3DGRT fwd+bwd {cfg['name']} ({mode}): median of steps 2-"
               f"{len(steady) + 1} {med:.3f} ms, rays/s "
               f"{n_rays / (med / 1e3):.4e}, walk_capacity {walk}, "
               f"max_memory_allocated {peak:.3f} GiB {tag}", flush=True)
@@ -836,7 +1069,9 @@ def grt_fwd_bwd_main_path(dev, tag):
             "n_gaussians": cfg["n"], "n_rays": n_rays,
             "candidate_capacity": cfg["cand"],
             "flat_capacity": cfg["flat_cap"], "walk_capacity": walk,
-            "packed_cull": False, "candidate_overflow": False,
+            "super_flat_capacity": cfg["sflat_cap"] if flat else None,
+            "packed_cull": False, "flat_cull": flat,
+            "candidate_overflow": False,
             "step_ms": med, "max_memory_allocated_gib": peak}), flush=True)
         del acts, o, d, out, gp, ga
     return launches, grt_walk_capacity(GRT_CONFIGS[0]["flat_cap"])
@@ -859,6 +1094,7 @@ def grt_train_main_path(dev, tag):
     cfg3 = preset_3dgrt()
     cfg3.render.isect_capacity = GRT_TRAIN_ISECT
     cfg3.model.progressive_sh_interval = 0
+    base = phase_start()
     params, _, _ = grt_bench_scene(cfg["n"], cfg["scales"], dev)
     side = GRT_SIDE
 
@@ -891,7 +1127,7 @@ def grt_train_main_path(dev, tag):
         aux = tr.train_step(view)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-        peak = torch.cuda.max_memory_allocated() / 2**30
+        peak = phase_peak_gib(base)
         step = {n: v - before.get(n, 0)
                 for n, v in cuda_build.launches.items()
                 if v != before.get(n, 0)}
@@ -1060,10 +1296,9 @@ def train_main_path(dev, tag, cfg=None, mode="default"):
     from threedgrut_torch.model.gaussians import bench_scene
     from threedgrut_torch.ops import cuda_build
     gt = np.zeros((MAIN_RES[1], MAIN_RES[0], 3), np.float32)
-    tr, view = train_setup(bench_scene(MAIN_N, seed=0), MAIN_RES, MAIN_CAP,
-                           gt, dev, cfg=cfg)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    fields = bench_scene(MAIN_N, seed=0)
+    base = phase_start()
+    tr, view = train_setup(fields, MAIN_RES, MAIN_CAP, gt, dev, cfg=cfg)
     cuda_build.launches.clear()
     step_ms, losses = [], []
     for k in range(TRAIN_STEPS):
@@ -1096,7 +1331,7 @@ def train_main_path(dev, tag, cfg=None, mode="default"):
               f"{tag}", flush=True)
     tr.cfg.render.walk_compact_fraction = 0.625
     launches = dict(cuda_build.launches)
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak = phase_peak_gib(base)
     print(f"train main path ({mode}) launches: {launches}", flush=True)
     for kname in cuda_build.kernels_of("gut"):
         if launches.get(kname, 0) <= 0:
@@ -1463,14 +1698,16 @@ def main() -> int:
             fail(f"the card's golden frame ({mode}) is outside the "
                  f"tolerances")
     go, gd = golden.grt_rays()
-    with torch.no_grad():
-        gtrace = api.trace(gparams, go, gd, device=dev,
-                           **golden.GRT_TRACE_KW)
-    rep, ok = golden.compare(gtrace, golden.load_grt())
-    print(f"3DGRT golden trace vs JAX reference: {json.dumps(rep)}",
-          flush=True)
-    if bool(gtrace.overflow) or not ok:
-        fail("the card's 3DGRT golden trace is outside the tolerances")
+    for flat in (False, True):
+        with torch.no_grad():
+            gtrace = api.trace(gparams, go, gd, device=dev, flat_cull=flat,
+                               **golden.GRT_TRACE_KW)
+        rep, ok = golden.compare(gtrace, golden.load_grt())
+        print(f"3DGRT golden trace (flat_cull={flat}) vs JAX reference: "
+              f"{json.dumps(rep)}", flush=True)
+        if bool(gtrace.overflow) or not ok:
+            fail(f"the card's 3DGRT golden trace (flat_cull={flat}) is "
+                 f"outside the tolerances")
 
     # ---- 4. parity: kernels (card) vs plain versions (CPU) ---------------
     f100 = bench_scene(PARITY_N, seed=0, specular_std=0.1)
@@ -1496,13 +1733,13 @@ def main() -> int:
     train_parity(dev, tag)
     grt_parity(dev, tag)
     grt_train_parity(dev, tag)
+    grt_flat_parity(dev, tag)
 
     # ---- 5. forward main path at full width ------------------------------
     fields = bench_scene(MAIN_N, seed=0, specular_std=0.1)
+    fwd_base = phase_start()
     params = from_numpy(fields, device=dev)
     cam = example_camera(MAIN_RES, dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     cap = MAIN_CAP
     frames_ms, outs = [], []
     cuda_build.launches.clear()
@@ -1518,7 +1755,7 @@ def main() -> int:
             frames_ms.append((time.perf_counter() - t0) * 1e3)
             outs.append(out)
     fwd_launches = dict(cuda_build.launches)
-    peak_mem = torch.cuda.max_memory_allocated()
+    fwd_peak_gib = phase_peak_gib(fwd_base)
     print(f"forward main path launches: {fwd_launches}", flush=True)
     for kname in cuda_build.kernels_of("gut", ("forward",)):
         if fwd_launches.get(kname, 0) <= 0:
@@ -1552,11 +1789,19 @@ def main() -> int:
 
     # ---- 7. 3DGRT main path: bench_grt's configurations ------------------
     grt_launches, (gp, g_o, g_d, g_inp) = grt_main_path(dev, tag)
+    flat_launches, _ = grt_main_path(dev, tag, flat=True)
+    grt_launches.update({f"flat_{k}": v for k, v in flat_launches.items()})
 
     # ---- 8. 3DGRT train main path: bench_grt's fwd+bwd, the trainer ------
     fb_launches, grt_walk = grt_fwd_bwd_main_path(dev, tag)
     grt_train_launches = {f"fwd_bwd_{k}": v for k, v in fb_launches.items()}
+    fb_flat, _ = grt_fwd_bwd_main_path(dev, tag, flat=True)
+    grt_train_launches.update({f"fwd_bwd_flat_{k}": v
+                               for k, v in fb_flat.items()})
     grt_train_launches["trainer_100k"] = grt_train_main_path(dev, tag)
+
+    # ---- 8b. the flat cull's legs: B9's main path ------------------------
+    b9_launches, b9_args, leg_ms = grt_cull_legs(dev, tag)
 
     # ---- 9. kernels vs plain versions at the main paths' shapes ----------
     pose = pose_from_matrix(torch.as_tensor(orbit_T(0), device=dev))
@@ -1687,6 +1932,8 @@ def main() -> int:
     records += b8_record(g_data, g_inp, b7_runs, grt_train_launches,
                          grt_walk, tag)
     del g_inp, g_data, b7_runs
+    records.append(b9_record(b9_args, b9_launches, leg_ms, tag))
+    del b9_args
 
     # ---- 10. where a frame's, a train step's and a trace's time goes -----
     def frame():
@@ -1717,9 +1964,21 @@ def main() -> int:
                             grt_walk, (0, 3)), ("3dgrt.",))
     print(f"profiled 3DGRT fwd+bwd (100k): {json.dumps(fbbreak)} {tag}",
           flush=True)
+    del g_acts, gp, g_o, g_d
+    cfg1m = GRT_CONFIGS[1]
+    p1m, o1m, d1m = grt_bench_scene(cfg1m["n"], cfg1m["scales"], dev)
+
+    def flat_trace():
+        with torch.no_grad():
+            api.trace(p1m, o1m, d1m, device=dev,
+                      **grt_trace_kw(cfg1m, flat=True))
+
+    flbreak = profile_run(flat_trace, ("3dgrt.",))
+    print(f"profiled 3DGRT trace (1M, flat cull): {json.dumps(flbreak)} "
+          f"{tag}", flush=True)
     if min(breakdown["device_busy_ms"], tbreak["device_busy_ms"],
            sbreak["device_busy_ms"], gbreak["device_busy_ms"],
-           fbbreak["device_busy_ms"]) <= 0.0:
+           fbbreak["device_busy_ms"], flbreak["device_busy_ms"]) <= 0.0:
         fail("the profiler recorded no device time")
 
     for r in records:
@@ -1733,7 +1992,7 @@ def main() -> int:
     print(f"frame ms (median of frames 1-4, hit_visibility=False): "
           f"{frame_ms:.3f}; rays/s {rays_s:.4e}; hit_visibility frame "
           f"{frames_ms[5]:.3f} ms; max_memory_allocated "
-          f"{peak_mem / 2**30:.3f} GiB {tag}", flush=True)
+          f"{fwd_peak_gib:.3f} GiB {tag}", flush=True)
     print(f"train step ms (median of steps 2-5): {train_rec['step_ms']:.3f}; "
           f"rays/s {train_rec['rays_per_s']:.4e}; max_memory_allocated "
           f"{train_rec['peak_gib']:.3f} GiB {tag}", flush=True)

@@ -132,13 +132,16 @@ def test_port_matches_golden_on_cpu():
     assert ok, rep
 
 
-def test_port_matches_grt_golden_on_cpu():
-    """The port's trace (plain B7 on the CPU) reproduces the stored JAX
-    3DGRT golden trace within golden.compare, and the trace shows much."""
+@pytest.mark.parametrize("flat_cull", [False, True])
+def test_port_matches_grt_golden_on_cpu(flat_cull):
+    """The port's trace (plain B7 on the CPU), on the dense and on the flat
+    two-level cull, reproduces the stored JAX 3DGRT golden trace within
+    golden.compare, and the trace shows much."""
     params = from_numpy(golden.scene(), device="cpu")
     o, d = golden.grt_rays()
     with torch.no_grad():
-        out = tapi.trace(params, o, d, device="cpu", **golden.GRT_TRACE_KW)
+        out = tapi.trace(params, o, d, device="cpu", flat_cull=flat_cull,
+                         **golden.GRT_TRACE_KW)
     assert not bool(out.overflow)
     want = golden.load_grt()
     rep, ok = golden.compare(out, want)

@@ -616,8 +616,6 @@ def test_3dgrt_train_step_updates_parameters():
 @pytest.mark.parametrize("kw,match", [
     (dict(packed_cull=True), "packed_cull"),
     (dict(packed_l1=True), "packed_l1"),
-    (dict(flat_cull=True), "B9"),
-    (dict(super_flat_capacity=1024), "flat_cull"),
     (dict(walk_capacity=1000, flat_capacity=2048), "walk_capacity"),
     (dict(order="sorted"), "order"),
 ])

@@ -24,7 +24,9 @@ prefix here and a cumsum there), bit-identical across two launches. B6 at
 64 channels: within f32_sum_bound. A 3DGRT train step card vs CPU: loss
 rtol 1e-4, gradients within golden.rows_agree(1e-4), bit-identical on the
 card across two runs. B1 and B2 with sorted passes and row termination:
-the default legs' tolerances, and two launches bit-identical."""
+the default legs' tolerances, and two launches bit-identical. B9 exact
+(a copy) and bit-identical across launches; the flat cull's legs card vs
+CPU within golden.lists_agree at TRACE_FLIP_SHARE (cone-margin flips)."""
 import os
 import shutil
 
@@ -36,7 +38,8 @@ from threedgrut_torch import api, golden
 from threedgrut_torch.cameras import example_camera, look_at, pose_from_matrix
 from threedgrut_torch.model.gaussians import bench_scene, from_numpy
 from threedgrut_torch.ops import (bundle_trace, cuda_build, expand,
-                                  segment_sum, tile_raster, tiles)
+                                  segment_sum, stream_compact, tile_raster,
+                                  tiles)
 from threedgrut_torch.render import grt, gut
 
 pytestmark = pytest.mark.cuda
@@ -556,3 +559,92 @@ def test_3dgrt_train_step_card_matches_cpu(dev, walk_compact_fraction):
         assert ok, (k, rep)
     flips = int((card["visibility"].cpu() != cpu["visibility"]).sum())
     assert flips <= max(1, int(1e-3 * cpu["visibility"].numel()))
+
+
+def b9_case(dev, seed, truncate):
+    """B9 inputs on `dev`: 24 segments of 0-12 windows (dense, sparse and
+    empty ones), bases from each stream's CHUNK-padded count; `truncate`:
+    limits one window short of the padded counts on every other stream and
+    a flat capacity 3 windows below the total, so the last streams' bases
+    lie past it."""
+    rng = np.random.default_rng(seed)
+    wins = rng.integers(0, 13, 24)
+    wins[3] = 0
+    nws = int(wins.sum())
+    dens = np.repeat(rng.choice([0.9, 0.3, 0.02], 24), wins * 128)
+    bits = np.zeros(nws * 128, np.int64)
+    for s in range(16):
+        bits |= (rng.random(nws * 128) < dens).astype(np.int64) << s
+    ws = (np.cumsum(wins) - wins).astype(np.int32)
+    we = np.cumsum(wins).astype(np.int32)
+    counts = np.array([[((bits[a * 128:b * 128] >> s) & 1).sum()
+                        for s in range(16)] for a, b in zip(ws, we)])
+    pad_w = -(-counts.reshape(-1) // 128)
+    base = (np.cumsum(pad_w) - pad_w).astype(np.int32)
+    lim = base + pad_w
+    cap = (int(pad_w.sum()) + 1) * 128
+    if truncate:
+        lim[::2] = base[::2] + np.maximum(pad_w[::2] - 1, 0)
+        cap = (int(pad_w.sum()) - 3) * 128
+    t = lambda x: torch.tensor(x, device=dev)
+    return (t(rng.integers(0, 1 << 24, nws * 128).astype(np.int32)),
+            t(bits.astype(np.int32)),
+            t(rng.uniform(1, 9, (nws, 16, 128)).astype(np.float32)), t(ws),
+            t(we), t(base), t(lim.astype(np.int32)), cap)
+
+
+@pytest.mark.parametrize("truncate", [False, True])
+def test_compact_streams_kernel_matches_plain(dev, truncate):
+    """B9 equals its plain version exactly, two launches are bit-identical,
+    and each launch is counted."""
+    args = b9_case(dev, 7 + truncate, truncate)
+    before = cuda_build.launches["compact_streams"]
+    k = stream_compact.compact_streams(*args)
+    k2 = stream_compact.compact_streams(*args)
+    assert cuda_build.launches["compact_streams"] == before + 2
+    p = stream_compact.compact_streams_plain(*args)
+    torch.cuda.synchronize()
+    for a, b, c in zip(k, k2, p):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    written = int((k[1] < stream_compact.FILL_DEPTH).sum())
+    assert 0 < written < args[-1]
+
+
+def test_flat_cull_legs_card_match_cpu(dev):
+    """The flat cull's three legs on the card against the same legs on the
+    CPU (grt_scene at 20k Gaussians, 64 bundles): per-bundle lists within
+    golden.lists_agree at TRACE_FLIP_SHARE (a cone-margin particle may
+    enter a list on one device only; the flips are shown); on the card the
+    B9 leg equals the member-sort leg exactly and launches B9 once."""
+    legs = {"expand_sort": {}, "member_sort": dict(expand_sort=False),
+            "compact_kernel": dict(compact_kernel=True)}
+    lists = {}
+    for device in (dev, "cpu"):
+        params, o, d = grt_scene(device)
+        acts = [x.detach() for x in (params.get_positions(),
+                                     params.get_scale(),
+                                     params.get_density())]
+        o = torch.tensor(o, device=device)
+        d = torch.tensor(d, device=device)
+        with torch.no_grad():
+            radius = grt.bounding_radius(acts[1], acts[2], 4)
+            for leg, kw in legs.items():
+                cuda_build.launches.clear()
+                out = grt.bundle_candidates_twolevel_flat(
+                    acts[0], radius, acts[2] >= 1.0 / 255.0, o, d, 256, 2048,
+                    super_capacity=8192, super_flat_capacity=1 << 15,
+                    flat_capacity=1 << 17, **kw)
+                assert not bool(out[4])
+                if device == dev:
+                    assert dict(cuda_build.launches) == (
+                        {"compact_streams": 1} if kw.get("compact_kernel")
+                        else {})
+                lists[(device, leg)] = golden.bundle_lists(*out[:4])
+    rep, ok = golden.lists_agree(lists[(dev, "compact_kernel")],
+                                 lists[(dev, "member_sort")])
+    assert ok, rep
+    for leg in legs:
+        rep, ok = golden.lists_agree(lists[(dev, leg)], lists[("cpu", leg)],
+                                     golden.TRACE_FLIP_SHARE)
+        print(f"flat cull {leg} card vs CPU: {rep}")
+        assert ok, (leg, rep)

@@ -189,3 +189,48 @@ def rows_agree(got, want, rel_atol: float):
     loose = int((d > bound).any(1).sum())
     rep = {"max_abs": float(d.max()), "bound": bound, "loose_rows": loose}
     return rep, loose <= max(1, math.floor(1e-3 * a.shape[0]))
+
+
+def bundle_lists(flat_idx, valid, win_starts, win_ends):
+    """Each bundle's candidate ids (numpy arrays) from the flat layout of a
+    cull: the valid rows of its windows [win_starts, win_ends), 128 rows
+    each."""
+    def arr(x):
+        return np.asarray(x.detach().cpu().numpy() if hasattr(x, "detach")
+                          else x)
+
+    fi, v, ws, we = (arr(x) for x in (flat_idx, valid, win_starts, win_ends))
+    return [fi[a * 128:b * 128][v[a * 128:b * 128]] for a, b in
+            zip(ws.tolist(), we.tolist())]
+
+
+def lists_agree(got, want, flip_share: float = 0.0):
+    """Two culls' per-bundle candidate lists (sequences of particle ids).
+    Ids in one list only are cone-margin flips (see TRACE_FLIP_SHARE); the
+    ids both hold must come in the same order, except that a run of
+    positions may hold the same ids in another order (equal depths, whose
+    ties two culls may break differently: super-list position against
+    particle id). Returns (report, ok); ok allows flips and reordered
+    positions each on at most `flip_share` of the candidates (0: the lists
+    are equal)."""
+    flipped = flip_bundles = reordered = bad_runs = total = 0
+    for g, w in zip(got, want):
+        g, w = np.asarray(g), np.asarray(w)
+        total += len(w)
+        common = np.intersect1d(g, w)
+        nf = len(g) + len(w) - 2 * len(common)
+        flipped += nf
+        flip_bundles += nf > 0
+        gc, wc = g[np.isin(g, common)], w[np.isin(w, common)]
+        diff = np.flatnonzero(gc != wc)
+        for run in np.split(diff, np.flatnonzero(np.diff(diff) > 1) + 1):
+            if len(run):
+                reordered += len(run)
+                bad_runs += set(gc[run].tolist()) != set(wc[run].tolist())
+    rep = {"bundles": len(want), "candidates": total, "flipped": flipped,
+           "bundles_with_flips": flip_bundles, "reordered": reordered,
+           "runs_not_permutations": bad_runs}
+    allowed = flip_share * total
+    ok = (len(got) == len(want) and bad_runs == 0 and flipped <= allowed
+          and reordered <= allowed)
+    return rep, bool(ok)

@@ -40,10 +40,12 @@ SOURCES: Dict[str, tuple] = {
     "segment_sum": ("--fmad=false",),
     "bundle_trace_fwd": ("--fmad=false",),
     "bundle_trace_bwd": ("--fmad=false",),
+    "stream_compact": ("--fmad=false",),
 }
 # kernel (its C entry and launch counter) -> (source stem, the renderers
 # whose paths launch it: "gut" the tile rasterizer, "grt" the tracer; the
-# pass: "forward" in every render, "backward" only in a train step)
+# pass: "forward" in every render, "backward" only in a train step, "cull"
+# only in the flat 3DGRT cull's compact_kernel leg)
 KERNELS: Dict[str, Tuple[str, Tuple[str, ...], str]] = {
     "cull_masks": ("cull_masks", ("gut",), "forward"),              # B3
     "expand_keys": ("expand_keys", ("gut",), "forward"),            # B4
@@ -54,6 +56,7 @@ KERNELS: Dict[str, Tuple[str, Tuple[str, ...], str]] = {
                                 "backward"),                        # B6
     "bundle_trace_fwd": ("bundle_trace_fwd", ("grt",), "forward"),  # B7
     "bundle_trace_bwd": ("bundle_trace_bwd", ("grt",), "backward"),  # B8
+    "compact_streams": ("stream_compact", ("grt",), "cull"),        # B9
 }
 
 

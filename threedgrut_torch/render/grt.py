@@ -6,13 +6,18 @@ Rays are grouped into bundles of 256. A two-level cone cull (super bundles
 of 16 Morton-adjacent bundles, then each bundle against its super's list)
 stands in for the reference's BVH and gives every bundle a depth-sorted
 candidate list; `flatten_candidates` lays the lists out in one flat array
-of 128-row windows; `pack_rows64` and a row gather give each slot its
-64-float row; the bundle compositor (kernel B7, ops/bundle_trace.py)
-composites each ray front to back with a bounded per-ray re-sort.
+of 128-row windows (with `flat_cull`, bundle_candidates_twolevel_flat
+builds that layout directly from flat super lists; its compact_kernel leg
+runs kernel B9, ops/stream_compact.py); `pack_rows64` and a row gather
+give each slot its 64-float row; the bundle compositor (kernel B7,
+ops/bundle_trace.py) composites each ray front to back with a bounded
+per-ray re-sort.
 
 Every stage of the fast path runs under a `torch.profiler.record_function`
-label: "3dgrt.cull", "3dgrt.flatten", "3dgrt.pack", "3dgrt.gather",
-"3dgrt.composite", and in the backward "3dgrt.bwd_kernel" (B8),
+label: "3dgrt.cull" (in the flat cull its stages "3dgrt.cull.super",
+"3dgrt.cull.super_lists", "3dgrt.cull.members" and "3dgrt.cull.layout"),
+"3dgrt.flatten", "3dgrt.pack", "3dgrt.gather", "3dgrt.composite", and in
+the backward "3dgrt.bwd_kernel" (B8),
 "3dgrt.bwd_compact" and "3dgrt.bwd_unsort" (the sort by particle id and
 B6). The culls and the flat layout are discrete decisions and run without
 autograd; gradients flow from the five parameter tensors through
@@ -30,7 +35,7 @@ import torch
 from torch.profiler import record_function
 
 from threedgrut_torch import constants as C
-from threedgrut_torch.ops import bundle_trace, fused_raster
+from threedgrut_torch.ops import bundle_trace, fused_raster, stream_compact
 from threedgrut_torch.ops import particles as particle_ops
 from threedgrut_torch.ops import quaternion
 from threedgrut_torch.ops import sh as sh_ops
@@ -204,6 +209,49 @@ def make_super_bundles(member: Bundles, perm, super_mult: int) -> Bundles:
     return Bundles(os_, ds, base_s, tan_s, coherent)
 
 
+def _members(bundles: Bundles, perm, super_mult: int):
+    """Each super's member bundles in the permuted order: origin and
+    direction [ns, m, 3], base radius, spread and coherence [ns, m]."""
+    pl = perm.long()
+    ns = pl.shape[0] // super_mult
+    return tuple(x[pl].reshape(ns, super_mult, *x.shape[1:])
+                 for x in (bundles.origin, bundles.direction,
+                           bundles.base_radius, bundles.tan_spread,
+                           bundles.coherent))
+
+
+def _member_hits(p_s, r_s, ob, db, base, tan, coh):
+    """Level 2 of the two-level culls: G groups of K listed particles
+    (positions p_s [G, K, 3], radii r_s [G, K]: a super's dense list, or
+    one 128-slot window of the flat lists) against the group's m member
+    bundles (ob, db [G, m, 3], base, tan, coh [G, m]). Returns (hit [G, m,
+    K] bool, before any slot mask; t_ax [G, m, K] member-axis depth). The
+    cone test expands |p - o|^2 into dot products (the JAX form), so hits
+    at the cone margin are decided by the same arithmetic in every leg."""
+    t_ax = (torch.einsum("nsc,nmc->nms", p_s, db)
+            - torch.einsum("nmc,nmc->nm", ob, db)[:, :, None])
+    pp = torch.sum(p_s * p_s, dim=-1)
+    po = torch.einsum("nsc,nmc->nms", p_s, ob)
+    oo = torch.sum(ob * ob, dim=-1)
+    d_sq = pp[:, None, :] - 2.0 * po + oo[..., None] - t_ax * t_ax
+    del po
+    d_ax = torch.sqrt(torch.clamp(d_sq, min=0.0))
+    del d_sq
+    limit = (r_s[:, None, :] + base[..., None]
+             + torch.clamp(t_ax, min=0.0) * tan[..., None])
+    cone_ok = (d_ax <= limit) & (t_ax >= -r_s[:, None, :])
+    del d_ax, limit
+    return cone_ok | ~coh[..., None], t_ax
+
+
+def _inverse(perm):
+    """The inverse permutation (int64) of perm [nb]."""
+    pl = perm.long()
+    inv = torch.empty_like(pl)
+    inv[pl] = torch.arange(pl.shape[0], device=pl.device)
+    return inv
+
+
 def bundle_candidates_twolevel(positions, radius, valid, rays_o, rays_d,
                                bundle_size: int, capacity: int,
                                super_mult: int = SUPER_MULT,
@@ -238,32 +286,12 @@ def bundle_candidates_twolevel(positions, radius, valid, rays_o, rays_d,
     sup_mask = (torch.arange(s_cap, device=positions.device)[None, :]
                 < torch.clamp(counts1, max=s_cap)[:, None])
 
-    # Level 2: each permuted bundle against its super's list. The cone test
-    # expands |p - o|^2 into dot products (the JAX form), so hits at the
-    # cone margin are decided by the same arithmetic.
+    # Level 2: each permuted bundle against its super's list.
     pr = torch.cat([positions, radius[:, None]], dim=-1)
     pr_s = pr[sup_idx.reshape(-1).long()].reshape(ns, s_cap, 4)
-    p_s, r_s = pr_s[..., :3], pr_s[..., 3]
-    pl = perm.long()
-    ob = bundles.origin[pl].reshape(ns, super_mult, 3)
-    db = bundles.direction[pl].reshape(ns, super_mult, 3)
-    base = bundles.base_radius[pl].reshape(ns, super_mult)
-    tan = bundles.tan_spread[pl].reshape(ns, super_mult)
-    coh = bundles.coherent[pl].reshape(ns, super_mult)
-    t_ax = (torch.einsum("nsc,nmc->nms", p_s, db)
-            - torch.einsum("nmc,nmc->nm", ob, db)[:, :, None])
-    pp = torch.sum(p_s * p_s, dim=-1)
-    po = torch.einsum("nsc,nmc->nms", p_s, ob)
-    oo = torch.sum(ob * ob, dim=-1)
-    d_sq = pp[:, None, :] - 2.0 * po + oo[..., None] - t_ax * t_ax
-    del po
-    d_ax = torch.sqrt(torch.clamp(d_sq, min=0.0))
-    del d_sq
-    limit = (r_s[:, None, :] + base[..., None]
-             + torch.clamp(t_ax, min=0.0) * tan[..., None])
-    cone_ok = (d_ax <= limit) & (t_ax >= -r_s[:, None, :])
-    del d_ax, limit
-    hit2 = sup_mask[:, None, :] & (cone_ok | ~coh[..., None])
+    hit2, t_ax = _member_hits(pr_s[..., :3], pr_s[..., 3],
+                              *_members(bundles, perm, super_mult))
+    hit2 &= sup_mask[:, None, :]
     counts2 = hit2.sum(-1, dtype=torch.int32)                    # [ns, m]
     overflow = overflow1 | (counts2 > capacity).any()
 
@@ -276,51 +304,279 @@ def bundle_candidates_twolevel(positions, radius, valid, rays_o, rays_d,
                        order)
     cand_idx = gid.reshape(nb, keep)
     counts = torch.clamp(counts2, max=keep).reshape(nb)
-    iperm = torch.empty_like(pl)
-    iperm[pl] = torch.arange(nb, device=pl.device)
+    iperm = _inverse(perm)
     return cand_idx[iperm], counts[iperm], overflow, visibility
+
+
+def _segments(counts, capacity: int):
+    """The CHUNK-aligned flat layout of segments of `counts` rows in order:
+    segment b occupies ceil(counts[b] / CHUNK) * CHUNK rows from offs[b].
+    Returns (offs [nb] int64, valid [capacity] bool, win_starts [nb]
+    int32, win_ends [nb] int32, overflow [] bool, owner [capacity / CHUNK]
+    int64, local [capacity / CHUNK, CHUNK] int64): owner is the last
+    segment starting at or before each window (windows past the total
+    report the last segment), local a slot's row within its owner. Rows
+    past `capacity` are dropped: a straddling segment keeps its first rows.
+
+    The JAX package fills the owner per window with a scatter-max that
+    clips a trailing empty segment's start onto the last window; when the
+    total lands exactly on the capacity that window then takes the empty
+    segment's extents (ROADMAP C3, C6). Taking the last segment that
+    starts at or before the window does not."""
+    cap = int(capacity)
+    if cap % CHUNK:
+        raise ValueError(f"flat capacity {cap} is not a multiple of {CHUNK}")
+    dev = counts.device
+    counts = counts.to(torch.int64)
+    padded = -(-counts // CHUNK) * CHUNK
+    ends = torch.cumsum(padded, 0)
+    offs = ends - padded
+    nw = cap // CHUNK
+    offw = offs // CHUNK
+    owner = torch.searchsorted(offw, torch.arange(nw, device=dev),
+                               right=True) - 1
+    local = (torch.arange(cap, device=dev).reshape(nw, CHUNK)
+             - offs[owner][:, None])
+    valid = (local < counts[owner][:, None]).reshape(cap)
+    return (offs, valid, torch.clamp(offw, max=nw).to(torch.int32),
+            torch.clamp(ends // CHUNK, max=nw).to(torch.int32),
+            ends[-1] > cap, owner, local)
 
 
 def flatten_candidates(cand_idx, counts, flat_capacity: int):
     """Per-bundle candidate lists -> one flat layout of CHUNK-row windows.
 
     Bundle b occupies ceil(counts[b] / CHUNK) * CHUNK contiguous rows (an
-    empty bundle none), in bundle order. Returns (flat_idx [capF] int32,
-    valid [capF] bool, win_starts [nb] int32, win_ends [nb] int32, overflow
-    [] bool, win_bundle [capF / CHUNK] int32 owning bundle per window;
-    windows past the total report the last bundle). Under overflow, rows
-    past capF are dropped: a straddling bundle keeps its nearest
-    candidates, later bundles render empty.
-
-    Each window's owner is the last bundle starting at or before it. The
-    JAX package clips an empty trailing bundle's start onto the last window
-    instead, and when the total lands exactly on the capacity that window
-    takes the empty bundle's extents (ROADMAP C6); the port does not."""
-    capF = int(flat_capacity)
-    if capF % CHUNK:
-        raise ValueError(f"flat_capacity {capF} is not a multiple of {CHUNK}")
-    dev = cand_idx.device
-    nb, L = cand_idx.shape
-    lp = -(-L // CHUNK) * CHUNK
-    counts = torch.clamp(counts.to(torch.int64), max=L)
-    padded = torch.clamp(-(-counts // CHUNK) * CHUNK, max=lp)
-    ends = torch.cumsum(padded, 0)
-    offsets = ends - padded
-    overflow = ends[-1] > capF
-    nw = capF // CHUNK
-    offw = offsets // CHUNK
-    w = torch.arange(nw, device=dev)
-    owner = torch.searchsorted(offw, w, right=True) - 1          # [nw]
-    slot = torch.arange(capF, device=dev).reshape(nw, CHUNK)
-    local = slot - offsets[owner][:, None]
-    valid = local < counts[owner][:, None]
+    empty bundle none), in bundle order (`_segments`, without the JAX
+    package's fault C6). Returns (flat_idx [capF] int32, valid [capF] bool,
+    win_starts [nb] int32, win_ends [nb] int32, overflow [] bool,
+    win_bundle [capF / CHUNK] int32 owning bundle per window). Under
+    overflow, rows past capF are dropped: a straddling bundle keeps its
+    nearest candidates, later bundles render empty."""
+    L = cand_idx.shape[1]
+    (_, valid, win_starts, win_ends, overflow, owner,
+     local) = _segments(torch.clamp(counts, max=L), flat_capacity)
     src = owner[:, None] * L + torch.clamp(local, 0, L - 1)
-    flat_idx = torch.where(valid, cand_idx.reshape(-1)[src],
-                           torch.zeros((), dtype=cand_idx.dtype, device=dev))
-    win_starts = torch.clamp(offw, max=nw).to(torch.int32)
-    win_ends = torch.clamp(ends // CHUNK, max=nw).to(torch.int32)
-    return (flat_idx.reshape(capF).to(torch.int32), valid.reshape(capF),
-            win_starts, win_ends, overflow, owner.to(torch.int32))
+    flat_idx = torch.where(valid.reshape(src.shape),
+                           cand_idx.reshape(-1)[src], 0)
+    return (flat_idx.reshape(-1).to(torch.int32), valid, win_starts,
+            win_ends, overflow, owner.to(torch.int32))
+
+
+def _bundle_counts(valid, win_starts, win_ends):
+    """Per-bundle candidate counts [nb] int32 of a flat layout: its valid
+    rows over each bundle's windows."""
+    per_w = valid.reshape(-1, CHUNK).sum(1)
+    cum = torch.cat([per_w.new_zeros(1), torch.cumsum(per_w, 0)])
+    return (cum[win_ends.long()] - cum[win_starts.long()]).to(torch.int32)
+
+
+def _super_lists_expand(hit1, counts1, s_cap: int, capS: int):
+    """Flat super lists in ascending particle id, straight from the level-1
+    hit mask [ns, N] (no depth sort): super s lists its first min(counts1[s],
+    s_cap) hits in id order (the lowest ids are kept under truncation, which
+    the caller flags) in its CHUNK-aligned segment of the `capS` rows.
+    Downstream the super-list order is only the tie-break of each bundle's
+    depth sort. Counts and ranks are integers (the JAX package's f32 window
+    cumsum, ROADMAP C1, is exact only below 2^24 hits).
+
+    Returns (flat_sup [capS] int32, valid_s [capS] bool, sup_ws [ns] int32,
+    sup_we [ns] int32, overflow [] bool (the layout exceeds capS),
+    win_sup [capS / CHUNK] int32 owning super per window)."""
+    c1 = counts1.to(torch.int64)
+    (offs, valid_s, sup_ws, sup_we, overflow, win_sup,
+     _) = _segments(torch.clamp(c1, max=s_cap), capS)
+    s, p = hit1.nonzero(as_tuple=True)
+    rank = torch.arange(s.shape[0], device=s.device) - (
+        torch.cumsum(c1, 0) - c1)[s]
+    dest = offs[s] + rank
+    keep = (rank < s_cap) & (dest < capS)
+    flat_sup = torch.zeros(capS, dtype=torch.int32, device=hit1.device)
+    flat_sup[dest[keep]] = p[keep].to(torch.int32)
+    return (flat_sup, valid_s, sup_ws, sup_we, overflow,
+            win_sup.to(torch.int32))
+
+
+def _stable_lexsort(major, minor):
+    """Indices that sort by (major, minor), ties in input order."""
+    order = torch.sort(minor, dim=-1, stable=True).indices
+    return torch.gather(order, -1, torch.sort(
+        torch.gather(major, -1, order), dim=-1, stable=True).indices)
+
+
+def _flat_pairs_expand_sort(flat_sup, hit2, t_ax, win_sup, counts2,
+                            capacity: int, flat_capacity: int):
+    """The default layout leg: the true (slot, member) hit pairs, taken in
+    (member, window, slot) order, are already grouped by bundle o = member
+    * ns + super in super-list order; a pair whose rank in its bundle is at
+    or past `capacity` is dropped (the first hits are kept; flagged
+    upstream), and one stable (bundle, depth) sort puts each bundle's pairs
+    in depth order, ties in super-list order. Returns (flat_idx, valid,
+    win_starts, win_ends, overflow) in (member, super) bundle order."""
+    ns, m = counts2.shape
+    per_o = counts2.t().reshape(-1).to(torch.int64)
+    counts_o = torch.clamp(per_o, max=capacity)
+    (offs, valid, ws_o, we_o, overflow, _,
+     _) = _segments(counts_o, flat_capacity)
+    mem, w, j = hit2.transpose(0, 1).nonzero(as_tuple=True)
+    o = mem * ns + win_sup.long()[w]
+    rank = torch.arange(o.shape[0], device=o.device) - (
+        torch.cumsum(per_o, 0) - per_o)[o]
+    keep = rank < capacity
+    o, mem, w, j = o[keep], mem[keep], w[keep], j[keep]
+    order = _stable_lexsort(o, t_ax[w, mem, j])
+    o = o[order]
+    dest = offs[o] + torch.arange(o.shape[0], device=o.device) - (
+        torch.cumsum(counts_o, 0) - counts_o)[o]
+    inside = dest < flat_capacity
+    flat_idx = torch.zeros(flat_capacity, dtype=torch.int32,
+                           device=flat_sup.device)
+    flat_idx[dest[inside]] = flat_sup[(w * CHUNK + j)[order][inside]]
+    return flat_idx, valid, ws_o, we_o, overflow
+
+
+def _flat_member_sort(flat_sup, hit2, t_ax, win_sup, sup_ws, counts2,
+                      capacity: int, flat_capacity: int):
+    """The expand_sort=False leg: a stable sort of each member's column of
+    the flat super lists by (super, depth; misses at FILL_DEPTH) puts each
+    (member, super) bundle's hits first in its super's segment, in depth
+    order with ties in super-list order (a capacity overflow keeps the
+    nearest). Returns what _flat_pairs_expand_sort returns."""
+    ns, m = counts2.shape
+    nws = hit2.shape[0]
+    capS = nws * CHUNK
+    dep = torch.where(hit2, t_ax,
+                      torch.full_like(t_ax, stream_compact.FILL_DEPTH))
+    dep = dep.transpose(0, 1).reshape(m, capS)
+    supk = win_sup.long().repeat_interleave(CHUNK).expand(m, capS)
+    gid_sorted = flat_sup[_stable_lexsort(supk, dep)]        # [m, capS]
+    counts_o = torch.clamp(counts2.t().reshape(-1), max=capacity)
+    (_, valid, ws_o, we_o, overflow, owner,
+     local) = _segments(counts_o, flat_capacity)
+    src = sup_ws.long()[owner % ns][:, None] * CHUNK + local
+    flat_idx = torch.where(
+        valid.reshape(src.shape),
+        gid_sorted[(owner // ns)[:, None], torch.clamp(src, max=capS - 1)],
+        0)
+    return flat_idx.reshape(-1), valid, ws_o, we_o, overflow
+
+
+def _flat_compact(flat_sup, hit2, t_ax, sup_ws, sup_we, counts2,
+                  capacity: int, flat_capacity: int):
+    """The compact_kernel leg: kernel B9 left-packs each (super, member)
+    stream's hits into its own CHUNK-aligned windows in super-list order
+    (as many as the windows of its clamped count hold), then one stable
+    sort of the
+    `flat_capacity` slots by (owning bundle, depth) restores each
+    bundle's depth order, ties in super-list order. Returns what
+    _flat_pairs_expand_sort returns, in (super, member) bundle order."""
+    m = counts2.shape[1]
+    counts_o = torch.clamp(counts2.reshape(-1), max=capacity)
+    (_, valid, ws_o, we_o, overflow, owner,
+     _) = _segments(counts_o, flat_capacity)
+    bits = (hit2.to(torch.int32) << torch.arange(
+        m, dtype=torch.int32, device=hit2.device)[None, :, None]).sum(
+            1, dtype=torch.int32)                                  # [nws, 128]
+    # Each stream writes its bundle's windows [ws_o, we_o).
+    gid, dep = stream_compact.compact_streams(
+        flat_sup, bits.reshape(-1), t_ax.contiguous(), sup_ws, sup_we, ws_o,
+        we_o, flat_capacity)
+    order = _stable_lexsort(owner.repeat_interleave(CHUNK), dep)
+    return gid[order], valid, ws_o, we_o, overflow
+
+
+def bundle_candidates_twolevel_flat(
+        positions, radius, valid, rays_o, rays_d, bundle_size: int,
+        capacity: int, super_mult: int = SUPER_MULT,
+        super_capacity: int = 8192, super_flat_capacity: Optional[int] = None,
+        flat_capacity: Optional[int] = None,
+        compact_kernel: Optional[bool] = None, expand_sort: bool = True):
+    """The two-level cull with flat super lists: the candidate sets and the
+    per-bundle depth order (ties in super-list order) of
+    bundle_candidates_twolevel, laid out directly as the compositor's flat
+    products. Super lists are compacted into `super_flat_capacity` rows
+    (None: the dense worst case ns * ceil(s_cap / 128) * 128), the level-2
+    cone test runs per (flat super slot, member), and the bundle lists land
+    in `flat_capacity` rows (None: nb * ceil(min(capacity, s_cap) / 128) *
+    128). Three legs build the bundle lists:
+
+      * `expand_sort=True` (default): super lists in particle-id order
+        (`_super_lists_expand`), then `_flat_pairs_expand_sort`;
+      * `expand_sort=False`: depth-ordered super lists, then
+        `_flat_member_sort`;
+      * `compact_kernel=True`: depth-ordered super lists, then kernel B9
+        (`_flat_compact`). None means off, as in the JAX package.
+
+    Under a flagged per-bundle capacity overflow the default leg keeps
+    each bundle's first `capacity` hits in super-list order, the B9 leg the
+    nearest `capacity` of its first ceil(capacity / 128) * 128, the member
+    sort the nearest (the JAX package's legs do the same). Returns (flat_idx [capF] int32, valid [capF] bool, win_starts
+    [nb] int32, win_ends [nb] int32, overflow [] bool, visibility [N]
+    bool (the super-level hit)) with win_* in caller bundle order."""
+    n = positions.shape[0]
+    nb = rays_o.shape[0] // bundle_size
+    m = super_mult
+    ns = nb // m
+    if ns * m != nb:
+        raise ValueError(f"{nb} bundles are not a multiple of {m}")
+    s_cap = min(super_capacity, n)
+    if super_flat_capacity is None:
+        super_flat_capacity = ns * (-(-s_cap // CHUNK) * CHUNK)
+    capS = int(super_flat_capacity)
+    if flat_capacity is None:
+        flat_capacity = nb * (-(-min(capacity, s_cap) // CHUNK) * CHUNK)
+    capF = int(flat_capacity)
+    with record_function("3dgrt.cull.super"):
+        bundles = make_bundles(rays_o, rays_d, bundle_size)
+        perm = bundle_morton_order(bundles)
+        sup = make_super_bundles(bundles, perm, m)
+        hit1, t_ax1 = _cone_hit(positions, radius, valid, sup)    # [ns, N]
+        counts1 = hit1.sum(1, dtype=torch.int32)
+        overflow = (counts1 > s_cap).any()
+        visibility = hit1.any(0)
+    with record_function("3dgrt.cull.super_lists"):
+        if expand_sort and not compact_kernel:
+            lists = _super_lists_expand(hit1, counts1, s_cap, capS)
+        else:
+            lists = flatten_candidates(_nearest_first(
+                torch.where(hit1, -t_ax1, torch.full_like(t_ax1, -math.inf)),
+                s_cap), counts1, capS)
+        del hit1, t_ax1
+        flat_sup, valid_s, sup_ws, sup_we, ovf_s, win_sup = lists
+        overflow = overflow | ovf_s
+    with record_function("3dgrt.cull.members"):
+        nws = capS // CHUNK
+        pr = torch.cat([positions, radius[:, None]], dim=-1)[flat_sup.long()]
+        ws = win_sup.long()
+        hit2, t_ax = _member_hits(
+            pr[:, :3].reshape(nws, CHUNK, 3), pr[:, 3].reshape(nws, CHUNK),
+            *(x[ws] for x in _members(bundles, perm, m)))
+        del pr
+        hit2 &= valid_s.reshape(nws, 1, CHUNK)                  # [nws, m, 128]
+        # Each super's hits per member: its windows' counts (windows past
+        # the lists hold none). A cumsum down the [nws, m] counts would
+        # scan the windows serially on the card.
+        counts2 = torch.zeros((ns, m), dtype=torch.int64,
+                              device=hit2.device).index_add_(
+            0, ws, hit2.sum(-1))                                # [ns, m]
+        overflow = overflow | (counts2 > capacity).any()
+    iperm = _inverse(perm)
+    with record_function("3dgrt.cull.layout"):
+        if compact_kernel:
+            out = _flat_compact(flat_sup, hit2, t_ax, sup_ws, sup_we, counts2,
+                                capacity, capF)
+            o_of = iperm                                # (super, member)
+        else:
+            if expand_sort:
+                out = _flat_pairs_expand_sort(flat_sup, hit2, t_ax, win_sup,
+                                              counts2, capacity, capF)
+            else:
+                out = _flat_member_sort(flat_sup, hit2, t_ax, win_sup, sup_ws,
+                                        counts2, capacity, capF)
+            o_of = (iperm % m) * ns + iperm // m        # (member, super)
+    flat_idx, valid_f, ws_o, we_o, ovf_f = out
+    return (flat_idx, valid_f, ws_o[o_of], we_o[o_of], overflow | ovf_f,
+            visibility)
 
 
 def pack_rows64(positions, quats, scales, opacities, features):
@@ -338,16 +594,11 @@ def pack_rows64(positions, quats, scales, opacities, features):
                       coeffs[:, :, 1], coeffs[:, :, 2]], dim=-1)
 
 
-def _unported(packed_cull, packed_l1, flat_cull, super_flat_capacity):
+def _unported(packed_cull, packed_l1):
     if packed_cull or packed_l1:
         raise NotImplementedError(
             "3dgrt packed_cull/packed_l1 (the packed-key two-level cull) is "
-            "not ported yet: ROADMAP queue A item 10, 3DGRT options")
-    if flat_cull or super_flat_capacity is not None:
-        raise NotImplementedError(
-            "3dgrt flat_cull (flat-compacted super lists with "
-            "_super_lists_expand, _flat_pairs_expand_sort and kernel B9) is "
-            "not ported yet: ROADMAP queue A item 10 and queue B, B9")
+            "not ported yet: ROADMAP queue A item 6, the packed 3DGRT culls")
 
 
 class BundleInputs(NamedTuple):
@@ -368,18 +619,23 @@ def _rays_unit(rays_d):
     return rays_d / torch.clamp(dnorm, min=1e-12), dnorm[..., 0] > 1e-12
 
 
+def _two_level(n: int, nb: int, super_capacity: int,
+               two_level_above: Optional[int]) -> bool:
+    """Whether the two-level cull pays: more particles than
+    `two_level_above` (None: super_capacity, the JAX package's rule), nb a
+    multiple of 16 and at least 32."""
+    above = super_capacity if two_level_above is None else two_level_above
+    return n > above and nb % SUPER_MULT == 0 and nb >= 2 * SUPER_MULT
+
+
 def candidate_lists(positions, radius, valid, rays_o, rays_d,
                     bundle_size: int, candidate_capacity: int,
                     super_capacity: int = 8192,
                     two_level_above: Optional[int] = None):
     """Per-bundle candidate lists (bundle_candidates' outputs): the two-level
-    cull when it pays (more particles than `two_level_above`, by default
-    super_capacity, the JAX package's rule; nb a multiple of 16 and >= 32),
-    else the single-level one."""
+    cull when it pays (`_two_level`), else the single-level one."""
     nb = rays_o.shape[0] // bundle_size
-    above = super_capacity if two_level_above is None else two_level_above
-    if (positions.shape[0] > above and nb % SUPER_MULT == 0
-            and nb >= 2 * SUPER_MULT):
+    if _two_level(positions.shape[0], nb, super_capacity, two_level_above):
         return bundle_candidates_twolevel(
             positions, radius, valid, rays_o, rays_d, bundle_size,
             candidate_capacity, super_capacity=super_capacity)
@@ -388,18 +644,27 @@ def candidate_lists(positions, radius, valid, rays_o, rays_d,
                              candidate_capacity)
 
 
+def _cull_inputs(positions, scales, opacities, rays_dn, active,
+                 kernel_degree, density_clamping):
+    """(positions, bounding radii, valid, directions) for the culls,
+    detached: inactive rays take a fixed direction."""
+    radius = bounding_radius(scales, opacities, kernel_degree,
+                             density_clamping=density_clamping)
+    d_safe = torch.where(active[:, None], rays_dn,
+                         torch.full_like(rays_dn, 1.0 / math.sqrt(3.0)))
+    return positions.detach(), radius, opacities >= C.MIN_ALPHA, d_safe
+
+
 def _cull(positions, scales, opacities, rays_o, rays_dn, active,
           kernel_degree, bundle_size, candidate_capacity, super_capacity,
           density_clamping, two_level_above=None):
-    """`candidate_lists` of the particles' bounding radii, without autograd.
-    Inactive rays take a fixed direction."""
+    """`candidate_lists` of the particles' bounding radii, without
+    autograd."""
     with torch.no_grad(), record_function("3dgrt.cull"):
-        radius = bounding_radius(scales, opacities, kernel_degree,
-                                 density_clamping=density_clamping)
-        d_safe = torch.where(active[:, None], rays_dn,
-                             torch.full_like(rays_dn, 1.0 / math.sqrt(3.0)))
-        return candidate_lists(positions.detach(), radius,
-                               opacities >= C.MIN_ALPHA, rays_o, d_safe,
+        p, radius, valid, d_safe = _cull_inputs(
+            positions, scales, opacities, rays_dn, active, kernel_degree,
+            density_clamping)
+        return candidate_lists(p, radius, valid, rays_o, d_safe,
                                bundle_size, candidate_capacity,
                                super_capacity, two_level_above)
 
@@ -410,24 +675,43 @@ def prepare(positions, quats, scales, opacities, features, rays_o, rays_d,
             t_max=None, density_clamping: bool = False,
             super_capacity: int = 8192,
             flat_capacity: Optional[int] = None,
-            two_level_above: Optional[int] = None) -> BundleInputs:
+            two_level_above: Optional[int] = None,
+            flat_cull: bool = False,
+            super_flat_capacity: Optional[int] = None) -> BundleInputs:
     """Everything of the bundle route before the row gather (256-ray
-    bundles): cull, flat layout, packed rows and rays. Differentiable in
-    the five parameter tensors through the packed rows."""
+    bundles): cull, flat layout, packed rows and rays. With `flat_cull`
+    and the two-level condition the flat cull
+    (bundle_candidates_twolevel_flat, `super_flat_capacity` rows of super
+    lists) gives the flat layout directly. Differentiable in the five
+    parameter tensors through the packed rows."""
     r_total = rays_o.shape[0]
     nb = r_total // 256
     dev = rays_o.device
     rays_dn, active = _rays_unit(rays_d)
-    cand_idx, counts, overflow, visibility = _cull(
-        positions, scales, opacities, rays_o, rays_dn, active, kernel_degree,
-        256, candidate_capacity, super_capacity, density_clamping,
-        two_level_above)
-    if flat_capacity is None:
-        flat_capacity = nb * (-(-cand_idx.shape[1] // CHUNK) * CHUNK)
-    with torch.no_grad(), record_function("3dgrt.flatten"):
-        (flat_idx, valid, win_starts, win_ends, ovf_flat,
-         _) = flatten_candidates(cand_idx, counts, flat_capacity)
-        overflow = overflow | ovf_flat
+    if flat_cull and _two_level(positions.shape[0], nb, super_capacity,
+                                two_level_above):
+        with torch.no_grad(), record_function("3dgrt.cull"):
+            p, radius, valid, d_safe = _cull_inputs(
+                positions, scales, opacities, rays_dn, active, kernel_degree,
+                density_clamping)
+            (flat_idx, valid, win_starts, win_ends, overflow,
+             visibility) = bundle_candidates_twolevel_flat(
+                p, radius, valid, rays_o, d_safe, 256, candidate_capacity,
+                super_capacity=super_capacity,
+                super_flat_capacity=super_flat_capacity,
+                flat_capacity=flat_capacity)
+            counts = _bundle_counts(valid, win_starts, win_ends)
+    else:
+        cand_idx, counts, overflow, visibility = _cull(
+            positions, scales, opacities, rays_o, rays_dn, active,
+            kernel_degree, 256, candidate_capacity, super_capacity,
+            density_clamping, two_level_above)
+        if flat_capacity is None:
+            flat_capacity = nb * (-(-cand_idx.shape[1] // CHUNK) * CHUNK)
+        with torch.no_grad(), record_function("3dgrt.flatten"):
+            (flat_idx, valid, win_starts, win_ends, ovf_flat,
+             _) = flatten_candidates(cand_idx, counts, flat_capacity)
+            overflow = overflow | ovf_flat
     with record_function("3dgrt.pack"):
         rows64 = pack_rows64(positions, quats, scales, opacities, features)
         t0 = _per_ray(initial_transmittance, r_total, 1.0, dev)
@@ -498,7 +782,12 @@ def trace(positions, quats, scales, opacities, features, rays_o, rays_d,
     in `overflow`: grow and trace again. `visibility` is the cone-level bit
     (the particle entered some candidate list), a superset of the hits.
     The two-level cull runs above `two_level_above` particles (None:
-    above super_capacity, the JAX package's rule).
+    above super_capacity, the JAX package's rule). With `flat_cull` the
+    bundle route's two-level cull is the flat one
+    (bundle_candidates_twolevel_flat: the same candidates and order, laid
+    out directly in the flat layout; its super lists take
+    `super_flat_capacity` rows, None the dense worst case); the ray route
+    ignores it, as the JAX package does.
 
     The bundle route is differentiable in the five parameter tensors: B8
     is the compositor's backward, and the row gather's is the sort by
@@ -506,7 +795,7 @@ def trace(positions, quats, scales, opacities, features, rays_o, rays_d,
     256) the gather and compositor are fused_raster.composite_bundles,
     whose backward sums only the rows of the windows the forward walked
     when they fit in walk_capacity rows."""
-    _unported(packed_cull, packed_l1, flat_cull, super_flat_capacity)
+    _unported(packed_cull, packed_l1)
     if order not in ("bundle", "ray"):
         raise ValueError(f"unknown order {order!r}")
     r_total = rays_o.shape[0]
@@ -518,7 +807,8 @@ def trace(positions, quats, scales, opacities, features, rays_o, rays_d,
         inp = prepare(positions, quats, scales, opacities, features, rays_o,
                       rays_d, kernel_degree, candidate_capacity,
                       initial_transmittance, t_max, density_clamping,
-                      super_capacity, flat_capacity, two_level_above)
+                      super_capacity, flat_capacity, two_level_above,
+                      flat_cull, super_flat_capacity)
         fused = (walk_capacity is not None
                  and 0 < walk_capacity < inp.flat_idx.shape[0])
         if fused:
