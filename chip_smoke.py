@@ -67,7 +67,9 @@ Phases, each of which fails the run on a miss:
   9. kernels: each kernel against its plain version on the card at the
      main paths' shapes (B3, B4 and every TileBinning field exactly equal;
      B1, B2 (also their 16-pass and row-terminated legs, at the sorted and
-     row-terminated train paths' inputs, two launches bit-identical), B7
+     row-terminated train paths' inputs, two launches bit-identical; the
+     sorted legs also at 1 pass, the difference being `network_ms`, and
+     each leg's ptxas report and dynamic shared memory), B7
      and B8 (16 and 0 passes) within stated tolerances; B5, B6
      at 16 and at 64 channels within the f32 summation bound; B9 at the
      1M flat cull's inputs bit-equal and bit-identical), timed with
@@ -1464,7 +1466,40 @@ def backward_records(tr, view, launches, tag):
     return records
 
 
-def option_records(runs, tag):
+def ptxas_report(reports):
+    """{kernel entry (mangled): registers, stack frame, spill store and load
+    bytes, static shared memory} from nvcc's -Xptxas -v logs (`reports`,
+    as cuda_build.build returns them)."""
+    out, entry = {}, None
+    for log in reports.values():
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+                out[entry] = {}
+            elif entry and "bytes stack frame" in line:
+                nums = [int(w) for w in line.replace(",", " ").split()
+                        if w.isdigit()]
+                out[entry].update(stack_frame_bytes=nums[0],
+                                  spill_store_bytes=nums[1],
+                                  spill_load_bytes=nums[2])
+            elif entry and "Used" in line and "registers" in line:
+                words = line.replace(",", " ").split()
+                out[entry]["registers"] = int(words[words.index("Used") + 1])
+                if "smem" in words:
+                    out[entry]["static_smem_bytes"] = int(
+                        words[words.index("smem") - 2])
+    return out
+
+
+def leg_ptxas(ptxas, kernel, passes, rowterm):
+    """The ptxas report of `kernel`'s <SORTED, ROWTERM> instantiation
+    (None where this run compiled nothing)."""
+    prefix = (f"_Z{len(kernel) + 7}{kernel}_kernelILb{int(passes > 0)}"
+              f"ELb{int(bool(rowterm))}E")
+    return next((v for k, v in ptxas.items() if k.startswith(prefix)), None)
+
+
+def option_records(runs, tag, ptxas):
     """B1 and B2's sorted and row-terminated legs against their plain
     versions on the card, each on the inputs its own train main path gives
     it (`runs`: {mode: (trainer, view, launches, passes, row_termination)}):
@@ -1473,9 +1508,16 @@ def option_records(runs, tag):
     hit counts off by at most 1 on at most 0.1% of the pixels, walked slots
     equal on all but 0.1% of the tiles; B2: within 1e-5 x each column's
     max, the same nonzero slots; each kernel's two launches bit-identical.
-    Bounds from this run's work: the pair math of the walked slots, B2's
-    chain and reduction of its live pairs, and 2 operations per
-    compare-exchange of the passes its live pixel-windows ran."""
+    Timed as the train path runs them: a sorted B1 writes each pixel's
+    compositing order, its B2 reads it (B2 without it runs B1 for it: the
+    same gradients, checked). Bounds from this run's work: the pair math of
+    the walked slots, B2's chain and reduction of its live pairs, B1's 2
+    operations per compare-exchange of the passes its live pixel-windows
+    ran, and the orders' 128 bytes per live pixel-window. A sorted leg's
+    record also holds its 1-pass time (`ms_passes1`) and the network's
+    share (`network_ms`, the difference: B1's network; B2 only reads
+    another order); every record the instantiation's ptxas report and its
+    dynamic shared memory."""
     from threedgrut_torch.cameras import pose_from_matrix
     from threedgrut_torch.model import losses
     from threedgrut_torch.ops import tile_raster, tiles
@@ -1526,8 +1568,15 @@ def option_records(runs, tag):
         ntiles = rays.shape[0]
         net_ops = FLOP_SWAP * 64 * stats.get("network_passes", 0)
         b1_in = fwd + (False, False) + legs
+        # As the train path runs them: a sorted B1 writes each live
+        # pixel-window's compositing order (128 bytes), its B2 reads it.
+        order = (tile_raster.order_buffer(binning.tile_starts,
+                                          binning.tile_ends, cap)
+                 if passes else None)
+        order_bytes = 128 * stats.get("live_pixel_windows", 0)
         b1_bound = bound_ms(ntiles * 8 * 256 * 4 * 2 + ntiles * 8
-                            + walked * 64, FLOP_PAIR * 256 * walked + net_ops)
+                            + walked * 64 + order_bytes,
+                            FLOP_PAIR * 256 * walked + net_ops)
         records.append(dict(
             name=f"tile_raster_fwd[{mode}]", route="cuda",
             source="threedgrut_torch/csrc/tile_raster_fwd.cu",
@@ -1535,24 +1584,31 @@ def option_records(runs, tag):
             sorted_passes=passes, row_termination=rowterm,
             launches=launches.get("tile_raster_fwd", 0), launches_forward=0,
             max_abs_err=float(d[:, 0:6].max()),
-            ms=cuda_ms(lambda: tile_raster._launch(*b1_in), 10),
+            ms=cuda_ms(lambda: tile_raster._launch(*b1_in, order=order), 10),
             plain_ms=cuda_ms(lambda: tile_raster.tile_composite_plain(
                 *b1_in), 1, warmup=0),
             bound_ms=b1_bound[0], bound_by=b1_bound[1], library_ms=None,
-            walked_slots=walked, network=stats))
+            walked_slots=walked, network=stats,
+            ptxas=leg_ptxas(ptxas, "tile_raster_fwd", passes, rowterm),
+            dynamic_smem_bytes=tile_raster.dynamic_smem(passes)))
         if passes:
             # The same walk with a 1-pass network: what the rest costs.
             one = b1_in[:-2] + (1, rowterm)
+            order1 = tile_raster.order_buffer(binning.tile_starts,
+                                              binning.tile_ends, cap)
             records[-1]["ms_passes1"] = cuda_ms(
-                lambda: tile_raster._launch(*one), 10)
+                lambda: tile_raster._launch(*one, order=order1), 10)
+            records[-1]["network_ms"] = (records[-1]["ms"]
+                                         - records[-1]["ms_passes1"])
 
-        out, _ = tile_raster._launch(*b1_in)
+        out, _ = tile_raster._launch(*b1_in, order=order)
         o = out.clone().requires_grad_(True)
         img = gut.tile_unpack(o, grid)[:res[1], :res[0]]
         loss, _ = losses.total_loss(img[..., 0:3], gt)
         g_out = torch.autograd.grad(loss, o)[0].contiguous()
         b2_in = fwd[:4] + (out, g_out) + fwd[4:] + (False,) + legs
-        k2 = tile_raster._launch_backward(*b2_in)
+        k2 = tile_raster._launch_backward(*b2_in, order=order)
+        # Without B1's orders B2's wrapper runs B1 for them: the same.
         same = torch.equal(k2, tile_raster._launch_backward(*b2_in))
         p2 = tile_raster.tile_composite_backward_plain(*b2_in)
         nz_k, nz_p = k2.abs().sum(1) > 0, p2.abs().sum(1) > 0
@@ -1567,9 +1623,9 @@ def option_records(runs, tag):
         if not (torch.equal(nz_k, nz_p) and within and same):
             fail(f"B2 ({mode}) disagrees with its plain version")
         b2_bound = bound_ms(ntiles * 8 * 256 * 4 * 3 + ntiles * 8
-                            + walked * 64 * 2,
+                            + walked * 64 * 2 + order_bytes,
                             FLOP_PAIR * 256 * walked
-                            + (FLOP_CHAIN + FLOP_REDUCE) * live + net_ops)
+                            + (FLOP_CHAIN + FLOP_REDUCE) * live)
         records.append(dict(
             name=f"tile_raster_bwd[{mode}]", route="cuda",
             source="threedgrut_torch/csrc/tile_raster_bwd.cu",
@@ -1577,21 +1633,31 @@ def option_records(runs, tag):
             sorted_passes=passes, row_termination=rowterm,
             launches=launches.get("tile_raster_bwd", 0), launches_forward=0,
             max_abs_err=float(d2.max()),
-            ms=cuda_ms(lambda: tile_raster._launch_backward(*b2_in), 10),
+            ms=cuda_ms(lambda: tile_raster._launch_backward(
+                *b2_in, order=order), 10),
             plain_ms=cuda_ms(
                 lambda: tile_raster.tile_composite_backward_plain(*b2_in), 1,
                 warmup=0),
             bound_ms=b2_bound[0], bound_by=b2_bound[1], library_ms=None,
-            live_pairs=live))
+            live_pairs=live,
+            ptxas=leg_ptxas(ptxas, "tile_raster_bwd", passes, rowterm),
+            dynamic_smem_bytes=tile_raster.dynamic_smem(passes, True)))
         if passes:
-            out1, _ = tile_raster._launch(*one)
+            out1, _ = tile_raster._launch(*one, order=order1)
             one2 = b2_in[:4] + (out1,) + b2_in[5:-2] + (1, rowterm)
             records[-1]["ms_passes1"] = cuda_ms(
-                lambda: tile_raster._launch_backward(*one2), 10)
+                lambda: tile_raster._launch_backward(*one2, order=order1),
+                10)
+            records[-1]["network_ms"] = (records[-1]["ms"]
+                                         - records[-1]["ms_passes1"])
         print(f"B1/B2 {mode}: walked slots {walked}, live pairs {live:.0f}, "
               f"B1 {records[-2]['ms']:.4f} ms (bound "
               f"{records[-2]['bound_ms']:.4f}), B2 {records[-1]['ms']:.4f} "
               f"ms (bound {records[-1]['bound_ms']:.4f}) {tag}", flush=True)
+        for r in records[-2:]:
+            print(f"{r['name']}: network_ms {r.get('network_ms')}, ptxas "
+                  f"{r['ptxas']}, dynamic smem {r['dynamic_smem_bytes']} B",
+                  flush=True)
     return records
 
 
@@ -1922,7 +1988,7 @@ def main() -> int:
         bound_ms=b1_bound[0], bound_by=b1_bound[1], library_ms=None))
 
     records += backward_records(tr, view, train_launches, tag)
-    records += option_records(option_runs, tag)
+    records += option_records(option_runs, tag, ptxas_report(reports))
     from threedgrut_torch.render import grt
     with torch.no_grad():
         g_data = grt.gather_candidates(g_inp)

@@ -204,6 +204,98 @@ def test_tile_raster_bwd_option_legs_match_plain(dev, passes, rowterm,
     assert int((got.abs().sum(1) > 0).sum()) > 1000
 
 
+def network_windows(dev):
+    """Constructed windows for the sorted legs' network: particles spread
+    along z (hit_t is about a ray's distance to a particle's depth), tiles
+    (start, end) = (37, 187) (pinned rows at both ends of window 0 and
+    window 1), (187, 300) (starts inside window 1), (300, 300) (empty) and
+    (384, 640) (two whole windows). Tile 0's particles are isotropic, in
+    reverse depth order (every pass needed); tile 1's come in runs of
+    three identical rows but for their colour (equal keys: ties); tile 3's
+    are anisotropic, in a random order. Even pixels look along about +z
+    from z = -10, odd pixels along about -z from z = +10: the one sees a
+    tile's rows reversed, the other in order, so the lanes of a warp stop
+    after different pass counts. Row termination, where asked, ends every
+    pixel at its tile's midpoint slot."""
+    rng = np.random.default_rng(7)
+    cap, tiles_se = 768, [(37, 187), (187, 300), (300, 300), (384, 640)]
+    z = np.zeros(cap, np.float32)
+    z[37:187] = np.linspace(3.0, -3.0, 150)
+    z[187:300] = np.repeat(np.linspace(-2.0, 2.0, 38), 3)[:113]
+    z[384:640] = rng.uniform(-3.0, 3.0, 256)
+    rows = np.zeros((cap, 16), np.float32)
+    q, _ = np.linalg.qr(rng.normal(size=(cap, 3, 3)))
+    a = q / rng.uniform(0.4, 0.8, (cap, 1, 3))
+    a[:384] = np.eye(3) / 0.6
+    rows[:, 0:9] = a.reshape(cap, 9)
+    rows[:, 9] = rng.uniform(-0.3, 0.3, cap)
+    rows[:, 10] = rng.uniform(-0.3, 0.3, cap)
+    rows[:, 11] = z
+    rows[:, 12] = np.where(rng.random(cap) < 0.05, 0.3, 0.03)
+    rows[187:300, 9:11] = np.repeat(rows[187:300:3, 9:11], 3, 0)[:113]
+    rows[:, 13:16] = rng.random((cap, 3))
+    rays = np.zeros((len(tiles_se), 8, 256), np.float32)
+    pix = np.arange(256)
+    flip = pix % 2 == 1
+    d = np.stack([(pix % 16 - 7.5) * 0.01, (pix // 16 - 7.5) * 0.01,
+                  np.where(flip, -1.0, 1.0)])
+    rays[:, 0] = (pix % 16 - 7.5) * 0.04
+    rays[:, 1] = (pix // 16 - 7.5) * 0.04
+    rays[:, 2] = np.where(flip, 10.0, -10.0)
+    rays[:, 3:6] = d / np.linalg.norm(d, axis=0)
+    starts = torch.tensor([s for s, _ in tiles_se], dtype=torch.int32,
+                          device=dev)
+    ends = torch.tensor([e for _, e in tiles_se], dtype=torch.int32,
+                        device=dev)
+    mid = [float((s + e) // 2) if e > s else -1.0 for s, e in tiles_se]
+    return (torch.tensor(rows, device=dev), starts, ends,
+            torch.tensor(rays, device=dev), torch.tensor(mid, device=dev))
+
+
+@pytest.mark.parametrize("passes", [1, 2, 16, 70])
+@pytest.mark.parametrize("rowterm,emit_flags", [(False, False),
+                                                (False, True), (True, False)],
+                         ids=["plain", "flags", "rowterm-mid"])
+def test_sorted_legs_on_constructed_windows(dev, passes, rowterm,
+                                            emit_flags):
+    """B1's and B2's sorted legs against the plain versions on
+    network_windows (reverse order, ties, pinned rows at both ends, lanes
+    stopping at different passes), 70 passes being more than the 64 rows a
+    half-window holds: the default legs' tolerances, hit counts, walked
+    slots and the nonzero slots exact, two launches bit-identical."""
+    data, starts, ends, rays, mid = network_windows(dev)
+    if rowterm:
+        rays[:, 7] = mid[:, None]
+    fwd = (data, starts, ends, rays, 2, 1e-4, 0.0113, 1.0 / 255.0, 0.99,
+           False, True, emit_flags, passes, rowterm)
+    ko, kf = tile_raster._launch(*fwd)
+    ko2, kf2 = tile_raster._launch(*fwd)
+    po, pf = tile_raster.tile_composite_plain(*fwd)
+    assert torch.equal(ko, ko2)
+    torch.testing.assert_close(ko[:, 0:6], po[:, 0:6], atol=2e-4, rtol=1e-4)
+    assert torch.equal(ko[:, 6:8], po[:, 6:8])
+    assert float(po[:, 6].sum()) > 0
+    if emit_flags:
+        assert torch.equal(kf, kf2)
+        assert torch.equal(kf > 0, pf > 0)
+        torch.testing.assert_close(kf, pf, atol=2e-4, rtol=1e-4)
+    g_out = torch.randn(ko.shape, device=dev,
+                        generator=torch.Generator(dev).manual_seed(1))
+    b2 = fwd[:4] + (ko, g_out) + fwd[4:10] + (True, passes, rowterm)
+    got = tile_raster._launch_backward(*b2)
+    again = tile_raster._launch_backward(*b2)
+    want = tile_raster.tile_composite_backward_plain(*b2)
+    assert torch.equal(got, again)
+    assert torch.equal(got.abs().sum(1) > 0, want.abs().sum(1) > 0)
+    scale = want.abs().amax(0) + 1e-30
+    assert bool(((got - want).abs() <= 1e-5 * scale).all())
+    assert int((want.abs().sum(1) > 0).sum()) > 100
+    # As in a train step: B1 writes its compositing orders, B2 reads them.
+    order = tile_raster.order_buffer(starts, ends, data.shape[0])
+    assert torch.equal(tile_raster._launch(*fwd, order=order)[0], ko)
+    assert torch.equal(tile_raster._launch_backward(*b2, order=order), got)
+
+
 def test_wrappers_reject_bad_shapes(dev):
     proj, binning, data, _, rays = prepared(dev, n=2000, cap=1 << 14)
     args = list(b3_inputs(proj))

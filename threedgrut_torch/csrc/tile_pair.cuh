@@ -64,6 +64,24 @@ __device__ __forceinline__ Ray load_ray(const float* ray, int p) {
                ray[6 * PIX + p]};
 }
 
+// Pixel p's ray kept in a sorted leg's shared column (rows 0-6 of a [., PIX]
+// block, `col` already offset by p): reloaded where it is needed rather than
+// held in registers beside the network's 160.
+__device__ __forceinline__ void stash_ray(float* col, const Ray& r) {
+    col[0 * PIX] = r.ox;
+    col[1 * PIX] = r.oy;
+    col[2 * PIX] = r.oz;
+    col[3 * PIX] = r.dx;
+    col[4 * PIX] = r.dy;
+    col[5 * PIX] = r.dz;
+    col[6 * PIX] = r.tmax;
+}
+
+__device__ __forceinline__ Ray stashed_ray(const float* col) {
+    return Ray{col[0 * PIX], col[1 * PIX], col[2 * PIX], col[3 * PIX],
+               col[4 * PIX], col[5 * PIX], col[6 * PIX]};
+}
+
 struct Pair {
     float w0x, w0y, w0z;  // o - mean
     float ux, uy, uz;     // u = A (o - mean)
@@ -113,47 +131,75 @@ __device__ __forceinline__ Pair pair_eval(const float* q, const Ray& r,
 }
 
 // The sorted mode's re-sort of one pixel's window (tile_raster.py
-// _oddeven_sort): `passes` passes of odd-even transposition over the CHUNK
-// keys, pass i comparing positions (j, j + 1) with j = i mod 2 and swapping
-// where key[j + 1] < key[j]; idx follows its key. A pixel stops once an odd
-// and an even pass in a row swapped nothing: its keys then stand still
-// under every later pass, so the result is that of all `passes` passes.
-__device__ __forceinline__ void oddeven_network(float* key,
-                                                unsigned char* idx,
-                                                int passes) {
+// _oddeven_sort) in registers: `passes` passes of odd-even transposition over
+// the CHUNK keys, pass i comparing positions (j, j + 1) with j = i mod 2 and
+// swapping where key[j + 1] < key[j] (strict: stable on ties); the row
+// indices follow their keys. Every position is a compile-time constant (both
+// parities unrolled, a pair of passes per trip), so key[] stays in 128
+// registers and idx[] in 32, four row indices (bytes) to a word, byte k & 3
+// of word k >> 2 for position k. A pixel stops once an odd and an even pass
+// in a row swapped nothing: its keys then stand still under every later
+// pass, so the result is that of all `passes` passes.
+__device__ __forceinline__ int window_row(const unsigned (&idx)[CHUNK / 4],
+                                          int k) {
+    return (int)((idx[k >> 2] >> (8 * (k & 3))) & 0xffu);
+}
+
+__device__ __forceinline__ void window_rows_init(unsigned (&idx)[CHUNK / 4]) {
+#pragma unroll
+    for (int w = 0; w < CHUNK / 4; ++w) idx[w] = 0x03020100u + 0x04040404u * w;
+}
+
+// Compare-exchange of positions (j, j + 1), j a compile-time constant once
+// the caller's loop is unrolled; returns whether it swapped. The indices
+// move by a byte permute whose selector is the identity unless it swaps.
+__device__ __forceinline__ bool oddeven_cmpx(float (&key)[CHUNK],
+                                             unsigned (&idx)[CHUNK / 4],
+                                             int j) {
+    const float ka = key[j], kb = key[j + 1];
+    const bool s = kb < ka;
+    key[j] = s ? kb : ka;
+    key[j + 1] = s ? ka : kb;
+    const int w = j >> 2, b = j & 3;
+    if (b < 3) {
+        const unsigned sel = b == 0 ? 0x3201u : b == 1 ? 0x3120u : 0x2310u;
+        idx[w] = __byte_perm(idx[w], 0u, s ? sel : 0x3210u);
+    } else {
+        const unsigned lo = idx[w], hi = idx[w + 1];
+        idx[w] = __byte_perm(lo, hi, s ? 0x4210u : 0x3210u);
+        idx[w + 1] = __byte_perm(lo, hi, s ? 0x7653u : 0x7654u);
+    }
+    return s;
+}
+
+template <int PARITY>
+__device__ __forceinline__ bool oddeven_pass(float (&key)[CHUNK],
+                                             unsigned (&idx)[CHUNK / 4]) {
+    bool swapped = false;
+#pragma unroll
+    for (int j = PARITY; j < CHUNK - 1; j += 2)
+        swapped |= oddeven_cmpx(key, idx, j);
+    return swapped;
+}
+
+__device__ __forceinline__ void oddeven_network_regs(
+    float (&key)[CHUNK], unsigned (&idx)[CHUNK / 4], int passes) {
     int quiet = 0;
-    for (int i = 0; i < passes && quiet < 2; ++i) {
-        bool swapped = false;
-        for (int j = i & 1; j < CHUNK - 1; j += 2) {
-            const float ka = key[j], kb = key[j + 1];
-            if (kb < ka) {
-                key[j] = kb;
-                key[j + 1] = ka;
-                const unsigned char t = idx[j];
-                idx[j] = idx[j + 1];
-                idx[j + 1] = t;
-                swapped = true;
-            }
-        }
-        quiet = swapped ? 0 : quiet + 1;
+    for (int i = 0; i < passes; i += 2) {
+        quiet = oddeven_pass<0>(key, idx) ? 0 : quiet + 1;
+        if (quiet == 2 || i + 1 == passes) break;
+        quiet = oddeven_pass<1>(key, idx) ? 0 : quiet + 1;
+        if (quiet == 2) break;
     }
 }
 
-// Sort keys of a sorted-mode window of rows [base, base + CHUNK) for a tile
-// owning slots [base + lo, base + hi): hit_t for every row of the tile,
-// accepted or not, -BIG before it and BIG after it (the rows of neighbour
-// tiles and padding stay in place).
-__device__ __forceinline__ void window_keys(const float* rows, const Ray& ray,
-                                            int lo, int hi, int degree,
-                                            float min_response,
+// Sort key of a row of the tile in a sorted-mode window: its hit_t,
+// accepted or not (rows before the tile's range are pinned at -BIG and rows
+// after it at BIG by the caller, so neighbour tiles and padding stay put).
+__device__ __forceinline__ float pair_hit_t(const float* q, const Ray& ray,
+                                            int degree, float min_response,
                                             float min_alpha, float max_alpha,
-                                            int has_t_max, float* key,
-                                            unsigned char* idx) {
-    for (int r = 0; r < CHUNK; ++r) {
-        key[r] = r < lo ? -BIG
-                 : r >= hi ? BIG
-                 : pair_eval(rows + r * ROW_F, ray, degree, min_response,
-                             min_alpha, max_alpha, has_t_max).hit_t;
-        idx[r] = (unsigned char)r;
-    }
+                                            int has_t_max) {
+    return pair_eval(q, ray, degree, min_response, min_alpha, max_alpha,
+                     has_t_max).hit_t;
 }

@@ -35,13 +35,24 @@
 // Two legs are compile-time template parameters, so the default (0 passes,
 // no row termination) compiles to the walk above and nothing else:
 //  * SORTED (passes > 0): each pixel's suffix runs in its own re-sorted
-//    order (B1's network, tile_pair.cuh), but a slot's 16 values sum over
-//    all 256 pixels at that row, so a window takes two passes (B8's design).
-//    Pass A replays B1's walk per pixel in compositing order and stores by
-//    ROW index w and d_alpha in per-thread arrays in local memory (1 KB
-//    beside the network's 640 B); pass B goes row by row over the tile's
-//    rows of the window, re-evaluates the pair for the pixels with w > 0,
-//    chains and reduces exactly as the default leg does.
+//    order, but a slot's 16 values sum over all 256 pixels at that row, so
+//    a window takes two passes (B8's design). The order is the one B1's
+//    network gave this pixel and window: B1 writes it (`order`, a word per
+//    four positions) and B2 reads it, so the network and its keys run once
+//    per train step. For each part of the window (43 rows): pass A replays
+//    B1's walk per pixel in compositing order and stores by ROW index w and
+//    d_alpha of the part's rows in columns of dynamic shared memory
+//    ([43][256] each, the pixel index fastest: no bank conflicts); pass B
+//    goes row by row over the tile's rows of the part, re-evaluates the
+//    pair for the pixels with w > 0, chains and reduces exactly as the
+//    default leg does. A whole window's w and d_alpha (256 KB) would not
+//    fit in the 227 KB a block may have; halves (128 KB) would leave one
+//    block of 8 warps per SM, thirds (86 KB, 110 KB with the static
+//    buffers) leave two. Only the last part's walk runs to the end (the
+//    carry and the prefix); an earlier one stops once it has stored its
+//    rows. A walk starts at the tile's first row lo (positions before it
+//    hold pinned rows) and stops at the first T_before <= min_T (exact:
+//    T_before never grows; later rows keep w = 0).
 //  * ROWTERM: alpha is 0 past each pixel's last touch lt (rays row 7); the
 //    walk starts and stops where B1's does.
 //
@@ -56,6 +67,9 @@
 
 #define SUB 32           // slots per cross-warp reduction batch
 #define FULL 0xffffffffu
+// Rows of a sorted window per pass A store: three parts (43, 43, 42 rows),
+// whose w and d_alpha (86 KB) leave room for two blocks per SM.
+#define PART 43
 
 // Sum 16 values over the 32 lanes of a warp. On return lane l holds, in
 // v[0], the warp sum of field 8*b4 + 4*b3 + 2*b2 + b1 (bk = bit k of l).
@@ -190,10 +204,12 @@ tile_raster_bwd_kernel(const float* __restrict__ data,
                        const float* __restrict__ rays,
                        const float* __restrict__ fwd,
                        const float* __restrict__ gout,
+                       const unsigned* __restrict__ order,
+                       const int* __restrict__ win_base,
                        float* __restrict__ grad, int degree,
                        float min_transmittance, float min_response,
                        float min_alpha, float max_alpha, int has_t_max,
-                       int aux_grads, int passes) {
+                       int aux_grads) {
     __shared__ __align__(16) float rows[CHUNK * ROW_F];
     __shared__ float part[PIX / 32][SUB][ROW_F];
 
@@ -218,6 +234,13 @@ tile_raster_bwd_kernel(const float* __restrict__ data,
     const int w0 = start / CHUNK;
     const int w1 = end > start ? (end - 1) / CHUNK + 1 : w0;
 
+    // The sorted leg's columns of its dynamic shared buffer (the pixel index
+    // fastest: no bank conflicts): w and d_alpha of a part of a window by
+    // row, [PART][PIX] each.
+    extern __shared__ float win[];
+    float* wgt = win + p;
+    float* dal = win + PART * PIX + p;
+
     float T = 1.0f, prefix = 0.0f;
     int g = w0;
     bool walk = true;
@@ -234,36 +257,53 @@ tile_raster_bwd_kernel(const float* __restrict__ data,
         const int lo = max(start, base) - base;
         const int hi = min(end, base + CHUNK) - base;
         if constexpr (SORTED) {
-            // Pass A: B1's walk of this pixel in compositing order; w and
-            // d_alpha stored by row.
-            float wgt[CHUNK], dal[CHUNK];
             bool go_px = T > min_transmittance;
             if constexpr (ROWTERM) go_px = go_px && (float)(base + lo) <= lt;
-            if (go_px) {
-                float key[CHUNK];
-                unsigned char idx[CHUNK];
-                window_keys(rows, ray, lo, hi, degree, min_response,
-                            min_alpha, max_alpha, has_t_max, key, idx);
-                oddeven_network(key, idx, passes);
-                float prod = 1.0f, tmin = BIG;
-                for (int k = 0; k < CHUNK; ++k) {
-                    const int row = idx[k];
-                    const bool mine = row >= lo && row < hi;
-                    const float* q = rows + row * ROW_F;
-                    float alpha = 0.0f, hit_t = 0.0f;
-                    if (mine) {
-                        const Pair s = pair_eval(q, ray, degree, min_response,
-                                                 min_alpha, max_alpha,
-                                                 has_t_max);
-                        alpha = s.accept ? s.alpha : 0.0f;
-                        if (ROWTERM && (float)(base + row) > lt) alpha = 0.0f;
-                        hit_t = s.hit_t;
-                    }
-                    const float one_m = 1.0f - alpha;
-                    const float t_before = T * prod;
-                    float w = 0.0f, d_alpha = 0.0f;
-                    if (t_before > min_transmittance) {
-                        w = alpha * t_before;
+            // B1's compositing order of this pixel and window (written
+            // where B1's pixel ran it: exactly where go_px holds here).
+            const unsigned* ord =
+                order + (size_t)(win_base[t] + g - w0) * (CHUNK / 4) * PIX + p;
+            // Each part of the window: pass A, B1's walk of this pixel in
+            // compositing order storing w and d_alpha of the part's rows;
+            // pass B, the part's rows of the tile in order, summed over the
+            // pixels. The last part walked walks to the end and gives the
+            // carry and the prefix; an earlier one stops once it has
+            // stored its rows.
+            const float prefix0 = prefix;
+            float t_next = T;
+            const int h_first = lo / PART;
+            const int h_last = (hi - 1) / PART;
+            for (int h = h_first; h <= h_last; ++h) {
+                const int h_lo = max(lo, h * PART);
+                const int h_hi = min(hi, h * PART + PART);
+                if (go_px) {
+                    for (int i = h_lo; i < h_hi; ++i)
+                        wgt[(i - h * PART) * PIX] = 0.0f;
+                    int todo = h < h_last ? h_hi - h_lo : CHUNK;
+                    prefix = prefix0;
+                    float prod = 1.0f, tmin = BIG;
+                    // From position lo: before it stand pinned rows, where
+                    // prod stays exactly 1 and T_before (1 - alpha) = T,
+                    // which the carry's min below includes.
+                    for (int k = lo; k < CHUNK && todo > 0; ++k) {
+                        const float t_before = T * prod;
+                        if (!(t_before > min_transmittance)) break;
+                        const int row = (int)((__ldg(ord + (k >> 2) * PIX)
+                                               >> (8 * (k & 3))) & 0xffu);
+                        const float* q = rows + row * ROW_F;
+                        float alpha = 0.0f, hit_t = 0.0f;
+                        if (row >= lo && row < hi) {
+                            const Pair s = pair_eval(q, ray, degree,
+                                                     min_response, min_alpha,
+                                                     max_alpha, has_t_max);
+                            alpha = s.accept ? s.alpha : 0.0f;
+                            if (ROWTERM && (float)(base + row) > lt)
+                                alpha = 0.0f;
+                            hit_t = s.hit_t;
+                        }
+                        const float one_m = 1.0f - alpha;
+                        const float w = alpha * t_before;
+                        float d_alpha = 0.0f;
                         if (w > 0.0f) {
                             float qj = q[13] * dCr + q[14] * dCg + q[15] * dCb;
                             qj = aux_grads ? qj + hit_t * dD + dO : qj + dO;
@@ -276,38 +316,45 @@ tile_raster_bwd_kernel(const float* __restrict__ data,
                                 d_alpha = d_alpha - dT * t_final * inv_one_m;
                         }
                         tmin = fminf(tmin, t_before * one_m);
+                        prod *= one_m;
+                        if (row >= h_lo && row < h_hi) {
+                            wgt[(row - h * PART) * PIX] = w;
+                            dal[(row - h * PART) * PIX] = d_alpha;
+                            if (h < h_last) --todo;
+                        }
                     }
-                    prod *= one_m;
-                    if (mine) {
-                        wgt[row] = w;
-                        dal[row] = d_alpha;
-                    }
+                    if (h == h_last) t_next = fminf(tmin, T);
                 }
-                T = fminf(tmin, T);
-            }
-            // Pass B: the tile's rows in order, summed over the pixels.
-            for (int kb = lo; kb < hi; kb += SUB) {
-                const int kn = min(hi - kb, SUB);
-                for (int j = 0; j < kn; ++j) {
-                    const int row = kb + j;
-                    const float* q = rows + row * ROW_F;
-                    float v[ROW_F];
+                // Pass B: the part's rows of the tile in order, summed over
+                // the pixels.
+                for (int kb = h_lo; kb < h_hi; kb += SUB) {
+                    const int kn = min(h_hi - kb, SUB);
+                    for (int j = 0; j < kn; ++j) {
+                        const int row = kb + j;
+                        const float* q = rows + row * ROW_F;
+                        float v[ROW_F];
 #pragma unroll
-                    for (int i = 0; i < ROW_F; ++i) v[i] = 0.0f;
-                    const bool live = go_px && wgt[row] > 0.0f;
-                    if (live) {
-                        const Pair s = pair_eval(q, ray, degree, min_response,
-                                                 min_alpha, max_alpha,
-                                                 has_t_max);
-                        slot_grads(q, s, ray, wgt[row], dal[row], dCr, dCg,
-                                   dCb, dD, degree, max_alpha, aux_grads, v);
+                        for (int i = 0; i < ROW_F; ++i) v[i] = 0.0f;
+                        const float w =
+                            go_px ? wgt[(row - h * PART) * PIX] : 0.0f;
+                        const bool live = w > 0.0f;
+                        if (live) {
+                            const Pair s = pair_eval(q, ray, degree,
+                                                     min_response, min_alpha,
+                                                     max_alpha, has_t_max);
+                            slot_grads(q, s, ray, w,
+                                       dal[(row - h * PART) * PIX], dCr, dCg,
+                                       dCb, dD, degree, max_alpha, aux_grads,
+                                       v);
+                        }
+                        warp_part(v, live, lane, part[warp][j]);
                     }
-                    warp_part(v, live, lane, part[warp][j]);
+                    __syncthreads();
+                    block_sums(part, rows, kb, kn, base, p, grad);
+                    __syncthreads();
                 }
-                __syncthreads();
-                block_sums(part, rows, kb, kn, base, p, grad);
-                __syncthreads();
             }
+            T = t_next;
         } else {
             for (int kb = lo; kb < hi; kb += SUB) {
                 const int kn = min(hi - kb, SUB);
@@ -357,38 +404,57 @@ tile_raster_bwd_kernel(const float* __restrict__ data,
     }
 }
 
+// The sorted leg's dynamic shared buffer: w and d_alpha of a part of a
+// window (43 KB each).
+constexpr int SORTED_SMEM = 2 * PART * PIX * (int)sizeof(float);
+
 template <bool SORTED, bool ROWTERM>
-static void launch_bwd(const void* data, const void* starts,
-                       const void* ends, const void* rays, const void* fwd,
-                       const void* gout, void* grad, int num_tiles,
-                       int degree, float min_transmittance,
-                       float min_response, float min_alpha, float max_alpha,
-                       int has_t_max, int aux_grads, int passes,
-                       cudaStream_t stream) {
-    tile_raster_bwd_kernel<SORTED, ROWTERM><<<num_tiles, PIX, 0, stream>>>(
+static int launch_bwd(const void* data, const void* starts, const void* ends,
+                      const void* rays, const void* fwd, const void* gout,
+                      const void* order, const void* win_base, void* grad,
+                      int num_tiles, int degree, float min_transmittance,
+                      float min_response, float min_alpha, float max_alpha,
+                      int has_t_max, int aux_grads, cudaStream_t stream) {
+    const int dyn = SORTED ? SORTED_SMEM : 0;
+    if (SORTED) {
+        if (order == nullptr || win_base == nullptr)
+            return (int)cudaErrorInvalidValue;
+        const cudaError_t err = cudaFuncSetAttribute(
+            tile_raster_bwd_kernel<SORTED, ROWTERM>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+        if (err != cudaSuccess) return (int)err;
+    }
+    tile_raster_bwd_kernel<SORTED, ROWTERM><<<num_tiles, PIX, dyn, stream>>>(
         (const float*)data, (const int*)starts, (const int*)ends,
         (const float*)rays, (const float*)fwd, (const float*)gout,
-        (float*)grad, degree, min_transmittance, min_response, min_alpha,
-        max_alpha, has_t_max, aux_grads, passes);
+        (const unsigned*)order, (const int*)win_base, (float*)grad, degree,
+        min_transmittance, min_response, min_alpha, max_alpha, has_t_max,
+        aux_grads);
+    return (int)cudaGetLastError();
 }
 
+// `order` and `win_base` (sorted legs only): the compositing orders that
+// B1 wrote for this walk (tile_raster_fwd.cu).
 extern "C" int tile_raster_bwd(const void* data, const void* starts,
                                const void* ends, const void* rays,
-                               const void* fwd, const void* gout, void* grad,
-                               int num_tiles, int degree,
+                               const void* fwd, const void* gout,
+                               const void* order, const void* win_base,
+                               void* grad, int num_tiles, int degree,
                                float min_transmittance, float min_response,
                                float min_alpha, float max_alpha,
                                int has_t_max, int aux_grads, int passes,
                                int row_termination, void* stream) {
-    if (num_tiles > 0) {
-        auto fn = passes > 0
-                      ? (row_termination ? launch_bwd<true, true>
-                                         : launch_bwd<true, false>)
-                      : (row_termination ? launch_bwd<false, true>
-                                         : launch_bwd<false, false>);
-        fn(data, starts, ends, rays, fwd, gout, grad, num_tiles, degree,
-           min_transmittance, min_response, min_alpha, max_alpha, has_t_max,
-           aux_grads, passes, (cudaStream_t)stream);
-    }
-    return (int)cudaGetLastError();
+    if (num_tiles <= 0) return (int)cudaGetLastError();
+    auto fn = passes > 0 ? (row_termination ? launch_bwd<true, true>
+                                            : launch_bwd<true, false>)
+                         : (row_termination ? launch_bwd<false, true>
+                                            : launch_bwd<false, false>);
+    return fn(data, starts, ends, rays, fwd, gout, order, win_base, grad,
+              num_tiles, degree, min_transmittance, min_response, min_alpha,
+              max_alpha, has_t_max, aux_grads, (cudaStream_t)stream);
+}
+
+// Dynamic shared memory (bytes) of a launch with `passes`.
+extern "C" int tile_raster_bwd_smem(int passes) {
+    return passes > 0 ? SORTED_SMEM : 0;
 }

@@ -26,17 +26,29 @@
 // Two legs are compile-time template parameters, so the default (0 passes,
 // no row termination) compiles to the loop above and nothing else:
 //  * SORTED (passes > 0, the "sorted" k-buffer mode): per pixel and window,
-//    the keys of window_keys (tile_pair.cuh: hit_t of every row of the tile,
+//    the keys (tile_pair.cuh pair_hit_t: hit_t of every row of the tile,
 //    rows of other tiles pinned) go through the odd-even network, and the
 //    pixel composites its window in that order: T_before = carry * (the
 //    product of 1 - alpha before it), counted while T_before > min_T; the
 //    carry becomes min(carry, min over counted rows of T_before (1 - alpha)).
-//    A pixel whose carry is already <= min_T skips the window. The keys and
-//    row indices live in per-thread arrays in local memory (640 B), alpha
-//    is evaluated again in compositing order. A slot's flag is the max of
-//    its row's weight over the pixels (atomicMax on the bits of a
-//    non-negative float in shared memory: the max does not depend on the
-//    order).
+//    A pixel whose carry is already <= min_T skips the window. The network
+//    runs in registers (oddeven_network_regs: 128 keys, the row indices
+//    packed four to a word). Per pixel, columns of a dynamic shared buffer
+//    (the pixel index fastest: no bank conflicts) hold the gated alpha of
+//    each row of the tile ([128][256], 128 KB), computed first while no key
+//    is held, then the keys of half a window at a time on their way into
+//    registers ([64][256]), and the pixel's ray ([7][256], reloaded where
+//    needed instead of held beside the 160 network registers): 199 KB. The
+//    pair is evaluated once per row for the keys' hit_t and once for alpha,
+//    in row order and four rows per trip; compositing reads alpha there and
+//    hit_t from the sorted keys. It starts at the tile's first row lo
+//    (rows before it are pinned at -BIG and never move) and stops at the
+//    first T_before <= min_T (exact: T_before never grows). Given `order`
+//    (the train step's forward), it writes each pixel-window's compositing
+//    order there, a word per four positions, for B2. A slot's flag
+//    is the max of its row's weight over the pixels (atomicMax on the bits
+//    of a non-negative float in shared memory: the max does not depend on
+//    the order).
 //  * ROWTERM (row_termination): rays row 7 holds each pixel's last-touch
 //    slot lt; alpha is 0 past it (keys unchanged). The tile starts only if
 //    some lt >= 128 w0, and stops after window g unless some pixel has
@@ -51,8 +63,11 @@
 // per-pixel recurrence is the cheapest exact form on a SIMT core. The sorted
 // leg adds the keys' pair math and, per pass run, 2 operations for each of
 // the 64 compare-exchanges; the pass count each pixel runs depends on how
-// far its hits are out of row order.
+// far its hits are out of row order. Its 255 registers and 199 KB of shared
+// memory leave one block of 256 threads (8 warps) per SM.
 #include "tile_pair.cuh"
+
+#define HALF (CHUNK / 2)  // rows of keys the sorted leg stages at a time
 
 template <bool SORTED, bool ROWTERM>
 __global__ void __launch_bounds__(PIX)
@@ -61,6 +76,8 @@ tile_raster_fwd_kernel(const float* __restrict__ data,
                        const int* __restrict__ ends,
                        const float* __restrict__ rays,
                        float* __restrict__ out, float* __restrict__ flags,
+                       unsigned* __restrict__ order,
+                       const int* __restrict__ win_base,
                        int degree, float min_transmittance,
                        float min_response, float min_alpha, float max_alpha,
                        int has_t_max, int aux_outputs, int passes) {
@@ -78,6 +95,15 @@ tile_raster_fwd_kernel(const float* __restrict__ data,
     const int start = starts[t], end = ends[t];
     const int w0 = start / CHUNK;
     const int w1 = end > start ? (end - 1) / CHUNK + 1 : w0;
+
+    // The sorted leg's columns of its dynamic shared buffer (the pixel index
+    // fastest: no bank conflicts): gated alpha by row [CHUNK][PIX], the keys
+    // of half a window [HALF][PIX] and the ray [7][PIX].
+    extern __shared__ float win[];
+    float* acol = win + p;
+    float* kcol = win + CHUNK * PIX + p;
+    float* rcol = win + (CHUNK + HALF) * PIX + p;
+    if constexpr (SORTED) stash_ray(rcol, ray);
 
     float T = 1.0f, r = 0.0f, gcol = 0.0f, b = 0.0f, opa = 0.0f, dep = 0.0f,
           hits = 0.0f;
@@ -101,42 +127,88 @@ tile_raster_fwd_kernel(const float* __restrict__ data,
             bool go = T > min_transmittance;
             if constexpr (ROWTERM) go = go && (float)(base + lo) <= lt;
             if (go) {
+                // The gated alphas of the tile's rows first, while no key is
+                // held, then their keys, half a window at a time through
+                // `kcol`. Rows before lo keep their positions (their pinned
+                // key -BIG is below every key) and are never read; rows at
+                // or past hi composite nothing. Four rows per trip give
+                // each warp independent pairs to issue.
+                {
+                    const Ray ray = stashed_ray(rcol);
+#pragma unroll 4
+                    for (int i = lo; i < hi; ++i) {
+                        const Pair s = pair_eval(rows + i * ROW_F, ray, degree,
+                                                 min_response, min_alpha,
+                                                 max_alpha, has_t_max);
+                        float alpha = s.accept ? s.alpha : 0.0f;
+                        if (ROWTERM && (float)(base + i) > lt) alpha = 0.0f;
+                        acol[i * PIX] = alpha;
+                    }
+                    for (int i = hi; i < CHUNK; ++i) acol[i * PIX] = 0.0f;
+                }
                 float key[CHUNK];
-                unsigned char idx[CHUNK];
-                window_keys(rows, ray, lo, hi, degree, min_response,
-                            min_alpha, max_alpha, has_t_max, key, idx);
-                oddeven_network(key, idx, passes);
+                unsigned idx[CHUNK / 4];
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    {
+                        const Ray ray = stashed_ray(rcol);
+                        const int e = min(hi, h * HALF + HALF);
+#pragma unroll 4
+                        for (int i = max(lo, h * HALF); i < e; ++i)
+                            kcol[(i - h * HALF) * PIX] = pair_hit_t(
+                                rows + i * ROW_F, ray, degree, min_response,
+                                min_alpha, max_alpha, has_t_max);
+                    }
+#pragma unroll
+                    for (int i = 0; i < HALF; ++i) {
+                        const int row = h * HALF + i;
+                        key[row] = row < lo ? -BIG
+                                   : row >= hi ? BIG : kcol[i * PIX];
+                    }
+                }
+                window_rows_init(idx);
+                oddeven_network_regs(key, idx, passes);
+                if (order != nullptr) {
+                    // The compositing order, for B2 to re-walk: step
+                    // win_base[t] + (g - w0), one word per four positions.
+                    unsigned* o = order
+                                  + (size_t)(win_base[t] + g - w0)
+                                        * (CHUNK / 4) * PIX
+                                  + p;
+#pragma unroll
+                    for (int i = 0; i < CHUNK / 4; ++i) o[i * PIX] = idx[i];
+                }
+                // Compositing order from position lo (positions before it
+                // hold pinned rows: prod stays exactly 1 and their
+                // T_before (1 - alpha) = T, which the carry's min below
+                // includes). After the network key[k] is the hit_t of row
+                // idx[k] (a row of the tile wherever w > 0). Once
+                // T_before <= min_T it stays so (T_before never grows), and
+                // no later row changes the sums or the carry.
                 float prod = 1.0f, tmin = BIG;
+#pragma unroll
                 for (int k = 0; k < CHUNK; ++k) {
-                    const int row = idx[k];
-                    const float* q = rows + row * ROW_F;
-                    float alpha = 0.0f, hit_t = 0.0f;
-                    if (row >= lo && row < hi) {
-                        const Pair s = pair_eval(q, ray, degree, min_response,
-                                                 min_alpha, max_alpha,
-                                                 has_t_max);
-                        alpha = s.accept ? s.alpha : 0.0f;
-                        if (ROWTERM && (float)(base + row) > lt) alpha = 0.0f;
-                        hit_t = s.hit_t;
-                    }
-                    const float one_m = 1.0f - alpha;
+                    if (k < lo) continue;
                     const float t_before = T * prod;
-                    if (t_before > min_transmittance) {
-                        const float w = alpha * t_before;
-                        if (w > 0.0f) {
-                            r += w * q[13];
-                            gcol += w * q[14];
-                            b += w * q[15];
-                            opa += w;
-                            if (aux_outputs) {
-                                dep += w * hit_t;
-                                hits += 1.0f;
-                            }
-                            if (flags != nullptr)
-                                atomicMax(&row_max[row], __float_as_uint(w));
+                    if (!(t_before > min_transmittance)) break;
+                    const int row = window_row(idx, k);
+                    const float alpha = acol[row * PIX];
+                    const float one_m = 1.0f - alpha;
+                    const float w = alpha * t_before;
+                    if (w > 0.0f) {
+                        const float* q = rows + row * ROW_F;
+                        r += w * q[13];
+                        gcol += w * q[14];
+                        b += w * q[15];
+                        opa += w;
+                        if (aux_outputs) {
+                            dep += w * key[k];
+                            hits += 1.0f;
                         }
-                        tmin = fminf(tmin, t_before * one_m);
+                        if (flags != nullptr)
+                            atomicMax(&row_max[row], __float_as_uint(w));
                     }
+                    tmin = fminf(tmin, t_before * one_m);
                     prod *= one_m;
                 }
                 T = fminf(tmin, T);
@@ -201,36 +273,55 @@ tile_raster_fwd_kernel(const float* __restrict__ data,
     o[7 * PIX + p] = (float)(min(max(g * CHUNK, start), end) - start);
 }
 
+// The sorted leg's dynamic shared buffer: gated alphas [CHUNK][PIX], the keys
+// of half a window [HALF][PIX] and the rays [7][PIX] (199 KB).
+constexpr int SORTED_SMEM = (CHUNK + HALF + 7) * PIX * (int)sizeof(float);
+
 template <bool SORTED, bool ROWTERM>
-static void launch_fwd(const void* data, const void* starts,
-                       const void* ends, const void* rays, void* out,
-                       void* flags, int num_tiles, int degree,
-                       float min_transmittance, float min_response,
-                       float min_alpha, float max_alpha, int has_t_max,
-                       int aux_outputs, int passes, cudaStream_t stream) {
-    tile_raster_fwd_kernel<SORTED, ROWTERM><<<num_tiles, PIX, 0, stream>>>(
+static int launch_fwd(const void* data, const void* starts, const void* ends,
+                      const void* rays, void* out, void* flags, void* order,
+                      const void* win_base, int num_tiles, int degree,
+                      float min_transmittance, float min_response,
+                      float min_alpha, float max_alpha, int has_t_max,
+                      int aux_outputs, int passes, cudaStream_t stream) {
+    const int dyn = SORTED ? SORTED_SMEM : 0;
+    if (SORTED) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            tile_raster_fwd_kernel<SORTED, ROWTERM>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+        if (err != cudaSuccess) return (int)err;
+    }
+    tile_raster_fwd_kernel<SORTED, ROWTERM><<<num_tiles, PIX, dyn, stream>>>(
         (const float*)data, (const int*)starts, (const int*)ends,
-        (const float*)rays, (float*)out, (float*)flags, degree,
-        min_transmittance, min_response, min_alpha, max_alpha, has_t_max,
-        aux_outputs, passes);
+        (const float*)rays, (float*)out, (float*)flags, (unsigned*)order,
+        (const int*)win_base, degree, min_transmittance, min_response,
+        min_alpha, max_alpha, has_t_max, aux_outputs, passes);
+    return (int)cudaGetLastError();
 }
 
+// `order` (sorted legs, may be null): [steps, CHUNK / 4, PIX] words that
+// receive each walked window's compositing order at step win_base[t] +
+// (window - first window of tile t), for B2.
 extern "C" int tile_raster_fwd(const void* data, const void* starts,
                                const void* ends, const void* rays, void* out,
-                               void* flags, int num_tiles, int degree,
+                               void* flags, void* order, const void* win_base,
+                               int num_tiles, int degree,
                                float min_transmittance, float min_response,
                                float min_alpha, float max_alpha,
                                int has_t_max, int aux_outputs, int passes,
                                int row_termination, void* stream) {
-    if (num_tiles > 0) {
-        auto fn = passes > 0
-                      ? (row_termination ? launch_fwd<true, true>
-                                         : launch_fwd<true, false>)
-                      : (row_termination ? launch_fwd<false, true>
-                                         : launch_fwd<false, false>);
-        fn(data, starts, ends, rays, out, flags, num_tiles, degree,
-           min_transmittance, min_response, min_alpha, max_alpha, has_t_max,
-           aux_outputs, passes, (cudaStream_t)stream);
-    }
-    return (int)cudaGetLastError();
+    if (num_tiles <= 0) return (int)cudaGetLastError();
+    auto fn = passes > 0 ? (row_termination ? launch_fwd<true, true>
+                                            : launch_fwd<true, false>)
+                         : (row_termination ? launch_fwd<false, true>
+                                            : launch_fwd<false, false>);
+    return fn(data, starts, ends, rays, out, flags, order, win_base,
+              num_tiles, degree, min_transmittance, min_response, min_alpha,
+              max_alpha, has_t_max, aux_outputs, passes,
+              (cudaStream_t)stream);
+}
+
+// Dynamic shared memory (bytes) of a launch with `passes`.
+extern "C" int tile_raster_fwd_smem(int passes) {
+    return passes > 0 ? SORTED_SMEM : 0;
 }

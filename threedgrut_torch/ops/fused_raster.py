@@ -99,10 +99,15 @@ class _CompositeParticles(torch.autograd.Function):
                 grad_precision):
         n = packed.shape[0]
         data_sorted = packed[torch.clamp(sorted_idx, max=n - 1).long()]
-        fn = (tile_raster.tile_composite_plain if rays.device.type == "cpu"
-              else tile_raster._launch)
-        out, _ = fn(data_sorted, tile_starts, tile_ends, rays, *args[:6],
-                    aux_outputs, False, *args[7:])
+        fwd = (data_sorted, tile_starts, tile_ends, rays, *args[:6],
+               aux_outputs, False, *args[7:])
+        ctx.order = tile_raster.forward_order(
+            data_sorted, tile_starts, tile_ends, rays, args[7],
+            ctx.needs_input_grad[0])
+        if rays.device.type == "cpu":
+            out, _ = tile_raster.tile_composite_plain(*fwd)
+        else:
+            out, _ = tile_raster._launch(*fwd, order=ctx.order)
         ctx.save_for_backward(sorted_idx, particle_ends, data_sorted,
                               tile_starts, tile_ends, rays, out)
         ctx.n, ctx.args = n, args
@@ -115,7 +120,7 @@ class _CompositeParticles(torch.autograd.Function):
          rays, out) = ctx.saved_tensors
         g_slots = tile_raster.tile_composite_backward(
             data_sorted, tile_starts, tile_ends, rays, out, g_out,
-            *ctx.args)                                        # [cap, 16]
+            *ctx.args, order=ctx.order)                       # [cap, 16]
         walked = compact_walked(out, tile_starts, sorted_idx, g_slots,
                                 ctx.walk_capacity, ctx.n)
         branches["3dgut.dense" if walked is None else "3dgut.compact"] += 1

@@ -12,7 +12,10 @@ rgb (3)]. Rays are packed per tile as [num_tiles, 8, 256]: rows 0-2 origin,
 runs `tile_composite_plain` for CPU tensors. It is a torch.autograd.Function
 whose backward is kernel B2 (csrc/tile_raster_bwd.cu; plain version
 `tile_composite_backward_plain`): per-slot gradients [cap, 16] of the packed
-rows, exactly 0 on slots the forward's walk never reached.
+rows, exactly 0 on slots the forward's walk never reached. In the sorted
+mode a differentiable forward's B1 also writes each pixel-window's
+compositing order (`order_buffer`), which its B2 re-walks instead of sorting
+again; B2 given no order runs B1 for it.
 
 Two options change the semantics, as in the JAX kernel:
   * `sorted_passes` > 0 (the "sorted" k-buffer mode): per pixel and
@@ -560,26 +563,69 @@ def check_passes(sorted_passes: int) -> None:
         raise ValueError(f"sorted_passes must be >= 0, got {sorted_passes}")
 
 
+_FWD_ARGS = [_P] * 8 + [_I, _I] + [_F] * 4 + [_I] * 4 + [_P]
+_BWD_ARGS = [_P] * 9 + [_I, _I] + [_F] * 4 + [_I] * 4 + [_P]
+
+
+def order_buffer(tile_starts, tile_ends, cap: int):
+    """Room for the compositing orders that B1's sorted leg writes and B2's
+    reads: (words [steps, CHUNK // 4, PIX] int32, win_base [num_tiles]
+    int32), tile t's k-th window at step win_base[t] + k. Sized for every
+    window of every tile's range, at most cap / CHUNK + num_tiles (ranges
+    are disjoint), so no host sync."""
+    s, e = tile_starts.long(), tile_ends.long()
+    first = torch.div(s, CHUNK, rounding_mode="floor")
+    nwin = torch.where(e > s, torch.div(e - 1, CHUNK, rounding_mode="floor")
+                       + 1 - first, torch.zeros_like(s))
+    win_base = (torch.cumsum(nwin, 0) - nwin).to(torch.int32)
+    words = torch.empty((cap // CHUNK + s.shape[0], CHUNK // 4, PIX),
+                        dtype=torch.int32, device=tile_starts.device)
+    return words, win_base
+
+
+def dynamic_smem(sorted_passes: int, backward: bool = False) -> int:
+    """Bytes of dynamic shared memory a launch of B1 (B2 with `backward`)
+    with `sorted_passes` takes: the sorted legs' per-pixel buffers (csrc/
+    tile_raster_fwd.cu, tile_raster_bwd.cu), 0 for the others."""
+    name = "tile_raster_bwd" if backward else "tile_raster_fwd"
+    lib = cuda_build.library(name, _BWD_ARGS if backward else _FWD_ARGS)
+    fn = getattr(lib, f"{name}_smem")
+    fn.argtypes, fn.restype = [_I], _I
+    return int(fn(int(sorted_passes)))
+
+
+def _check_order(order, cap, num_tiles):
+    cuda_build.checked_inputs(
+        ("order", order[0], torch.int32,
+         (cap // CHUNK + num_tiles, CHUNK // 4, PIX)),
+        ("win_base", order[1], torch.int32, (num_tiles,)))
+
+
 def _launch(data_sorted, tile_starts, tile_ends, rays, degree,
             min_transmittance, min_response, min_alpha, max_alpha,
             has_t_max, aux_outputs, emit_flags, sorted_passes=0,
-            row_termination=False):
+            row_termination=False, order=None):
+    """B1. With sorted passes, `order` (order_buffer) receives each walked
+    window's compositing order for B2."""
     dev = rays.device
     cap = data_sorted.shape[0]
     num_tiles = rays.shape[0]
     _check_launch(data_sorted, tile_starts, tile_ends, rays, degree,
                   sorted_passes)
+    if order is not None:
+        _check_order(order, cap, num_tiles)
     out = torch.empty((num_tiles, 8, PIX), dtype=torch.float32, device=dev)
     flags = (torch.zeros(cap, dtype=torch.float32, device=dev)
              if emit_flags else None)
-    lib = cuda_build.library("tile_raster_fwd",
-                             [_P] * 6 + [_I, _I] + [_F] * 4 + [_I] * 4 + [_P])
+    lib = cuda_build.library("tile_raster_fwd", _FWD_ARGS)
     stream = torch.cuda.current_stream(dev).cuda_stream
     cuda_build.launches["tile_raster_fwd"] += 1
     cuda_build.check("tile_raster_fwd", lib.tile_raster_fwd(
         data_sorted.data_ptr(), tile_starts.data_ptr(), tile_ends.data_ptr(),
         rays.data_ptr(), out.data_ptr(),
-        flags.data_ptr() if emit_flags else None, num_tiles, degree,
+        flags.data_ptr() if emit_flags else None,
+        None if order is None else order[0].data_ptr(),
+        None if order is None else order[1].data_ptr(), num_tiles, degree,
         min_transmittance, min_response, min_alpha, max_alpha,
         int(bool(has_t_max)), int(bool(aux_outputs)), int(sorted_passes),
         int(bool(row_termination)), stream))
@@ -589,20 +635,31 @@ def _launch(data_sorted, tile_starts, tile_ends, rays, degree,
 def _launch_backward(data_sorted, tile_starts, tile_ends, rays, out, g_out,
                      degree, min_transmittance, min_response, min_alpha,
                      max_alpha, has_t_max, aux_grads, sorted_passes=0,
-                     row_termination=False):
+                     row_termination=False, order=None):
+    """B2. Its sorted leg re-walks the compositing orders B1 wrote into
+    `order` for this forward; without them, B1 runs first to write them."""
     cap = data_sorted.shape[0]
     num_tiles = rays.shape[0]
     _check_launch(data_sorted, tile_starts, tile_ends, rays, degree,
                   sorted_passes, out=out, g_out=g_out)
+    if sorted_passes and order is None:
+        order = order_buffer(tile_starts, tile_ends, cap)
+        _launch(data_sorted, tile_starts, tile_ends, rays, degree,
+                min_transmittance, min_response, min_alpha, max_alpha,
+                has_t_max, False, False, sorted_passes, row_termination,
+                order)
+    if sorted_passes:
+        _check_order(order, cap, num_tiles)
     # Zeroed: slots the walk never reaches keep an exact 0.
     grad = torch.zeros((cap, ROW_F), dtype=torch.float32, device=rays.device)
-    lib = cuda_build.library("tile_raster_bwd",
-                             [_P] * 7 + [_I, _I] + [_F] * 4 + [_I] * 4 + [_P])
+    lib = cuda_build.library("tile_raster_bwd", _BWD_ARGS)
     stream = torch.cuda.current_stream(rays.device).cuda_stream
     cuda_build.launches["tile_raster_bwd"] += 1
     cuda_build.check("tile_raster_bwd", lib.tile_raster_bwd(
         data_sorted.data_ptr(), tile_starts.data_ptr(), tile_ends.data_ptr(),
-        rays.data_ptr(), out.data_ptr(), g_out.data_ptr(), grad.data_ptr(),
+        rays.data_ptr(), out.data_ptr(), g_out.data_ptr(),
+        order[0].data_ptr() if sorted_passes else None,
+        order[1].data_ptr() if sorted_passes else None, grad.data_ptr(),
         num_tiles, degree, min_transmittance, min_response, min_alpha,
         max_alpha, int(bool(has_t_max)), int(bool(aux_grads)),
         int(sorted_passes), int(bool(row_termination)), stream))
@@ -616,20 +673,31 @@ def tile_composite_backward(data_sorted, tile_starts, tile_ends, rays, out,
                             max_alpha: float = C.MAX_ALPHA,
                             has_t_max: bool = True, aux_grads: bool = True,
                             sorted_passes: int = 0,
-                            row_termination: bool = False):
+                            row_termination: bool = False, order=None):
     """B2: per-slot gradients [cap, 16] of the packed rows for the output
     cotangent `g_out`, given the forward's output `out` (the JAX package's
     _backward_windows, in slot layout). `aux_grads=False` drops the depth
     and transmittance cotangents (rows 4-5 of g_out are not read);
-    `sorted_passes` and `row_termination` must be the forward's. Launches
-    the kernel for CUDA tensors; the plain version for CPU tensors."""
-    fn = (tile_composite_backward_plain if rays.device.type == "cpu"
-          else _launch_backward)
+    `sorted_passes` and `row_termination` must be the forward's, `order`
+    the compositing orders its B1 wrote, if it wrote them. Launches the
+    kernel for CUDA tensors; the plain version for CPU tensors."""
+    args = (data_sorted, tile_starts, tile_ends, rays, out,
+            g_out.contiguous(), degree, min_transmittance, min_response,
+            min_alpha, max_alpha, has_t_max, aux_grads, sorted_passes,
+            row_termination)
     with record_function("3dgut.bwd_composite"):
-        return fn(data_sorted, tile_starts, tile_ends, rays, out,
-                  g_out.contiguous(), degree, min_transmittance,
-                  min_response, min_alpha, max_alpha, has_t_max, aux_grads,
-                  sorted_passes, row_termination)
+        if rays.device.type == "cpu":
+            return tile_composite_backward_plain(*args)
+        return _launch_backward(*args, order=order)
+
+
+def forward_order(data_sorted, tile_starts, tile_ends, rays, sorted_passes,
+                  needs_grad: bool):
+    """The order buffer a differentiable forward's B1 fills for its B2:
+    only on the card, with sorted passes, when a backward will run."""
+    if not (needs_grad and sorted_passes and rays.device.type != "cpu"):
+        return None
+    return order_buffer(tile_starts, tile_ends, data_sorted.shape[0])
 
 
 class _TileComposite(torch.autograd.Function):
@@ -638,12 +706,18 @@ class _TileComposite(torch.autograd.Function):
                 min_transmittance, min_response, min_alpha, max_alpha,
                 has_t_max, aux_outputs, emit_flags, aux_grads, sorted_passes,
                 row_termination):
-        fn = tile_composite_plain if rays.device.type == "cpu" else _launch
         data_sorted, rays = data_sorted.detach(), rays.detach()
-        out, flags = fn(data_sorted, tile_starts, tile_ends, rays, degree,
-                        min_transmittance, min_response, min_alpha,
-                        max_alpha, has_t_max, aux_outputs, emit_flags,
-                        sorted_passes, row_termination)
+        args = (data_sorted, tile_starts, tile_ends, rays, degree,
+                min_transmittance, min_response, min_alpha, max_alpha,
+                has_t_max, aux_outputs, emit_flags, sorted_passes,
+                row_termination)
+        ctx.order = forward_order(data_sorted, tile_starts, tile_ends, rays,
+                                  sorted_passes,
+                                  ctx.needs_input_grad[0] and not emit_flags)
+        if rays.device.type == "cpu":
+            out, flags = tile_composite_plain(*args)
+        else:
+            out, flags = _launch(*args, order=ctx.order)
         if flags is None:
             flags = torch.zeros(0, dtype=torch.float32, device=rays.device)
         ctx.mark_non_differentiable(flags)
@@ -664,7 +738,8 @@ class _TileComposite(torch.autograd.Function):
                 "the trainer derives the same bit from nonzero gradients")
         data_sorted, tile_starts, tile_ends, rays, out = ctx.saved_tensors
         g_data = tile_composite_backward(data_sorted, tile_starts, tile_ends,
-                                         rays, out, g_out, *ctx.args)
+                                         rays, out, g_out, *ctx.args,
+                                         order=ctx.order)
         return (g_data,) + (None,) * 14
 
 
