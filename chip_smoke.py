@@ -70,7 +70,11 @@ Phases, each of which fails the run on a miss:
      row-terminated train paths' inputs, two launches bit-identical; the
      sorted legs also at 1 pass, the difference being `network_ms`, and
      each leg's ptxas report and dynamic shared memory), B7
-     and B8 (16 and 0 passes) within stated tolerances; B5, B6
+     and B8 (16, 1 and 0 passes: B7 writing its compositing orders
+     bit-identical to B7 writing none, B8 on them bit-identical to B8
+     whose wrapper runs B7 for them; `network_ms` and each
+     instantiation's ptxas report as for B1/B2) within stated
+     tolerances; B5, B6
      at 16 and at 64 channels within the f32 summation bound; B9 at the
      1M flat cull's inputs bit-equal and bit-identical), timed with
      CUDA events beside its bound and, for B5 and B6, one PyTorch call
@@ -123,20 +127,21 @@ FLOP_PAIR = 75
 # skip the reduction).
 FLOP_REDUCE = 16
 FLOP_CHAIN = 108
-# The odd-even network of B1 and B2's sorted legs (csrc/tile_pair.cuh
-# oddeven_network) and of B7 and B8: a compare and a select for each of the
-# 64 compare-exchanges of a pass. B1 and B2 count the passes a live
-# pixel-window runs (a pixel stops after two quiet passes).
+# The odd-even network of B1's and B7's sorted legs (csrc/tile_pair.cuh
+# oddeven_network_regs): a compare and a select for each of the 64
+# compare-exchanges of a pass, counted for the passes a live pixel- or
+# ray-window runs (it stops after two quiet passes).
 FLOP_SWAP = 2
 # B7 (csrc/bundle_trace_fwd.cu): the pair math and both gates (80) and the
 # compositing step (6) per (live ray, walked row); per counted pair the SH
 # colour (3 x 16 products and sums, the +0.5 and clamp: 102) and the 10
 # accumulating operations; FLOP_SWAP per pair of the network, 64 pairs per
-# pass, per live ray-window whose hits are out of row order.
+# pass run.
 FLOP_GRT_PAIR = 86
 FLOP_GRT_COUNTED = 112
-# B8 (csrc/bundle_trace_bwd.cu): the pair math of B7 (FLOP_GRT_PAIR) per
-# (live ray, walked row) and its network; per counted pair the gradient
+# B8 (csrc/bundle_trace_bwd.cu): the pair math of B7 (FLOP_GRT_PAIR) where
+# its walk evaluates a pair (with passes only at the hits of B7's orders;
+# no network); per counted pair the gradient
 # chain (the colour and suffix ~120, the pair chain ~110, the 48 SH products
 # and the gates: 280) and the 61 adds that sum its row over the bundle.
 FLOP_GRT_BWD_CHAIN = 280
@@ -814,23 +819,30 @@ def b9_record(args, launches, leg_ms, tag):
     return rec
 
 
-def grt_record(data, inp, launches, train_launches, tag):
+def grt_record(data, inp, launches, train_launches, ptxas, tag):
     """B7 against its plain version on the card at the 100k main shapes
-    (candidate rows `data`, the rest from grt.prepare's `inp`), with 16 and
-    with 0 passes: rows 0-5 within 2e-4 + 1e-4 |plain|, hit counts off by
+    (candidate rows `data`, the rest from grt.prepare's `inp`), with 16, 1
+    and 0 passes: rows 0-5 within 2e-4 + 1e-4 |plain|, hit counts off by
     at most 1 on at most 0.1% of the rays, walked windows equal on all but
-    0.1% of the bundles. Returns (record, {passes: (work, kernel output)})
-    for B8's record."""
+    0.1% of the bundles; with passes, the launch that writes the
+    compositing orders (a train step's forward) bit-identical to the one
+    that writes none. Timed as a trace runs it (no orders), and with the
+    orders as the differentiable forward runs it (`ms_with_order`);
+    `network_ms` is the 16-pass minus the 1-pass time. Returns (record,
+    {passes: (work, kernel output, orders)}) for B8's record."""
     from threedgrut_torch.constants import (MAX_ALPHA, MIN_ALPHA,
                                             MIN_KERNEL_RESPONSE,
                                             MIN_TRANSMITTANCE_3DGRT)
     from threedgrut_torch.ops import bundle_trace
     err, timing = 0.0, {}
-    for passes in (16, 0):
+    for passes in (16, 1, 0):
         args = (data, inp.rays, inp.win_starts, inp.win_ends, 4, 3,
                 MIN_TRANSMITTANCE_3DGRT, MIN_KERNEL_RESPONSE, MIN_ALPHA,
                 MAX_ALPHA, passes)
         k = bundle_trace._launch(*args)
+        order = bundle_trace.order_buffer(data) if passes else None
+        same = order is None or torch.equal(
+            k, bundle_trace._launch(*args, order=order))
         stats = {}
         p = bundle_trace.bundle_composite_plain(*args, stats=stats)
         d = (k - p).abs()
@@ -842,36 +854,46 @@ def grt_record(data, inp, launches, train_launches, tag):
         print(f"B7 passes={passes}: per-row max |kernel - plain| "
               f"{d.amax(dim=(0, 2)).tolist()}; rays whose hit count differs "
               f"{int((dh > 0).sum())}; bundles whose walk differs "
-              f"{walk_diff}; work {stats}", flush=True)
-        if not (within and hits_ok and walk_diff <= max(
+              f"{walk_diff}; with orders bit-identical {same}; work {stats}",
+              flush=True)
+        if not (within and hits_ok and same and walk_diff <= max(
                 1, math.floor(1e-3 * k.shape[0]))):
             fail(f"B7 (passes={passes}) outside its tolerances")
         err = max(err, float(d[:, 0:6].max()))
-        timing[passes] = (cuda_ms(lambda: bundle_trace._launch(*args), 10),
-                          cuda_ms(lambda: bundle_trace.bundle_composite_plain(
-                              *args), 1, warmup=0), stats, k)
+        timing[passes] = dict(
+            ms=cuda_ms(lambda: bundle_trace._launch(*args), 10),
+            ms_order=cuda_ms(lambda: bundle_trace._launch(
+                *args, order=order), 10) if passes else None,
+            plain=cuda_ms(lambda: bundle_trace.bundle_composite_plain(
+                *args), 1, warmup=0) if passes != 1 else None,
+            stats=stats, out=k, order=order)
+
     def b7_bound(passes):
         """bound_ms of the run with `passes` from its own output and work:
         bytes of its walked windows, rays and output; operations of its
-        live ray-windows, counted pairs and (passes > 0) the network on its
-        out-of-order ray-windows."""
-        _, _, stats, k = timing[passes]
+        live ray-windows, counted pairs and (passes > 0) the passes its
+        network runs on them."""
+        t = timing[passes]
+        k, stats = t["out"], t["stats"]
         nb = k.shape[0]
         return bound_ms(
             int(k[:, 7, 0].sum()) * 128 * 64 * 4 + nb * 8 * 256 * 4 * 2
             + nb * 8,
             FLOP_GRT_PAIR * 128 * stats["live_ray_windows"]
             + FLOP_GRT_COUNTED * float(k[:, 6].sum())
-            + FLOP_SWAP * 64 * passes * stats["inverted_ray_windows"])
+            + FLOP_SWAP * 64 * stats.get("network_passes", 0))
 
-    ms16, plain16, _, k16 = timing[16]
+    t16, k16 = timing[16], timing[16]["out"]
     bound, bound0 = b7_bound(16), b7_bound(0)
     print(f"B7 at 100k: {k16.shape[0]} bundles, {int(k16[:, 7, 0].sum())} "
           f"windows walked of {int((inp.win_ends - inp.win_starts).sum())}, "
           f"{float(k16[:, 6].sum()):.0f} counted pairs; 16 passes "
-          f"{ms16:.4f} ms (bound {bound[0]:.4f}), 0 passes "
-          f"{timing[0][0]:.4f} ms (bound {bound0[0]:.4f}) (plain "
-          f"{plain16:.2f} / {timing[0][1]:.2f} ms) {tag}", flush=True)
+          f"{t16['ms']:.4f} ms (with orders {t16['ms_order']:.4f}; bound "
+          f"{bound[0]:.4f}), 1 pass {timing[1]['ms']:.4f} ms, 0 passes "
+          f"{timing[0]['ms']:.4f} ms (bound {bound0[0]:.4f}) (plain "
+          f"{t16['plain']:.2f} / {timing[0]['plain']:.2f} ms); ptxas sorted "
+          f"{leg_ptxas(ptxas, 'bundle_trace_fwd', True)}, 0 passes "
+          f"{leg_ptxas(ptxas, 'bundle_trace_fwd', False)} {tag}", flush=True)
     return dict(
         name="bundle_trace_fwd", route="cuda",
         source="threedgrut_torch/csrc/bundle_trace_fwd.cu",
@@ -882,9 +904,14 @@ def grt_record(data, inp, launches, train_launches, tag):
                       for n, v in launches.items()},
         launches_grt_train={n: v.get("bundle_trace_fwd", 0)
                             for n, v in train_launches.items()},
-        max_abs_err=err, ms=ms16, plain_ms=plain16, ms_passes0=timing[0][0],
+        max_abs_err=err, ms=t16["ms"], plain_ms=t16["plain"],
+        ms_with_order=t16["ms_order"], ms_passes1=timing[1]["ms"],
+        network_ms=t16["ms"] - timing[1]["ms"], ms_passes0=timing[0]["ms"],
         bound_ms_passes0=bound0[0], bound_ms=bound[0], bound_by=bound[1],
-        library_ms=None), {p: (t[2], t[3]) for p, t in timing.items()}
+        library_ms=None, network=t16["stats"],
+        ptxas={"sorted": leg_ptxas(ptxas, "bundle_trace_fwd", True),
+               "passes0": leg_ptxas(ptxas, "bundle_trace_fwd", False)},
+        dynamic_smem_bytes=bundle_trace.dynamic_smem(16)), timing
 
 
 def grt_acts(params):
@@ -893,6 +920,12 @@ def grt_acts(params):
     return [x.detach() for x in (
         params.get_positions(), params.get_rotation(), params.get_scale(),
         params.get_density(), params.get_features())]
+
+
+def order_gib(flat_cap: int) -> float:
+    """GiB of the compositing orders a differentiable 16-pass forward's B7
+    writes for its B8 (bundle_trace.order_buffer: 32 KB per window)."""
+    return flat_cap // 128 * 32 * 1024 / 2 ** 30
 
 
 def grt_walk_capacity(flat_cap: int) -> int:
@@ -1060,10 +1093,12 @@ def grt_fwd_bwd_main_path(dev, tag, flat=False):
         steady = ms[1:5] if len(ms) >= 5 else ms[1:]
         med = float(np.median(steady))
         n_rays = o.shape[0]
+        orders = order_gib(cfg["flat_cap"])
         print(f"3DGRT fwd+bwd {cfg['name']} ({mode}): median of steps 2-"
               f"{len(steady) + 1} {med:.3f} ms, rays/s "
               f"{n_rays / (med / 1e3):.4e}, walk_capacity {walk}, "
-              f"max_memory_allocated {peak:.3f} GiB {tag}", flush=True)
+              f"max_memory_allocated {peak:.3f} GiB (of it B7's orders "
+              f"{orders:.3f} GiB) {tag}", flush=True)
         print(json.dumps({
             "metric": "grt_trace_rays_per_s_fwd_bwd",
             "value": n_rays / (med / 1e3), "unit": "rays/s/chip",
@@ -1074,7 +1109,8 @@ def grt_fwd_bwd_main_path(dev, tag, flat=False):
             "super_flat_capacity": cfg["sflat_cap"] if flat else None,
             "packed_cull": False, "flat_cull": flat,
             "candidate_overflow": False,
-            "step_ms": med, "max_memory_allocated_gib": peak}), flush=True)
+            "step_ms": med, "max_memory_allocated_gib": peak,
+            "order_buffer_gib": orders}), flush=True)
         del acts, o, d, out, gp, ga
     return launches, grt_walk_capacity(GRT_CONFIGS[0]["flat_cap"])
 
@@ -1140,7 +1176,8 @@ def grt_train_main_path(dev, tag):
                       *(getattr(tr.params, f) for f in aux["grads"])])
         print(f"3DGRT train step {k + 1}: {ms[-1]:.3f} ms, rays/s "
               f"{side * side / (ms[-1] / 1e3):.4e}, max_memory_allocated "
-              f"{peak:.3f} GiB, loss {float(aux['terms']['total']):.6f}, "
+              f"{peak:.3f} GiB (of it B7's orders {order_gib(cap):.3f} "
+              f"GiB), loss {float(aux['terms']['total']):.6f}, "
               f"overflow {flags[-1]}, isect_capacity {cap} (super lists "
               f"{grt_super_lists(cap)['super_capacity']}), launches {step}, "
               f"branch {branch or 'gather_rows'}, particles with a nonzero "
@@ -1162,13 +1199,16 @@ def grt_train_main_path(dev, tag):
     return dict(cuda_build.launches)
 
 
-def b8_record(data, inp, b7_runs, launches, walk, tag):
+def b8_record(data, inp, b7_runs, launches, walk, ptxas, tag):
     """B8 against its plain version on the card at the 100k main shapes
-    (16 and 0 passes), on B7's output and the cotangent of bench_grt's loss
-    mean(rgb) + mean(opacity): the nonzero slot rows equal, each value
+    (16, 1 and 0 passes), on B7's output and the cotangent of bench_grt's
+    loss mean(rgb) + mean(opacity): the nonzero slot rows equal, each value
     within 1e-4 x its column's max |plain| (the same per-ray chains summed
-    over a bundle's rays in another order), bit-identical across two
-    launches. Then B6 at 64 channels on the compact branch's rows of the
+    over a bundle's rays in another order); with passes, B8 on the orders
+    B7 wrote (as a train step runs it, and as it is timed) bit-identical
+    to B8 whose wrapper runs B7 for them; `network_ms` is the 16-pass
+    minus the 1-pass time (B8 runs no network: its walk differs only by
+    the order). Then B6 at 64 channels on the compact branch's rows of the
     16-pass gradients. Returns the two records."""
     from threedgrut_torch.constants import (MAX_ALPHA, MIN_ALPHA,
                                             MIN_KERNEL_RESPONSE,
@@ -1176,8 +1216,9 @@ def b8_record(data, inp, b7_runs, launches, walk, tag):
     from threedgrut_torch.ops import (bundle_trace, fused_raster, segment_sum,
                                       sorted_gather)
     err, timing = 0.0, {}
-    for passes in (16, 0):
-        stats, out = b7_runs[passes]
+    for passes in (16, 1, 0):
+        run = b7_runs[passes]
+        out, order = run["out"], run["order"]
         r_total = out.shape[0] * 256
         g_out = torch.zeros_like(out)
         g_out[:, 0:3] = 1.0 / (3 * r_total)
@@ -1185,7 +1226,7 @@ def b8_record(data, inp, b7_runs, launches, walk, tag):
         args = (data, inp.rays, inp.win_starts, inp.win_ends, out, g_out, 4,
                 3, MIN_TRANSMITTANCE_3DGRT, MIN_KERNEL_RESPONSE, MIN_ALPHA,
                 MAX_ALPHA, passes)
-        k = bundle_trace._launch_backward(*args)
+        k = bundle_trace._launch_backward(*args, order=order)
         same = torch.equal(k, bundle_trace._launch_backward(*args))
         p = bundle_trace.bundle_composite_backward_plain(*args)
         nz_k, nz_p = (k != 0).any(1), (p != 0).any(1)
@@ -1202,34 +1243,44 @@ def b8_record(data, inp, b7_runs, launches, walk, tag):
                 and not bool(k[:, 13:16].any())):
             fail(f"B8 (passes={passes}) disagrees with its plain version")
         err = max(err, float(d.max()))
-        timing[passes] = (
-            cuda_ms(lambda: bundle_trace._launch_backward(*args), 10),
-            cuda_ms(lambda: bundle_trace.bundle_composite_backward_plain(
-                *args), 1, warmup=0), stats, out, k)
+        timing[passes] = dict(
+            ms=cuda_ms(lambda: bundle_trace._launch_backward(
+                *args, order=order), 10),
+            plain=cuda_ms(lambda: bundle_trace.bundle_composite_backward_plain(
+                *args), 1, warmup=0) if passes != 1 else None,
+            stats=run["stats"], out=out, grad=k)
 
     def b8_bound(passes):
         """bound_ms from the run's own work: its walked windows read, the
-        [capF, 64] output written, rays, output and cotangent read; the pair
-        math of its live ray-windows, the chain and reduction of its counted
-        pairs, the network on its out-of-order ray-windows."""
-        _, _, stats, out, k = timing[passes]
+        [capF, 64] output written, rays, output and cotangent read, with
+        passes the orders of its live ray-windows (128 bytes each); the
+        pair math where its walk evaluates a pair (every live pair without
+        passes, the live hits on the orders), the chain and reduction of
+        its counted pairs. No network: B8 runs none."""
+        t = timing[passes]
+        out, k, stats = t["out"], t["grad"], t["stats"]
         nb = out.shape[0]
+        pairs = stats["live_hits"] if passes else stats["live_pairs"]
         return bound_ms(
             int(out[:, 7, 0].sum()) * 128 * 64 * 4 + k.numel() * 4
-            + nb * 8 * 256 * 4 * 3 + nb * 8,
-            FLOP_GRT_PAIR * 128 * stats["live_ray_windows"]
+            + nb * 8 * 256 * 4 * 3 + nb * 8
+            + (128 * stats["live_ray_windows"] if passes else 0),
+            FLOP_GRT_PAIR * pairs
             + (FLOP_GRT_BWD_CHAIN + FLOP_GRT_BWD_REDUCE)
-            * float(out[:, 6].sum())
-            + FLOP_SWAP * 64 * passes * stats["inverted_ray_windows"])
+            * float(out[:, 6].sum()))
 
-    ms16, plain16, _, out16, k16 = timing[16]
+    t16, out16, k16 = timing[16], timing[16]["out"], timing[16]["grad"]
     bound, bound0 = b8_bound(16), b8_bound(0)
+    blocks = bundle_trace.backward_slots(out16.shape[0], 16)
     print(f"B8 at 100k: {out16.shape[0]} bundles, "
           f"{int(out16[:, 7, 0].sum())} windows walked, "
           f"{float(out16[:, 6].sum()):.0f} counted pairs; 16 passes "
-          f"{ms16:.4f} ms (bound {bound[0]:.4f}, {bound[1]}), 0 passes "
-          f"{timing[0][0]:.4f} ms (bound {bound0[0]:.4f}) (plain "
-          f"{plain16:.2f} / {timing[0][1]:.2f} ms) {tag}", flush=True)
+          f"{t16['ms']:.4f} ms (bound {bound[0]:.4f}, {bound[1]}), 1 pass "
+          f"{timing[1]['ms']:.4f} ms, 0 passes {timing[0]['ms']:.4f} ms "
+          f"(bound {bound0[0]:.4f}) (plain {t16['plain']:.2f} / "
+          f"{timing[0]['plain']:.2f} ms); {blocks} blocks; ptxas sorted "
+          f"{leg_ptxas(ptxas, 'bundle_trace_bwd', True)}, 0 passes "
+          f"{leg_ptxas(ptxas, 'bundle_trace_bwd', False)} {tag}", flush=True)
     total = lambda name: sum(v.get(name, 0) for v in launches.values())
     rec8 = dict(
         name="bundle_trace_bwd", route="cuda",
@@ -1238,9 +1289,13 @@ def b8_record(data, inp, b7_runs, launches, walk, tag):
         launches=total("bundle_trace_bwd"), launches_forward=0,
         launches_grt_train={n: v.get("bundle_trace_bwd", 0)
                             for n, v in launches.items()},
-        max_abs_err=err, ms=ms16, plain_ms=plain16, ms_passes0=timing[0][0],
-        bound_ms_passes0=bound0[0], bound_ms=bound[0], bound_by=bound[1],
-        library_ms=None)
+        max_abs_err=err, ms=t16["ms"], plain_ms=t16["plain"],
+        ms_passes1=timing[1]["ms"], network_ms=t16["ms"] - timing[1]["ms"],
+        ms_passes0=timing[0]["ms"], bound_ms_passes0=bound0[0],
+        bound_ms=bound[0], bound_by=bound[1], library_ms=None,
+        ptxas={"sorted": leg_ptxas(ptxas, "bundle_trace_bwd", True),
+               "passes0": leg_ptxas(ptxas, "bundle_trace_bwd", False)},
+        blocks=blocks)
 
     # B6 at 64 channels: the compact branch's rows, sorted by particle.
     n = inp.rows64.shape[0]
@@ -1491,11 +1546,12 @@ def ptxas_report(reports):
     return out
 
 
-def leg_ptxas(ptxas, kernel, passes, rowterm):
-    """The ptxas report of `kernel`'s <SORTED, ROWTERM> instantiation
-    (None where this run compiled nothing)."""
-    prefix = (f"_Z{len(kernel) + 7}{kernel}_kernelILb{int(passes > 0)}"
-              f"ELb{int(bool(rowterm))}E")
+def leg_ptxas(ptxas, kernel, *legs):
+    """The ptxas report of `kernel`'s instantiation whose bool template
+    parameters are `legs` (B1/B2: <passes > 0, row termination>; B7/B8:
+    <passes > 0>), None where this run compiled nothing."""
+    prefix = (f"_Z{len(kernel) + 7}{kernel}_kernelI"
+              + "".join(f"Lb{int(bool(x))}E" for x in legs) + "E")
     return next((v for k, v in ptxas.items() if k.startswith(prefix)), None)
 
 
@@ -1589,7 +1645,7 @@ def option_records(runs, tag, ptxas):
                 *b1_in), 1, warmup=0),
             bound_ms=b1_bound[0], bound_by=b1_bound[1], library_ms=None,
             walked_slots=walked, network=stats,
-            ptxas=leg_ptxas(ptxas, "tile_raster_fwd", passes, rowterm),
+            ptxas=leg_ptxas(ptxas, "tile_raster_fwd", passes > 0, rowterm),
             dynamic_smem_bytes=tile_raster.dynamic_smem(passes)))
         if passes:
             # The same walk with a 1-pass network: what the rest costs.
@@ -1640,7 +1696,7 @@ def option_records(runs, tag, ptxas):
                 warmup=0),
             bound_ms=b2_bound[0], bound_by=b2_bound[1], library_ms=None,
             live_pairs=live,
-            ptxas=leg_ptxas(ptxas, "tile_raster_bwd", passes, rowterm),
+            ptxas=leg_ptxas(ptxas, "tile_raster_bwd", passes > 0, rowterm),
             dynamic_smem_bytes=tile_raster.dynamic_smem(passes, True)))
         if passes:
             out1, _ = tile_raster._launch(*one, order=order1)
@@ -1988,15 +2044,16 @@ def main() -> int:
         bound_ms=b1_bound[0], bound_by=b1_bound[1], library_ms=None))
 
     records += backward_records(tr, view, train_launches, tag)
-    records += option_records(option_runs, tag, ptxas_report(reports))
+    ptxas = ptxas_report(reports)
+    records += option_records(option_runs, tag, ptxas)
     from threedgrut_torch.render import grt
     with torch.no_grad():
         g_data = grt.gather_candidates(g_inp)
     rec7, b7_runs = grt_record(g_data, g_inp, grt_launches,
-                               grt_train_launches, tag)
+                               grt_train_launches, ptxas, tag)
     records.append(rec7)
     records += b8_record(g_data, g_inp, b7_runs, grt_train_launches,
-                         grt_walk, tag)
+                         grt_walk, ptxas, tag)
     del g_inp, g_data, b7_runs
     records.append(b9_record(b9_args, b9_launches, leg_ms, tag))
     del b9_args

@@ -20,7 +20,9 @@ most 1 on at most 0.1% of the rays and walked windows equal on all but
 version on the card's own forward output: the nonzero slot rows equal,
 values atol 1e-4 x each column's max (the same per-ray chains, summed over
 the bundle's rays in another order, the suffix residual from a sequential
-prefix here and a cumsum there), bit-identical across two launches. B6 at
+prefix here and a cumsum there), bit-identical across two launches; B8
+on the orders B7 wrote bit-equal to B8 whose wrapper runs B7 for them,
+and B7 writing orders bit-equal to B7 writing none. B6 at
 64 channels: within f32_sum_bound. A 3DGRT train step card vs CPU: loss
 rtol 1e-4, gradients within golden.rows_agree(1e-4), bit-identical on the
 card across two runs. B1 and B2 with sorted passes and row termination:
@@ -586,6 +588,112 @@ def test_bundle_trace_bwd_kernel_matches_plain(dev, passes):
         lo = int(ws[b])
         walked[lo:lo + int(out[b, 7, 0])] = True
     assert not k.view(-1, 128, 64)[~walked].any()
+
+
+def edge_case(args):
+    """grt_inputs' args with the edge cases of
+    test_bundle_trace_kernel_edge_cases: an empty bundle, an initial
+    transmittance < 1, inactive rays and a bound t_max."""
+    data, rays, ws, we, *rest = args
+    we = we.clone()
+    we[3] = ws[3]
+    rays = rays.clone()
+    rays[5, 7] = 0.5
+    rays[4, 3:6, :32] = 0.0
+    rays[6, 6] = 4.5
+    return (data, rays, ws, we, *rest)
+
+
+@pytest.mark.parametrize("passes", [1, 16, 70])
+def test_bundle_trace_orders_leave_the_output_bitwise(dev, passes):
+    """B7 writing its compositing orders gives bit for bit the output of B7
+    writing none; each live ray-window's order is a permutation of the
+    window's rows."""
+    args = grt_inputs(dev, passes)
+    order = bundle_trace.order_buffer(args[0])
+    order.fill_(-1)
+    k = bundle_trace._launch(*args, order=order)
+    assert torch.equal(k, bundle_trace._launch(*args))
+    ws = args[2].long()
+    rows = bundle_trace.order_bytes(order[ws]) & (bundle_trace.HIT - 1)
+    assert torch.equal(rows.sort(1).values,
+                       torch.arange(128, device=dev)[None, :, None].expand(
+                           rows.shape))
+
+
+@pytest.mark.parametrize("edges", [False, True])
+@pytest.mark.parametrize("passes", [0, 1, 2, 16, 70])
+def test_bundle_trace_bwd_rewalks_b7_orders(dev, passes, edges):
+    """B8 on the orders its B7 wrote equals B8 whose wrapper runs B7 first
+    (bit for bit) and its plain version (assert_b8_close), at 0-70 passes
+    and on the edge cases."""
+    args = grt_inputs(dev, passes)
+    if edges:
+        args = edge_case(args)
+    order = bundle_trace.order_buffer(args[0]) if passes else None
+    out = bundle_trace._launch(*args, order=order)
+    gen = torch.Generator(dev).manual_seed(passes)
+    g = torch.randn(out.shape, device=dev, generator=gen)
+    g[:, 6:] = 0.0
+    bargs = args[:4] + (out, g) + args[4:]
+    before = dict(cuda_build.launches)
+    k = bundle_trace._launch_backward(*bargs, order=order)
+    k2 = bundle_trace._launch_backward(*bargs)
+    torch.cuda.synchronize()
+    assert cuda_build.launches["bundle_trace_bwd"] == before.get(
+        "bundle_trace_bwd", 0) + 2
+    assert cuda_build.launches["bundle_trace_fwd"] == before.get(
+        "bundle_trace_fwd", 0) + (1 if passes else 0)
+    assert torch.equal(k, k2)
+    assert_b8_close(k, bundle_trace.bundle_composite_backward_plain(*bargs))
+
+
+def test_bundle_trace_wrappers_reject_bad_orders(dev):
+    args = grt_inputs(dev, 16)
+    good = bundle_trace.order_buffer(args[0])
+    bad = [good[1:], good.float(), good.to(torch.int64),
+           good.reshape(-1, 64, 128), good.cpu()]
+    for b in bad:
+        with pytest.raises((ValueError, TypeError)):
+            bundle_trace._launch(*args, order=b)
+    with pytest.raises(ValueError):
+        bundle_trace._launch(*args[:-1], 0, order=good)
+    out = bundle_trace._launch(*args, order=good)
+    bargs = args[:4] + (out, torch.zeros_like(out)) + args[4:]
+    for b in bad:
+        with pytest.raises((ValueError, TypeError)):
+            bundle_trace._launch_backward(*bargs, order=b)
+
+
+def test_trace_writes_orders_only_for_a_backward(dev, monkeypatch):
+    """A no-grad trace (of parameters that require a gradient, as in a
+    trainer's evaluation) allocates no order buffer; a differentiable one
+    (the fused route and bundle_composite's) allocates one, which its
+    backward re-walks without running B7 again."""
+    made = []
+    real = bundle_trace.order_buffer
+    monkeypatch.setattr(bundle_trace, "order_buffer",
+                        lambda data: made.append(1) or real(data))
+    params, o, d = grt_scene(dev)
+    o, d = torch.tensor(o, device=dev), torch.tensor(d, device=dev)
+    acts = [x.detach() for x in (params.get_positions(),
+                                 params.get_rotation(), params.get_scale(),
+                                 params.get_density(), params.get_features())]
+    kw = dict(candidate_capacity=2048, super_capacity=8192)
+    for walk in (256, None):
+        xs = [a.clone().requires_grad_(True) for a in acts]
+        with torch.no_grad():
+            out = grt.trace(*xs, o, d, walk_capacity=walk, **kw)
+        assert not made and not bool(out.overflow)
+    for walk in (256, None):
+        made.clear()
+        xs = [a.clone().requires_grad_(True) for a in acts]
+        cuda_build.launches.clear()
+        out = grt.trace(*xs, o, d, walk_capacity=walk, **kw)
+        out.rgb.sum().backward()
+        assert made == [1]
+        assert cuda_build.launches["bundle_trace_fwd"] == 1
+        assert cuda_build.launches["bundle_trace_bwd"] == 1
 
 
 def test_segment_sum_by_ids_64_channels_matches_plain(dev):

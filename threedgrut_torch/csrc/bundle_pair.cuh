@@ -12,6 +12,9 @@
 #include "tile_pair.cuh"
 
 #define ROW64 64
+// The hit bit of a byte of B7's compositing orders, which B8 re-walks: set
+// where the sorted key is < BIG (the other 7 bits are the row).
+#define HIT 0x80u
 
 // Per-ray SH basis (bundle_trace.py _sh_basis_rows); entries past
 // (sh_degree + 1)^2 are 0.

@@ -4,9 +4,10 @@
 // (_backward_kernel), reached through bundle_composite's _bwd_rule and the
 // fused walked-window backward (ops/fused_raster.py composite_bundles).
 //
-// One block per bundle, one thread per ray (256), the forward's shape: the
-// block re-walks the bundle's windows, loading each 128-row window (32 KB)
-// into shared memory, and stops where the forward stopped
+// Blocks of one thread per ray (256), the forward's shape: a block takes
+// bundles one after another (an atomic counter hands them out) and re-walks
+// each bundle's windows, loading each 128-row window (32 KB) into shared
+// memory, and stops where the forward stopped
 // (__syncthreads_or(carry > min_transmittance) after a window). Every pair
 // goes through the forward's definitions (bundle_pair.cuh, tile_pair.cuh);
 // with --fmad=false both kernels see the same alpha, colour and
@@ -27,31 +28,42 @@
 // (sh_degree + 1)^2 are 0). Rays with w == 0 contribute exactly 0.
 //
 // Layout. The sum over a row's 256 rays needs every ray at the same row, but
-// with passes > 0 each ray finds its suffix walking its own sorted order.
-// So the window takes two passes. Pass A, per ray in its compositing order,
-// runs the forward's walk and stores by ROW index the two scalars the chain
-// needs, w and d_alpha, and the three colour gates, in per-thread arrays in
-// local memory (1152 B a thread; 256 rays x 128 rows x 9 B would not fit a
-// block's shared memory beside the window). Pass B, in row order, re-
-// evaluates pair_eval for the row's live rays, forms the 64 values and sums
-// them over the block in a fixed order: a transposing warp butterfly (62
-// shuffles leave each lane with two fields' warp sums; a warp with no live
-// lane skips it), then the 8 warps' partials in order through shared
-// memory, SUB rows at a time, one thread per (row, field) for the write.
-// Each window belongs to one bundle, so each gradient row is written once
-// by one block: no atomics, bit-identical on every run. The wrapper zeroes
-// the output; windows the walk never reached stay exactly 0.
+// each ray finds its suffix walking its own compositing order, so the
+// window takes two passes. Pass A walks the ray's order once and, for each
+// counted row (w > 0), stores w and d_alpha by ROW in the block's slot of
+// an L2-resident scratch ([slot][row][ray] float2; a slot per resident
+// block, 256 KB) and a flag byte (counted, and the three colour gates) in a
+// column of dynamic shared memory ([128][256] bytes, 32 KB, zeroed per live
+// ray-window); rows past the walk's end are never stored. With passes > 0
+// (SORTED) the order is the one B7 wrote for this ray and window (`order`,
+// a word per four positions, a row index per byte with its top bit set
+// where the sorted key is < 3.4e38): pass A runs no network, evaluates a
+// pair only at those positions, and stops at the first T_before <= min_T
+// (exact: T_before never grows, as 0 <= alpha <= 1). Without passes it
+// walks the rows in order. Pass B, in row order, reads each row's flags,
+// re-evaluates pair_eval for the row's counted rays, forms the 64 values
+// and sums them over the block in a fixed order: a transposing warp
+// butterfly (62 shuffles leave each lane with two fields' warp sums; a warp
+// with no live lane skips it), then the 8 warps' partials in order through
+// shared memory, SUB rows at a time, one thread per (row, field) for the
+// write. Each window belongs to one bundle, so each gradient row is written
+// once by one block: no atomics in the sums, bit-identical on every run.
+// The wrapper zeroes the output; windows the walk never reached stay
+// exactly 0. At most 128 registers and 72 KB of shared memory leave two
+// blocks (16 warps) per SM.
 //
-// Bound on this card: operations against 67 TFLOP/s f32. Per (live ray,
-// walked row) the pair math, gates and compositing step (~86, as B7); per
-// counted pair (w > 0) the gradient chain (~280: the colour and suffix ~120,
-// the pair chain ~110, the 48 SH products and 3 gates) and the 61 adds that
-// sum its row over the bundle; ~2 x 64 x passes per out-of-order
-// ray-window for the network. Device memory sees 32 KB read per walked
-// window, the [capF, 64] output written once (the zero fill included) and
-// 24 KB of rays, forward output and cotangent per bundle. Pass A's walk is
-// serial per ray and its arrays live in local memory, so the kernel is
-// bound by instruction issue and local-memory traffic.
+// Bound on this card: operations against 67 TFLOP/s f32. The pair math,
+// gates and compositing step (~86, as B7) wherever the walk evaluates a
+// pair (every live (ray, row) without passes, only the live hits on B7's
+// orders); per counted pair (w > 0) the gradient chain (~280: the colour
+// and suffix ~120, the pair chain ~110, the 48 SH products and 3 gates)
+// and the 61 adds that sum its row over the bundle. Device memory sees 32
+// KB read per walked window, the [capF, 64] output written once (the zero
+// fill included), 24 KB of rays, forward output and cotangent per bundle
+// and, with passes, 128 bytes of order per live ray-window (the scratch's 8
+// bytes per counted pair stay in L2). Pass A's walk is serial per ray, and
+// pass B's butterfly runs for every row some lane of a warp counted, so the
+// kernel is bound by instruction issue.
 #include "bundle_pair.cuh"
 
 #define SUB 4            // rows per cross-warp reduction batch
@@ -154,97 +166,100 @@ __device__ __forceinline__ void pair_grads(
 
 }  // namespace
 
-__global__ void __launch_bounds__(PIX)
+template <bool SORTED>
+__global__ void __launch_bounds__(PIX, 2)
 bundle_trace_bwd_kernel(const float* __restrict__ data,
                         const int* __restrict__ win_starts,
                         const int* __restrict__ win_ends,
                         const float* __restrict__ rays,
                         const float* __restrict__ fwd,
                         const float* __restrict__ gout,
-                        float* __restrict__ grad, int num_windows, int degree,
-                        int sh_degree, float min_transmittance,
-                        float min_response, float min_alpha, float max_alpha,
-                        int passes) {
+                        const unsigned* __restrict__ order,
+                        float2* __restrict__ scratch,
+                        int* __restrict__ next_bundle,
+                        float* __restrict__ grad, int num_bundles,
+                        int num_windows, int degree, int sh_degree,
+                        float min_transmittance, float min_response,
+                        float min_alpha, float max_alpha) {
     __shared__ __align__(16) float rows[CHUNK * ROW64];
     __shared__ float part[PIX / 32][SUB][ROW64];
+    __shared__ int taken;
+    // Pass A's flag bytes (ray index fastest): byte r & 3 of word
+    // [r >> 2][PIX] for row r; bit 3 counted, bits 0-2 the colour gates.
+    extern __shared__ unsigned flags[];
 
-    const int bnd = blockIdx.x;
     const int p = threadIdx.x;
     const int lane = p & 31, warp = p >> 5;
-    const float* rb = rays + (size_t)bnd * 8 * PIX;
-    const float* fo = fwd + (size_t)bnd * 8 * PIX;
-    const float* go = gout + (size_t)bnd * 8 * PIX;
-    const Ray ray = load_ray(rb, p);
-    float carry = rb[7 * PIX + p];
-    float bs[16];
-    sh_basis(ray.dx, ray.dy, ray.dz, sh_degree, bs);
-    const int nbasis = (sh_degree + 1) * (sh_degree + 1);
-    const float dCr = go[0 * PIX + p], dCg = go[1 * PIX + p],
-                dCb = go[2 * PIX + p], dO = go[3 * PIX + p],
-                dD = go[4 * PIX + p], dT = go[5 * PIX + p];
-    const float t_final = fo[5 * PIX + p];
-    const float a_tot = fo[0 * PIX + p] * dCr + fo[1 * PIX + p] * dCg
-                        + fo[2 * PIX + p] * dCb + fo[3 * PIX + p] * dO
-                        + fo[4 * PIX + p] * dD;
-    float prefix = 0.0f;
-    // Pass A's results, by row index.
-    float wgt[CHUNK], dal[CHUNK];
-    unsigned char gate[CHUNK];
+    unsigned* fcol = flags + p;
+    // This block's slot of the scratch: w and d_alpha by [row][ray].
+    float2* scol = scratch + (size_t)blockIdx.x * CHUNK * PIX + p;
 
-    const int w0 = min(max(win_starts[bnd], 0), num_windows);
-    const int w1 = min(max(win_ends[bnd], w0), num_windows);
-    int g = w0;
-    while (g < w1) {
-        const float4* src = reinterpret_cast<const float4*>(
-            data + (size_t)g * CHUNK * ROW64);
-        float4* dst = reinterpret_cast<float4*>(rows);
-#pragma unroll
-        for (int i = 0; i < CHUNK * ROW64 / 4 / PIX; ++i)
-            dst[p + i * PIX] = src[p + i * PIX];
+    for (;;) {
+        if (p == 0) taken = atomicAdd(next_bundle, 1);
         __syncthreads();
+        const int bnd = taken;
+        if (bnd >= num_bundles) break;
+        const float* rb = rays + (size_t)bnd * 8 * PIX;
+        const float* fo = fwd + (size_t)bnd * 8 * PIX;
+        const float* go = gout + (size_t)bnd * 8 * PIX;
+        const Ray ray = load_ray(rb, p);
+        float carry = rb[7 * PIX + p];
+        float bs[16];
+        sh_basis(ray.dx, ray.dy, ray.dz, sh_degree, bs);
+        const int nbasis = (sh_degree + 1) * (sh_degree + 1);
+        const float dCr = go[0 * PIX + p], dCg = go[1 * PIX + p],
+                    dCb = go[2 * PIX + p], dO = go[3 * PIX + p],
+                    dD = go[4 * PIX + p], dT = go[5 * PIX + p];
+        const float t_final = fo[5 * PIX + p];
+        const float a_tot = fo[0 * PIX + p] * dCr + fo[1 * PIX + p] * dCg
+                            + fo[2 * PIX + p] * dCb + fo[3 * PIX + p] * dO
+                            + fo[4 * PIX + p] * dD;
+        float prefix = 0.0f;
 
-        // Pass A: the forward's walk of this ray, in compositing order.
-        const bool ray_live = carry > min_transmittance;
-        if (ray_live) {
-            float key[CHUNK];
-            unsigned char idx[CHUNK];
-            if (passes > 0) {
-                for (int r = 0; r < CHUNK; ++r) {
-                    float hit_t;
-                    const float alpha = row_alpha(rows + r * ROW64, ray,
-                                                  degree, min_response,
-                                                  min_alpha, max_alpha,
-                                                  &hit_t);
-                    key[r] = alpha > 0.0f ? hit_t : BIG;
-                    idx[r] = (unsigned char)r;
-                }
-                for (int i = 0; i < passes; ++i) {
-                    for (int j = i & 1; j < CHUNK - 1; j += 2) {
-                        const float ka = key[j], kb = key[j + 1];
-                        if (kb < ka) {
-                            key[j] = kb;
-                            key[j + 1] = ka;
-                            const unsigned char t = idx[j];
-                            idx[j] = idx[j + 1];
-                            idx[j + 1] = t;
+        const int w0 = min(max(win_starts[bnd], 0), num_windows);
+        const int w1 = min(max(win_ends[bnd], w0), num_windows);
+        int g = w0;
+        while (g < w1) {
+            const float4* src = reinterpret_cast<const float4*>(
+                data + (size_t)g * CHUNK * ROW64);
+            float4* dst = reinterpret_cast<float4*>(rows);
+#pragma unroll
+            for (int i = 0; i < CHUNK * ROW64 / 4 / PIX; ++i)
+                dst[p + i * PIX] = src[p + i * PIX];
+            __syncthreads();
+
+            // Pass A: the forward's walk of this ray, in compositing order.
+            const bool ray_live = carry > min_transmittance;
+            if (ray_live) {
+#pragma unroll
+                for (int i = 0; i < CHUNK / 4; ++i) fcol[i * PIX] = 0u;
+                const unsigned* ord =
+                    SORTED ? order + (size_t)g * (CHUNK / 4) * PIX + p
+                           : nullptr;
+                float prod = 1.0f, tmin = BIG;
+                unsigned word = 0u;
+                for (int k = 0; k < CHUNK; ++k) {
+                    const float t_before = carry * prod;
+                    if (!(t_before > min_transmittance)) break;
+                    int r = k;
+                    if constexpr (SORTED) {
+                        if ((k & 3) == 0) word = __ldg(ord + (k >> 2) * PIX);
+                        const unsigned b = (word >> (8 * (k & 3))) & 0xffu;
+                        if (!(b & HIT)) {
+                            // alpha 0: the product stands, and
+                            // T_before (1 - 0) = T_before.
+                            tmin = fminf(tmin, t_before);
+                            continue;
                         }
+                        r = (int)(b & 0x7fu);
                     }
-                }
-            }
-            float prod = 1.0f, tmin = BIG;
-            for (int k = 0; k < CHUNK; ++k) {
-                const int r = passes > 0 ? idx[k] : k;
-                const float* q = rows + r * ROW64;
-                float hit_t = 0.0f, alpha = 0.0f;
-                if (passes == 0 || key[k] < BIG)
-                    alpha = row_alpha(q, ray, degree, min_response,
-                                      min_alpha, max_alpha, &hit_t);
-                const float one_m = 1.0f - alpha;
-                const float t_before = carry * prod;
-                float w = 0.0f, d_alpha = 0.0f;
-                unsigned char gt = 0;
-                if (t_before > min_transmittance) {
-                    w = alpha * t_before;
+                    const float* q = rows + r * ROW64;
+                    float hit_t;
+                    const float alpha = row_alpha(q, ray, degree,
+                                                  min_response, min_alpha,
+                                                  max_alpha, &hit_t);
+                    const float one_m = 1.0f - alpha;
+                    const float w = alpha * t_before;
                     if (w > 0.0f) {
                         float c[3];
                         raw_colours(q, bs, nbasis, c);
@@ -255,94 +270,149 @@ bundle_trace_bwd_kernel(const float* __restrict__ data,
                         prefix = prefix + w * qj;
                         const float suffix = a_tot - prefix;
                         const float inv_one_m = 1.0f / fmaxf(one_m, 1e-6f);
-                        d_alpha = t_before * qj - suffix * inv_one_m
-                                  - dT * t_final * inv_one_m;
-                        gt = (unsigned char)((c[0] > 0.0f)
-                                             | ((c[1] > 0.0f) << 1)
-                                             | ((c[2] > 0.0f) << 2));
+                        const float d_alpha = t_before * qj
+                                              - suffix * inv_one_m
+                                              - dT * t_final * inv_one_m;
+                        scol[r * PIX] = make_float2(w, d_alpha);
+                        reinterpret_cast<unsigned char*>(
+                            fcol + (r >> 2) * PIX)[r & 3] =
+                            (unsigned char)(8 | (c[0] > 0.0f)
+                                            | ((c[1] > 0.0f) << 1)
+                                            | ((c[2] > 0.0f) << 2));
                     }
                     tmin = fminf(tmin, t_before * one_m);
+                    prod *= one_m;
                 }
-                prod *= one_m;
-                wgt[r] = w;
-                dal[r] = d_alpha;
-                gate[r] = gt;
+                carry = fminf(tmin, carry);
             }
-            carry = fminf(tmin, carry);
-        }
 
-        // Pass B: row order, the 64 entries summed over the bundle's rays.
-        for (int kb = 0; kb < CHUNK; kb += SUB) {
-            for (int j = 0; j < SUB; ++j) {
-                const int r = kb + j;
-                float v[ROW64];
+            // Pass B: row order, the 64 entries summed over the bundle's
+            // rays.
+            for (int kb = 0; kb < CHUNK; kb += SUB) {
+                for (int j = 0; j < SUB; ++j) {
+                    const int r = kb + j;
+                    float v[ROW64];
 #pragma unroll
-                for (int i = 0; i < ROW64; ++i) v[i] = 0.0f;
-                const bool live = ray_live && wgt[r] > 0.0f;
-                if (live)
-                    pair_grads(rows + r * ROW64, ray, bs, nbasis, wgt[r],
-                               dal[r], gate[r], dCr, dCg, dCb, dD, degree,
-                               min_response, min_alpha, max_alpha, v);
-                if (__any_sync(FULL, live)) {
-                    warp_sum64(v, lane);
-                    const int f = 32 * ((lane >> 4) & 1)
-                                  + 16 * ((lane >> 3) & 1)
-                                  + 8 * ((lane >> 2) & 1)
-                                  + 4 * ((lane >> 1) & 1) + 2 * (lane & 1);
-                    part[warp][j][f] = v[0];
-                    part[warp][j][f + 1] = v[1];
-                } else {
-                    part[warp][j][lane] = 0.0f;
-                    part[warp][j][lane + 32] = 0.0f;
-                }
-            }
-            __syncthreads();
-            {
-                // Cross-warp sums in warp order; one thread per (row, field).
-                const int j = p / ROW64, f = p % ROW64;
-                float val;
-                if (f >= 9 && f < 12) {
-                    // dmean_k = -sum_r A[r][k] sum_rays du_r
-                    const float* q = rows + (kb + j) * ROW64;
-                    float su[3];
-                    for (int r = 0; r < 3; ++r) {
-                        su[r] = part[0][j][9 + r];
-                        for (int i = 1; i < PIX / 32; ++i)
-                            su[r] = su[r] + part[i][j][9 + r];
+                    for (int i = 0; i < ROW64; ++i) v[i] = 0.0f;
+                    const unsigned f =
+                        ray_live ? (fcol[(r >> 2) * PIX] >> (8 * (r & 3)))
+                                       & 0xffu
+                                 : 0u;
+                    const bool live = f & 8u;
+                    if (live) {
+                        const float2 wd = scol[r * PIX];
+                        pair_grads(rows + r * ROW64, ray, bs, nbasis, wd.x,
+                                   wd.y, (unsigned char)(f & 7u), dCr, dCg,
+                                   dCb, dD, degree, min_response, min_alpha,
+                                   max_alpha, v);
                     }
-                    const int k = f - 9;
-                    val = -(q[k] * su[0] + q[3 + k] * su[1]
-                            + q[6 + k] * su[2]);
-                } else {
-                    val = part[0][j][f];
-                    for (int i = 1; i < PIX / 32; ++i)
-                        val = val + part[i][j][f];
+                    if (__any_sync(FULL, live)) {
+                        warp_sum64(v, lane);
+                        const int fl = 32 * ((lane >> 4) & 1)
+                                       + 16 * ((lane >> 3) & 1)
+                                       + 8 * ((lane >> 2) & 1)
+                                       + 4 * ((lane >> 1) & 1)
+                                       + 2 * (lane & 1);
+                        part[warp][j][fl] = v[0];
+                        part[warp][j][fl + 1] = v[1];
+                    } else {
+                        part[warp][j][lane] = 0.0f;
+                        part[warp][j][lane + 32] = 0.0f;
+                    }
                 }
-                grad[((size_t)g * CHUNK + kb + j) * ROW64 + f] = val;
+                __syncthreads();
+                {
+                    // Cross-warp sums in warp order; one thread per (row,
+                    // field).
+                    const int j = p / ROW64, fl = p % ROW64;
+                    float val;
+                    if (fl >= 9 && fl < 12) {
+                        // dmean_k = -sum_r A[r][k] sum_rays du_r
+                        const float* q = rows + (kb + j) * ROW64;
+                        float su[3];
+                        for (int r = 0; r < 3; ++r) {
+                            su[r] = part[0][j][9 + r];
+                            for (int i = 1; i < PIX / 32; ++i)
+                                su[r] = su[r] + part[i][j][9 + r];
+                        }
+                        const int k = fl - 9;
+                        val = -(q[k] * su[0] + q[3 + k] * su[1]
+                                + q[6 + k] * su[2]);
+                    } else {
+                        val = part[0][j][fl];
+                        for (int i = 1; i < PIX / 32; ++i)
+                            val = val + part[i][j][fl];
+                    }
+                    grad[((size_t)g * CHUNK + kb + j) * ROW64 + fl] = val;
+                }
+                __syncthreads();
             }
-            __syncthreads();
+            // The walk stops exactly where the forward's did.
+            const int alive = __syncthreads_or(carry > min_transmittance);
+            ++g;
+            if (!alive) break;
         }
-        // The walk stops exactly where the forward's did.
-        const int alive = __syncthreads_or(carry > min_transmittance);
-        ++g;
-        if (!alive) break;
+        // Every thread has read `taken` before the next bundle is taken.
+        __syncthreads();
     }
 }
 
+// Pass A's flag bytes: [CHUNK][PIX] (32 KB of dynamic shared memory).
+constexpr int FLAG_SMEM = CHUNK * PIX;
+
+template <bool SORTED>
+static cudaError_t prepare_bwd() {
+    return cudaFuncSetAttribute(bundle_trace_bwd_kernel<SORTED>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                FLAG_SMEM);
+}
+
+// The blocks of a launch, and so the scratch slots it needs: the blocks the
+// card holds at once (at most num_bundles). Negative: a CUDA error.
+extern "C" int bundle_trace_bwd_slots(int num_bundles, int passes) {
+    cudaError_t err = passes > 0 ? prepare_bwd<true>() : prepare_bwd<false>();
+    int per_sm = 0, dev = 0, sms = 0;
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm,
+            passes > 0 ? bundle_trace_bwd_kernel<true>
+                       : bundle_trace_bwd_kernel<false>,
+            PIX, FLAG_SMEM);
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    if (err != cudaSuccess) return -(int)err;
+    const int slots = per_sm * sms < num_bundles ? per_sm * sms : num_bundles;
+    return slots > 1 ? slots : 1;
+}
+
+// `order` (passes > 0): the compositing orders B7 wrote for this forward
+// ([num_windows, CHUNK / 4, PIX] words). `scratch`: [slots, CHUNK, PIX]
+// float2, slots from bundle_trace_bwd_slots; `next_bundle`: one int, 0.
 extern "C" int bundle_trace_bwd(const void* data, const void* win_starts,
                                 const void* win_ends, const void* rays,
-                                const void* fwd, const void* gout, void* grad,
-                                int num_bundles, int num_windows, int degree,
-                                int sh_degree, float min_transmittance,
-                                float min_response, float min_alpha,
-                                float max_alpha, int passes, void* stream) {
-    if (num_bundles > 0) {
-        bundle_trace_bwd_kernel<<<num_bundles, PIX, 0,
-                                  (cudaStream_t)stream>>>(
-            (const float*)data, (const int*)win_starts, (const int*)win_ends,
-            (const float*)rays, (const float*)fwd, (const float*)gout,
-            (float*)grad, num_windows, degree, sh_degree, min_transmittance,
-            min_response, min_alpha, max_alpha, passes);
-    }
+                                const void* fwd, const void* gout,
+                                const void* order, void* scratch,
+                                void* next_bundle, void* grad,
+                                int num_bundles, int slots, int num_windows,
+                                int degree, int sh_degree,
+                                float min_transmittance, float min_response,
+                                float min_alpha, float max_alpha, int passes,
+                                void* stream) {
+    if (num_bundles <= 0) return (int)cudaGetLastError();
+    if (slots <= 0 || (passes > 0 && order == nullptr))
+        return (int)cudaErrorInvalidValue;
+    const cudaError_t err =
+        passes > 0 ? prepare_bwd<true>() : prepare_bwd<false>();
+    if (err != cudaSuccess) return (int)err;
+    auto kernel = passes > 0 ? bundle_trace_bwd_kernel<true>
+                             : bundle_trace_bwd_kernel<false>;
+    kernel<<<slots, PIX, FLAG_SMEM, (cudaStream_t)stream>>>(
+        (const float*)data, (const int*)win_starts, (const int*)win_ends,
+        (const float*)rays, (const float*)fwd, (const float*)gout,
+        (const unsigned*)order, (float2*)scratch, (int*)next_bundle,
+        (float*)grad, num_bundles, num_windows, degree, sh_degree,
+        min_transmittance, min_response, min_alpha, max_alpha);
     return (int)cudaGetLastError();
 }

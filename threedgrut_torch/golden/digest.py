@@ -1,15 +1,27 @@
-"""Digests of B1's and B2's sorted legs on the card, to hold two versions
+"""Digests of the compositors' outputs on the card, to hold two versions
 of the kernels bit for bit against each other:
 
-    python threedgrut_torch/golden/digest.py [--root CHECKOUT]
+    python threedgrut_torch/golden/digest.py [--root CHECKOUT] [--time]
 
 `--root` names the checkout whose `threedgrut_torch` is imported (default:
 the one holding this file), so one run can digest another version's
-kernels with the same inputs. For each scene and leg it prints one line:
-the sha256 (first 16 hex digits) of B1's output [num_tiles, 8, 256] and
-flags, and of B2's gradients [cap, 16] for a seeded output cotangent.
-Scenes: 20k Gaussians at 256x192 (scales raised 4x) and bench.py's 1M
-scene at 800x800 (capacity 2,917,888), both from (0.3, -4, 1)."""
+kernels with the same inputs. Each line is the sha256 (first 16 hex
+digits) of a kernel's output:
+
+  * B1's sorted legs (output [num_tiles, 8, 256] and flags) and B2's
+    gradients [cap, 16] for a seeded output cotangent, on 20k Gaussians at
+    256x192 (scales raised 4x) and bench.py's 1M scene at 800x800
+    (capacity 2,917,888), both from (0.3, -4, 1);
+  * B7's output [nb, 8, 256] and B8's gradients [capF, 64] for a seeded
+    cotangent at 0, 1, 2, 16 and 70 passes, on tools/bench_grt.py's 100k
+    and 1M scenes and capacities (512x512 rays from (0, 0, -4)), through
+    the dense and the flat cull, and on the 100k dense inputs with a bound
+    t_max on every third bundle and an initial transmittance of 0.6 on
+    every other one ("edge").
+
+With `--time` it also prints CUDA-event times (mean of 10 launches after
+one) of B7 and of B8 on the 100k dense inputs at 0, 1 and 16 passes, B8 on
+the compositing orders its B7 wrote where the version has them."""
 from __future__ import annotations
 
 import argparse
@@ -27,6 +39,12 @@ LEGS = [("sorted1", 1, False, False), ("sorted2", 2, False, False),
         ("sorted70", 70, False, False)]
 SCENES = [("20k-256x192", 20_000, (256, 192), 1 << 18, True),
           ("1M-800x800", 1_000_000, (800, 800), 2_917_888, False)]
+# tools/bench_grt.py's configurations: (name, Gaussians, scale range,
+# candidate, super, flat and super flat capacities).
+GRT_SCENES = [("100k", 100_000, (0.01, 0.05), 1792, 24320, 919296, 1004800),
+              ("1M", 1_000_000, (0.004, 0.02), 7680, 216832, 3384832,
+               4591104)]
+GRT_PASSES = (0, 1, 2, 16, 70)
 
 
 def digest(*tensors) -> str:
@@ -37,21 +55,57 @@ def digest(*tensors) -> str:
     return h.hexdigest()[:16]
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
-    args = ap.parse_args()
-    sys.path.insert(0, args.root)
+def grt_scene(n, scales, dev, side=512):
+    """tools/bench_grt.py's seeded scene (positions, quaternions, scales,
+    albedo, ray jitter, in its draw order; opacity 0.5) as the five
+    post-activation tensors, and its side x side rays from (0, 0, -4) in
+    16x16-tile order."""
+    import torch
+    rng = np.random.default_rng(0)
+    pos = rng.normal(0, 1.0, (n, 3)).astype(np.float32)
+    q = rng.normal(size=(n, 4)).astype(np.float32)
+    s = np.exp(rng.uniform(np.log(scales[0]), np.log(scales[1]),
+                           (n, 3))).astype(np.float32)
+    albedo = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    px = (np.arange(side) + 0.5) / side * 0.8 - 0.4
+    gx, gy = np.meshgrid(px, px, indexing="xy")
+    jit = rng.uniform(-0.4 / side, 0.4 / side, (2,) + gx.shape)
+    d = np.stack([gx + jit[0], gy + jit[1], np.ones_like(gx)],
+                 -1).astype(np.float32)
+    t = side // 16
+    d = d.reshape(t, 16, t, 16, 3).transpose(0, 2, 1, 3, 4).reshape(-1, 3)
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    o = np.tile(np.array([[0.0, 0.0, -4.0]], np.float32), (side * side, 1))
+    from threedgrut_torch.model.gaussians import from_arrays
+    p = from_arrays(pos, q, np.log(s), np.zeros((n, 1), np.float32), albedo,
+                    np.zeros((n, 45), np.float32), device=dev)
+    acts = [x.detach() for x in (p.get_positions(), p.get_rotation(),
+                                 p.get_scale(), p.get_density(),
+                                 p.get_features())]
+    return acts, torch.tensor(o, device=dev), torch.tensor(
+        d.astype(np.float32), device=dev)
+
+
+def cuda_ms(fn, iters=10):
+    import torch
+    fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def gut_digests(dev):
     import torch
     from threedgrut_torch.cameras import (example_camera, look_at,
                                           pose_from_matrix)
     from threedgrut_torch.model.gaussians import bench_scene, from_numpy
     from threedgrut_torch.ops import tile_raster
     from threedgrut_torch.render import gut
-    if not torch.cuda.is_available():
-        print("digest: no CUDA device", file=sys.stderr)
-        return 2
-    dev = torch.device("cuda:0")
     for sname, n, res, cap, raise_scale in SCENES:
         fields = bench_scene(n, seed=2, specular_std=0.1)
         if raise_scale:
@@ -84,6 +138,84 @@ def main() -> int:
                   f"B2 {digest(grad)} (walked {int(out[:, 7, 0].sum())}, "
                   f"nonzero rows {int((grad.abs().sum(1) > 0).sum())})",
                   flush=True)
+        del p, binning, data, rays
+
+
+def grt_digests(dev, timed):
+    """B7's and B8's digests on bench_grt's scenes (module docstring)."""
+    import torch
+    from threedgrut_torch.ops import bundle_trace
+    from threedgrut_torch.render import grt
+    orders = hasattr(bundle_trace, "order_buffer")
+    for name, n, scales, cand, sup, flat_cap, sflat in GRT_SCENES:
+        acts, o, d = grt_scene(n, scales, dev)
+        for flat in (False, True):
+            kw = dict(kernel_degree=4, candidate_capacity=cand,
+                      super_capacity=sup, flat_capacity=flat_cap)
+            if flat:
+                kw.update(flat_cull=True, super_flat_capacity=sflat)
+            with torch.no_grad():
+                inp = grt.prepare(*acts, o, d, **kw)
+                data = grt.gather_candidates(inp)
+            assert not bool(inp.overflow)
+            cases = [("", inp.rays)]
+            if name == "100k" and not flat:
+                edge = inp.rays.clone()
+                edge[::3, 6] = 4.2
+                edge[::2, 7] = 0.6
+                cases.append(("-edge", edge))
+            for suffix, rays in cases:
+                for passes in GRT_PASSES:
+                    args = (data, rays, inp.win_starts, inp.win_ends, 4, 3,
+                            1e-3, 0.0113, 1.0 / 255.0, 0.99, passes)
+                    out = bundle_trace._launch(*args)
+                    g_out = torch.randn(
+                        out.shape, device=dev,
+                        generator=torch.Generator(dev).manual_seed(passes))
+                    g_out[:, 6:] = 0.0
+                    bargs = args[:4] + (out, g_out) + args[4:]
+                    grad = bundle_trace._launch_backward(*bargs)
+                    torch.cuda.synchronize()
+                    cull = "flat" if flat else "dense"
+                    print(f"digest grt-{name}-{cull}{suffix} passes{passes}"
+                          f": B7 {digest(out)} B8 {digest(grad)} (walked "
+                          f"{int(out[:, 7, 0].sum())}, nonzero rows "
+                          f"{int((grad != 0).any(1).sum())})", flush=True)
+                    if not (timed and suffix == "" and name == "100k"
+                            and not flat and passes in (0, 1, 16)):
+                        continue
+                    order = None
+                    if orders and passes:
+                        order = bundle_trace.order_buffer(data)
+                        bundle_trace._launch(*args, order=order)
+                    kw_o = {} if order is None else {"order": order}
+                    t7 = cuda_ms(lambda: bundle_trace._launch(*args))
+                    t8 = cuda_ms(lambda: bundle_trace._launch_backward(
+                        *bargs, **kw_o))
+                    print(f"time grt-{name}-{cull} passes{passes}: B7 "
+                          f"{t7:.4f} ms, B8 {t8:.4f} ms (on B7's orders: "
+                          f"{order is not None})", flush=True)
+            del inp, data
+        del acts, o, d
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
+    ap.add_argument("--time", action="store_true")
+    args = ap.parse_args()
+    sys.path.insert(0, args.root)
+    import torch
+    from threedgrut_torch.ops import cuda_build
+    if not torch.cuda.is_available():
+        print("digest: no CUDA device", file=sys.stderr)
+        return 2
+    import threedgrut_torch
+    print(f"digest of {Path(threedgrut_torch.__file__).parent}", flush=True)
+    cuda_build.build()
+    dev = torch.device("cuda:0")
+    gut_digests(dev)
+    grt_digests(dev, args.time)
     return 0
 
 

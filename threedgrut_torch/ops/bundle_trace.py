@@ -30,7 +30,14 @@ torch.autograd.Function whose backward is kernel B8
 (csrc/bundle_trace_bwd.cu; plain version `bundle_composite_backward_plain`):
 per-slot gradients [capF, 64] of the candidate rows (A 9, mean 3, opacity,
 3 zeros, 48 SH), exactly 0 on windows the forward's walk never reached. No
-gradient flows to the rays or the window ranges.
+gradient flows to the rays or the window ranges. With sorted passes on the
+card, the differentiable forwards (`_BundleComposite`, and
+fused_raster.composite_bundles) have B7 write each live ray-window's
+compositing order into `order_buffer` (words [capF / 128, 32, 256]: a row
+index per byte, its top bit HIT set where the sorted key is < 3.4e38),
+and B8 re-walks it without a network; B8 called without orders runs B7
+first to write them. Traces and evaluation (no gradient) write none. The
+plain versions take the same buffer (`order`), for the tests.
 
 Backward, per (ray, counted pair j) with q_j = colour . dC + hit_t dD + dO:
 the suffix sum_{k after j} w_k q_k, taken in the ray's compositing order (the
@@ -53,13 +60,14 @@ from torch.profiler import record_function
 
 from threedgrut_torch import constants as C
 from threedgrut_torch.ops import cuda_build
-from threedgrut_torch.ops.tile_raster import (_response_grad, _tile_pairs,
-                                              oddeven_passes)
+from threedgrut_torch.ops.tile_raster import (_passes_run, _response_grad,
+                                              _tile_pairs, oddeven_passes)
 
 CHUNK = 128          # rows per window: the flat layout's and re-sort's unit
 ROW64 = 64           # packed floats per candidate row
 PIX = 256            # rays per bundle
 BIG = 3.4e38         # sort key of a row that composites nothing
+HIT = 0x80           # an order byte's hit bit: the sorted key is < BIG
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -89,22 +97,32 @@ def sh_basis_rows(rays: torch.Tensor, sh_degree: int) -> torch.Tensor:
 
 
 def _window_weights(S, rays, carry, degree, min_transmittance,
-                    min_response, min_alpha, max_alpha, sorted_passes):
+                    min_response, min_alpha, max_alpha, sorted_passes,
+                    order_rows=None, activity=None):
     """Compositing weights of one window of B bundles: S [B, CHUNK, 64],
     rays [B, 8, PIX], carry [B, PIX]. Returns (pair quantities, alpha,
-    1 - alpha, T_before, live, w), each [B, CHUNK, PIX] in row order, and
-    the row index at each compositing position (None without passes)."""
+    1 - alpha, T_before, live, w), each [B, CHUNK, PIX] in row order, the
+    row index at each compositing position (None without passes) and the
+    sorted keys (None without passes or with `order_rows`). `order_rows`
+    [B, CHUNK, PIX] gives that row index instead of the network (the
+    compositing orders a forward wrote); a list `activity` gets the
+    network's per-pass swap flags (oddeven_passes)."""
     q = _tile_pairs(S, rays, degree, min_response, min_alpha, max_alpha,
                     True)
     gates = (q["vdotu"] < 0.0) & (q["g"] <= C.MAX_PARTICLE_SQ_DISTANCE)
     alpha = torch.where(gates, q["alpha"], torch.zeros_like(q["alpha"]))
     one_m = 1.0 - alpha
-    if sorted_passes:
+    key_s = None
+    if sorted_passes and order_rows is not None:
+        pos_s = order_rows
+        om_s = torch.gather(one_m, 1, pos_s)
+    elif sorted_passes:
         key = torch.where(alpha > 0.0, q["hit_t"],
                           torch.full_like(alpha, BIG))
         pos = torch.arange(CHUNK, device=S.device)[None, :, None].expand(
             alpha.shape)
-        _, (om_s, pos_s) = oddeven_passes(key, [one_m, pos], sorted_passes)
+        key_s, (om_s, pos_s) = oddeven_passes(key, [one_m, pos],
+                                              sorted_passes, activity)
     else:
         om_s, pos_s = one_m, None
     incl = torch.cumprod(om_s, dim=1)
@@ -114,7 +132,29 @@ def _window_weights(S, rays, carry, degree, min_transmittance,
     t_before = carry[:, None, :] * excl
     live = t_before > min_transmittance
     w = torch.where(live, alpha * t_before, torch.zeros_like(alpha))
-    return q, alpha, one_m, t_before, live, w, pos_s
+    return q, alpha, one_m, t_before, live, w, pos_s, key_s
+
+
+def order_words(key_s, pos_s):
+    """The compositing orders of a window in B7's layout: int32 words [B,
+    CHUNK // 4, PIX] from the sorted keys and the row at each position
+    ([B, CHUNK, PIX]); byte k & 3 of word k >> 2 is position k's row, its
+    top bit (HIT) set where the sorted key is < BIG."""
+    byte = pos_s.to(torch.int64) | torch.where(
+        key_s < BIG, HIT, 0).to(torch.int64)
+    b = byte.reshape(byte.shape[0], CHUNK // 4, 4, byte.shape[-1])
+    word = (b[:, :, 0] | b[:, :, 1] << 8 | b[:, :, 2] << 16
+            | b[:, :, 3] << 24)
+    return torch.where(word >= 1 << 31, word - (1 << 32), word).to(
+        torch.int32)
+
+
+def order_bytes(words):
+    """The bytes [B, CHUNK, PIX] (int64) of order words [B, CHUNK // 4,
+    PIX]: row index | HIT at each compositing position."""
+    w = words.to(torch.int64) & 0xFFFFFFFF
+    b = torch.stack([(w >> (8 * i)) & 0xFF for i in range(4)], dim=2)
+    return b.reshape(w.shape[0], CHUNK, w.shape[-1])
 
 
 def _raw_colours(S, basis):
@@ -134,10 +174,12 @@ def _window(S, rays, basis, carry, degree, min_transmittance, min_response,
             min_alpha, max_alpha, sorted_passes, stats):
     """One window of B bundles: S [B, CHUNK, 64], rays [B, 8, PIX], basis
     [B, 16, PIX], carry [B, PIX]. Returns the window's sums [B, 5, PIX]
-    (rgb, opacity, depth), hits [B, PIX] and the new carry."""
-    q, alpha, one_m, t_before, live, w, _ = _window_weights(
+    (rgb, opacity, depth), hits [B, PIX], the new carry and the window's
+    compositing orders (order_words; None without passes)."""
+    activity = [] if stats is not None and sorted_passes else None
+    q, alpha, one_m, t_before, live, w, pos_s, key_s = _window_weights(
         S, rays, carry, degree, min_transmittance, min_response, min_alpha,
-        max_alpha, sorted_passes)
+        max_alpha, sorted_passes, activity=activity)
     if stats is not None:
         alive = carry > min_transmittance
         # A ray's hits out of row order: a hit nearer than an earlier one.
@@ -147,12 +189,19 @@ def _window(S, rays, basis, carry, degree, min_transmittance, min_response,
                     & (q["hit_t"][:, 1:] < before[:, :-1])).any(1)
         stats["live_ray_windows"] += int(alive.sum())
         stats["inverted_ray_windows"] += int((inverted & alive).sum())
+        stats["live_pairs"] += int(live.sum())
+        stats["live_hits"] += int((live & (alpha > 0.0)
+                                   & (q["hit_t"] < BIG)).sum())
+        if activity is not None:
+            run = _passes_run(activity, sorted_passes)
+            stats["network_passes"] += int(run[alive].sum())
     sums = [torch.sum(w * torch.clamp(col, min=0.0), dim=1)
             for col in _raw_colours(S, basis)]
     sums += [w.sum(1), (w * q["hit_t"]).sum(1)]
     hits = (w > 0.0).sum(1).to(w.dtype)
+    words = None if key_s is None else order_words(key_s, pos_s)
     return (torch.stack(sums, dim=1), hits,
-            _next_carry(live, t_before, one_m, carry))
+            _next_carry(live, t_before, one_m, carry), words)
 
 
 def bundle_composite_plain(data, rays, win_starts, win_ends, degree: int,
@@ -161,14 +210,27 @@ def bundle_composite_plain(data, rays, win_starts, win_ends, degree: int,
                            min_alpha: float = C.MIN_ALPHA,
                            max_alpha: float = C.MAX_ALPHA,
                            sorted_passes: int = 0,
-                           stats: Optional[dict] = None) -> torch.Tensor:
+                           stats: Optional[dict] = None,
+                           order: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """Plain version of B7: a loop over window index, each step taking the
     next window of every bundle still walking, vectorised across them.
     With a `stats` dict, also counts the work the data asks for: windows x
-    rays alive at their start ("live_ray_windows"), and of those the ones
-    whose hits are out of row order ("inverted_ray_windows")."""
+    rays alive at their start ("live_ray_windows"), of those the ones
+    whose hits are out of row order ("inverted_ray_windows"), the passes
+    the kernel's network runs on them ("network_passes": it stops after an
+    odd and an even pass in a row that swap nothing), the (ray, row) pairs
+    with T_before > min_transmittance ("live_pairs", where a walk in
+    compositing order has not stopped) and of those the hits, sorted key
+    below BIG ("live_hits": the pairs B8 evaluates on the orders). With
+    sorted passes, `order` (order_buffer) receives the compositing order
+    of every ray of every walked window, as the kernel writes it for its
+    live rays."""
     if stats is not None:
-        stats.update(live_ray_windows=0, inverted_ray_windows=0)
+        stats.update(live_ray_windows=0, inverted_ray_windows=0,
+                     network_passes=0, live_pairs=0, live_hits=0)
+    if order is not None:
+        _check_order_plain(order, data, sorted_passes)
     nb = rays.shape[0]
     dev = rays.device
     windows = data.reshape(-1, CHUNK, ROW64)
@@ -184,10 +246,12 @@ def bundle_composite_plain(data, rays, win_starts, win_ends, degree: int,
         b = torch.nonzero(walking & (ws + k < we)).reshape(-1)
         if b.numel() == 0:
             break
-        sums, hits, cb = _window(windows[ws[b] + k], rays[b], basis[b],
-                                 carry[b], degree, min_transmittance,
-                                 min_response, min_alpha, max_alpha,
-                                 sorted_passes, stats)
+        sums, hits, cb, words = _window(
+            windows[ws[b] + k], rays[b], basis[b], carry[b], degree,
+            min_transmittance, min_response, min_alpha, max_alpha,
+            sorted_passes, stats)
+        if order is not None:
+            order[ws[b] + k] = words
         out[b, 0:5] += sums
         out[b, 6] += hits
         out[b, 7] += 1.0
@@ -200,15 +264,23 @@ def bundle_composite_plain(data, rays, win_starts, win_ends, degree: int,
 
 def _window_backward(S, rays, basis, carry, prefix, a_tot, go, t_final,
                      degree, min_transmittance, min_response, min_alpha,
-                     max_alpha, sorted_passes):
+                     max_alpha, sorted_passes, words=None):
     """The backward of one window of B bundles (module docstring): S [B,
     CHUNK, 64], rays and the output cotangent go [B, 8, PIX], basis [B, 16,
     PIX], carry, prefix (the sum of w q over the earlier windows), a_tot
-    and t_final [B, PIX]. Returns the window's per-slot gradients [B,
-    CHUNK, 64], the new carry and the new prefix."""
-    q, alpha, one_m, t_before, live, w, pos_s = _window_weights(
+    and t_final [B, PIX], and with sorted passes optionally the window's
+    compositing orders `words` [B, CHUNK // 4, PIX] (read for the rays
+    alive at its start; the network runs where they are None). Returns the
+    window's per-slot gradients [B, CHUNK, 64], the new carry and the new
+    prefix."""
+    order_rows = None
+    if sorted_passes and words is not None:
+        ident = torch.arange(CHUNK, device=S.device)[None, :, None]
+        order_rows = torch.where((carry > min_transmittance)[:, None, :],
+                                 order_bytes(words) & (HIT - 1), ident)
+    q, alpha, one_m, t_before, live, w, pos_s, _ = _window_weights(
         S, rays, carry, degree, min_transmittance, min_response, min_alpha,
-        max_alpha, sorted_passes)
+        max_alpha, sorted_passes, order_rows)
     zero = torch.zeros_like(w)
     dC = [go[:, c, None, :] for c in range(3)]
     dO, dD, dT = go[:, 3, None, :], go[:, 4, None, :], go[:, 5, None, :]
@@ -268,12 +340,16 @@ def bundle_composite_backward_plain(
         sh_degree: int, min_transmittance: float,
         min_response: float = C.MIN_KERNEL_RESPONSE,
         min_alpha: float = C.MIN_ALPHA, max_alpha: float = C.MAX_ALPHA,
-        sorted_passes: int = 0) -> torch.Tensor:
+        sorted_passes: int = 0,
+        order: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version of B8: per-slot gradients [capF, 64] of the candidate
     rows for the output cotangent g_out [nb, 8, 256] (rows 6-7 unread),
     given the forward's output `out`. The forward's loop over window index,
     vectorised across the bundles still walking; windows no walk reached
-    stay exactly 0."""
+    stay exactly 0. With sorted passes and `order` (the compositing orders
+    the forward wrote), each ray re-walks its order instead of sorting."""
+    if order is not None:
+        _check_order_plain(order, data, sorted_passes)
     nb = rays.shape[0]
     windows = data.reshape(-1, CHUNK, ROW64)
     nw = windows.shape[0]
@@ -295,7 +371,8 @@ def bundle_composite_backward_plain(
         G, cb, pb = _window_backward(
             windows[ws[b] + k], rays[b], basis[b], carry[b], prefix[b],
             a_tot[b], g_out[b], out[b, 5], degree, min_transmittance,
-            min_response, min_alpha, max_alpha, sorted_passes)
+            min_response, min_alpha, max_alpha, sorted_passes,
+            None if order is None else order[ws[b] + k])
         grad[ws[b] + k] = G
         carry[b], prefix[b] = cb, pb
         walking[b] = (cb > min_transmittance).any(1)
@@ -327,44 +404,133 @@ def _check_launch(data, rays, win_starts, win_ends, degree, sh_degree,
         raise ValueError(f"sorted_passes must be >= 0, got {sorted_passes}")
 
 
+def order_buffer(data: torch.Tensor) -> torch.Tensor:
+    """Room for the compositing orders that B7 writes and B8 re-walks: int32
+    words [capF // CHUNK, CHUNK // 4, PIX], absolute window g at [g]. Each
+    window belongs to one bundle (grt._segments), so no bundle offsets and
+    no host sync: 32 KB per window."""
+    return torch.empty((data.shape[0] // CHUNK, CHUNK // 4, PIX),
+                       dtype=torch.int32, device=data.device)
+
+
+def forward_order(data, rays, sorted_passes: int, needs_grad: bool):
+    """The order buffer a differentiable forward's B7 fills for its B8:
+    only on the card, with sorted passes, when a backward will run."""
+    if not (needs_grad and sorted_passes and rays.device.type != "cpu"):
+        return None
+    return order_buffer(data)
+
+
+def _order_shape(data):
+    return (data.shape[0] // CHUNK, CHUNK // 4, PIX)
+
+
+def _check_order_plain(order, data, sorted_passes):
+    if not sorted_passes:
+        raise ValueError("compositing orders exist only with sorted passes")
+    if order.dtype != torch.int32 or tuple(order.shape) != _order_shape(data):
+        raise ValueError(f"order must be int32 of shape {_order_shape(data)}, "
+                         f"got {order.dtype} {tuple(order.shape)}")
+
+
+def _check_order(order, data):
+    """An order buffer for the kernels: int32 of data's window count, on
+    data's device, contiguous."""
+    cuda_build.checked_inputs(
+        ("data", data, torch.float32, (data.shape[0], ROW64)),
+        ("order", order, torch.int32, _order_shape(data)))
+
+
+def dynamic_smem(sorted_passes: int) -> int:
+    """Bytes of dynamic shared memory a launch of B7 with `sorted_passes`
+    takes (csrc/bundle_trace_fwd.cu): the sorted leg's per-ray columns, 0
+    without passes."""
+    fn = getattr(cuda_build.library("bundle_trace_fwd", _FWD_ARGS),
+                 "bundle_trace_fwd_smem")
+    fn.argtypes, fn.restype = [_I], _I
+    return int(fn(int(sorted_passes)))
+
+
+_FWD_ARGS = [_P] * 6 + [_I] * 4 + [_F] * 4 + [_I, _P]
+_BWD_ARGS = [_P] * 10 + [_I] * 5 + [_F] * 4 + [_I, _P]
+
+
 def _launch(data, rays, win_starts, win_ends, degree, sh_degree,
             min_transmittance, min_response, min_alpha, max_alpha,
-            sorted_passes):
+            sorted_passes, order=None):
+    """B7. With sorted passes, `order` (order_buffer) receives each live
+    ray-window's compositing order for B8; a launch without passes cannot
+    write one and refuses it."""
     nb = rays.shape[0]
     cap = data.shape[0]
     _check_launch(data, rays, win_starts, win_ends, degree, sh_degree,
                   sorted_passes)
+    if order is not None:
+        if not sorted_passes:
+            raise ValueError("B7 writes compositing orders only with sorted "
+                             "passes")
+        _check_order(order, data)
     out = torch.empty((nb, 8, PIX), dtype=torch.float32, device=rays.device)
-    lib = cuda_build.library("bundle_trace_fwd",
-                             [_P] * 5 + [_I] * 4 + [_F] * 4 + [_I, _P])
+    lib = cuda_build.library("bundle_trace_fwd", _FWD_ARGS)
     stream = torch.cuda.current_stream(rays.device).cuda_stream
     cuda_build.launches["bundle_trace_fwd"] += 1
     cuda_build.check("bundle_trace_fwd", lib.bundle_trace_fwd(
         data.data_ptr(), win_starts.data_ptr(), win_ends.data_ptr(),
-        rays.data_ptr(), out.data_ptr(), nb, cap // CHUNK, degree, sh_degree,
-        min_transmittance, min_response, min_alpha, max_alpha,
-        int(sorted_passes), stream))
+        rays.data_ptr(), out.data_ptr(),
+        None if order is None else order.data_ptr(), nb, cap // CHUNK,
+        degree, sh_degree, min_transmittance, min_response, min_alpha,
+        max_alpha, int(sorted_passes), stream))
     return out
+
+
+def backward_slots(num_bundles: int, sorted_passes: int) -> int:
+    """Blocks of a B8 launch: as many as the card holds at once (at most
+    one per bundle), each with its own 256 KB slot of the scratch."""
+    fn = getattr(cuda_build.library("bundle_trace_bwd", _BWD_ARGS),
+                 "bundle_trace_bwd_slots")
+    fn.argtypes, fn.restype = [_I, _I], _I
+    slots = int(fn(int(num_bundles), int(sorted_passes)))
+    if slots <= 0:
+        raise RuntimeError(f"CUDA kernel bundle_trace_bwd: occupancy query "
+                           f"failed (cudaError {-slots})")
+    return slots
 
 
 def _launch_backward(data, rays, win_starts, win_ends, out, g_out, degree,
                      sh_degree, min_transmittance, min_response, min_alpha,
-                     max_alpha, sorted_passes):
+                     max_alpha, sorted_passes, order=None):
+    """B8. With sorted passes it re-walks the compositing orders that B7
+    wrote into `order` for this forward; without them, B7 runs first to
+    write them. Without passes it walks rows in order and reads no
+    `order`."""
     nb = rays.shape[0]
     cap = data.shape[0]
     _check_launch(data, rays, win_starts, win_ends, degree, sh_degree,
                   sorted_passes, out=out, g_out=g_out)
+    if sorted_passes and order is None:
+        order = order_buffer(data)
+        _launch(data, rays, win_starts, win_ends, degree, sh_degree,
+                min_transmittance, min_response, min_alpha, max_alpha,
+                sorted_passes, order)
+    if sorted_passes:
+        _check_order(order, data)
+    dev = rays.device
     # Zeroed: windows the walk never reaches keep an exact 0.
-    grad = torch.zeros((cap, ROW64), dtype=torch.float32, device=rays.device)
-    lib = cuda_build.library("bundle_trace_bwd",
-                             [_P] * 7 + [_I] * 4 + [_F] * 4 + [_I, _P])
-    stream = torch.cuda.current_stream(rays.device).cuda_stream
+    grad = torch.zeros((cap, ROW64), dtype=torch.float32, device=dev)
+    slots = backward_slots(nb, sorted_passes)
+    scratch = torch.empty((slots, CHUNK, PIX, 2), dtype=torch.float32,
+                          device=dev)
+    next_bundle = torch.zeros(1, dtype=torch.int32, device=dev)
+    lib = cuda_build.library("bundle_trace_bwd", _BWD_ARGS)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     cuda_build.launches["bundle_trace_bwd"] += 1
     cuda_build.check("bundle_trace_bwd", lib.bundle_trace_bwd(
         data.data_ptr(), win_starts.data_ptr(), win_ends.data_ptr(),
-        rays.data_ptr(), out.data_ptr(), g_out.data_ptr(), grad.data_ptr(),
-        nb, cap // CHUNK, degree, sh_degree, min_transmittance, min_response,
-        min_alpha, max_alpha, int(sorted_passes), stream))
+        rays.data_ptr(), out.data_ptr(), g_out.data_ptr(),
+        order.data_ptr() if sorted_passes else None, scratch.data_ptr(),
+        next_bundle.data_ptr(), grad.data_ptr(), nb, slots, cap // CHUNK,
+        degree, sh_degree, min_transmittance, min_response, min_alpha,
+        max_alpha, int(sorted_passes), stream))
     return grad
 
 
@@ -374,17 +540,20 @@ def bundle_composite_backward(data, rays, win_starts, win_ends, out, g_out,
                               min_response: float = C.MIN_KERNEL_RESPONSE,
                               min_alpha: float = C.MIN_ALPHA,
                               max_alpha: float = C.MAX_ALPHA,
-                              sorted_passes: int = 0) -> torch.Tensor:
+                              sorted_passes: int = 0,
+                              order: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
     """B8: per-slot gradients [capF, 64] of the candidate rows for the
     output cotangent `g_out`, given the forward's output `out` (the JAX
-    package's _backward_windows, in row layout). Launches the kernel for
-    CUDA tensors; the plain version for CPU tensors."""
+    package's _backward_windows, in row layout); `order` the compositing
+    orders the forward's B7 wrote, if it wrote them. Launches the kernel
+    for CUDA tensors; the plain version for CPU tensors."""
     fn = (bundle_composite_backward_plain if rays.device.type == "cpu"
           else _launch_backward)
     with record_function("3dgrt.bwd_kernel"):
         return fn(data, rays, win_starts, win_ends, out, g_out.contiguous(),
                   degree, sh_degree, min_transmittance, min_response,
-                  min_alpha, max_alpha, sorted_passes)
+                  min_alpha, max_alpha, sorted_passes, order=order)
 
 
 def composite_fn(device: torch.device):
@@ -397,8 +566,10 @@ class _BundleComposite(torch.autograd.Function):
     @staticmethod
     def forward(ctx, data, rays, win_starts, win_ends, *args):
         data, rays = data.detach(), rays.detach()
+        ctx.order = forward_order(data, rays, args[-1],
+                                  ctx.needs_input_grad[0])
         out = composite_fn(rays.device)(data, rays, win_starts, win_ends,
-                                        *args)
+                                        *args, order=ctx.order)
         ctx.save_for_backward(data, rays, win_starts, win_ends, out)
         ctx.args = args
         return out
@@ -407,7 +578,9 @@ class _BundleComposite(torch.autograd.Function):
     def backward(ctx, g_out):
         data, rays, win_starts, win_ends, out = ctx.saved_tensors
         g_data = bundle_composite_backward(data, rays, win_starts, win_ends,
-                                           out, g_out, *ctx.args)
+                                           out, g_out, *ctx.args,
+                                           order=ctx.order)
+        ctx.order = None    # spent: freed before the gather's backward
         return (g_data,) + (None,) * (3 + len(ctx.args))
 
 
@@ -419,9 +592,10 @@ def bundle_composite(data, rays, win_starts, win_ends, degree: int,
                      sorted_passes: int = 0) -> torch.Tensor:
     """B7: the [nb, 8, 256] output buffer (module docstring) of the flat
     candidate rows `data` [capF, 64] for the bundles of `rays`, each
-    walking its window range, differentiable in `data` through B8.
-    Launches the kernels for CUDA tensors, the plain versions for CPU
-    tensors."""
+    walking its window range, differentiable in `data` through B8 (with
+    sorted passes on the card, B7 writes the compositing orders that B8
+    re-walks). Launches the kernels for CUDA tensors, the plain versions
+    for CPU tensors."""
     return _BundleComposite.apply(
         data, rays, win_starts, win_ends, int(degree), int(sh_degree),
         float(min_transmittance), float(min_response), float(min_alpha),

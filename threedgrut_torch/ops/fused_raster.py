@@ -210,8 +210,10 @@ class _CompositeBundles(torch.autograd.Function):
                 args, walk_capacity):
         d = rows64.detach()[flat_idx.long()]
         d[:, 12] *= valid.to(d.dtype)
+        ctx.order = bundle_trace.forward_order(d, rays, args[-1],
+                                               ctx.needs_input_grad[0])
         out = bundle_trace.composite_fn(rays.device)(
-            d, rays, win_starts, win_ends, *args)
+            d, rays, win_starts, win_ends, *args, order=ctx.order)
         ctx.save_for_backward(flat_idx, valid, d, rays, win_starts,
                               win_ends, out)
         ctx.n, ctx.args = rows64.shape[0], args
@@ -223,7 +225,9 @@ class _CompositeBundles(torch.autograd.Function):
         flat_idx, valid, d, rays, win_starts, win_ends, out = \
             ctx.saved_tensors
         g_rows = bundle_trace.bundle_composite_backward(
-            d, rays, win_starts, win_ends, out, g_out, *ctx.args)  # [capF, 64]
+            d, rays, win_starts, win_ends, out, g_out, *ctx.args,
+            order=ctx.order)                                   # [capF, 64]
+        ctx.order = None    # B7's orders are spent: free them for the unsort
         # The branch is chosen on the host: the walked-window count is read
         # back (one sync per backward), where the JAX package's lax.cond
         # decides on the device. The compact branch gathers just the walked
