@@ -26,7 +26,10 @@ and B7 writing orders bit-equal to B7 writing none. B6 at
 64 channels: within f32_sum_bound. A 3DGRT train step card vs CPU: loss
 rtol 1e-4, gradients within golden.rows_agree(1e-4), bit-identical on the
 card across two runs. B1 and B2 with sorted passes and row termination:
-the default legs' tolerances, and two launches bit-identical. B9 exact
+the default legs' tolerances, and two launches bit-identical. B1's
+default legs' live-row mask bit-equal to live_rows_plain's on every walked
+window, B2 on it bit-equal to B2 given none, and both legs with per-pixel
+origins (no tile's rays share one) at the default legs' tolerances. B9 exact
 (a copy) and bit-identical across launches; the flat cull's legs card vs
 CPU within golden.lists_agree at TRACE_FLIP_SHARE (cone-margin flips)."""
 import os
@@ -200,6 +203,97 @@ def test_tile_raster_bwd_option_legs_match_plain(dev, passes, rowterm,
     want = tile_raster.tile_composite_backward_plain(*args)
     torch.cuda.synchronize()
     assert torch.equal(got, again)
+    assert torch.equal(got.abs().sum(1) > 0, want.abs().sum(1) > 0)
+    scale = want.abs().amax(0) + 1e-30
+    assert bool(((got - want).abs() <= 1e-5 * scale).all())
+    assert int((got.abs().sum(1) > 0).sum()) > 1000
+
+
+def walked_steps(out, tile_starts, win_base, steps):
+    """The steps [steps] bool of an order_buffer that B1's walk wrote: tile
+    t's windows that its walked slots (out row 7) touch."""
+    w = out[:, 7, 0].long().cpu()
+    s = tile_starts.long().cpu()
+    n = torch.where(w > 0, (s + w - 1) // tile_raster.CHUNK
+                    - s // tile_raster.CHUNK + 1, torch.zeros_like(w))
+    mask = torch.zeros(steps, dtype=torch.bool)
+    for t, b in enumerate(win_base.tolist()):
+        mask[b:b + int(n[t])] = True
+    return mask
+
+
+@pytest.mark.parametrize("rowterm", [None, "touch", "mid"])
+def test_b1_live_rows_match_plain(dev, rowterm):
+    """B1's default legs write each walked pixel-window's live-row mask
+    bit-equal to the plain version's, and writing it leaves B1's output
+    bitwise as it is."""
+    binning, data, rays = option_inputs(dev, rowterm)
+    fwd = (data, binning.tile_starts, binning.tile_ends, rays, 2, 1e-4,
+           0.0113, 1.0 / 255.0, 0.99, False)
+    legs = (0, rowterm is not None)
+    mask = tile_raster.order_buffer(binning.tile_starts, binning.tile_ends,
+                                    data.shape[0], tile_raster.walk_words(0))
+    ko, _ = tile_raster._launch(*fwd, True, False, *legs, order=mask)
+    assert torch.equal(ko, tile_raster._launch(*fwd, True, False, *legs)[0])
+    words, base = tile_raster.live_rows_plain(*fwd, legs[1])
+    assert torch.equal(mask[1], base)
+    steps = walked_steps(ko, binning.tile_starts, base, words.shape[0])
+    assert int(steps.sum()) > 10
+    assert torch.equal(mask[0].cpu()[steps], words.cpu()[steps])
+    # One bit per hit.
+    po, _ = tile_raster.tile_composite_plain(*fwd, True, False, *legs)
+    torch.testing.assert_close(ko[:, 0:6], po[:, 0:6], atol=2e-4, rtol=1e-4)
+    assert torch.equal(ko[:, 6:8], po[:, 6:8])
+
+
+@pytest.mark.parametrize("aux_grads", [True, False])
+@pytest.mark.parametrize("rowterm", [None, "mid"])
+def test_b2_on_the_live_rows_equals_b2_given_none(dev, rowterm, aux_grads):
+    binning, data, rays = option_inputs(dev, rowterm)
+    fwd = (data, binning.tile_starts, binning.tile_ends, rays, 2, 1e-4,
+           0.0113, 1.0 / 255.0, 0.99, False)
+    legs = (0, rowterm is not None)
+    mask = tile_raster.order_buffer(binning.tile_starts, binning.tile_ends,
+                                    data.shape[0], tile_raster.walk_words(0))
+    out, _ = tile_raster._launch(*fwd, True, False, *legs, order=mask)
+    g_out = torch.randn(out.shape, device=dev,
+                        generator=torch.Generator(dev).manual_seed(2))
+    args = fwd[:4] + (out, g_out) + fwd[4:] + (aux_grads,) + legs
+    before = dict(cuda_build.launches)
+    got = tile_raster._launch_backward(*args, order=mask)
+    assert cuda_build.launches["tile_raster_fwd"] == before.get(
+        "tile_raster_fwd", 0)
+    want = tile_raster._launch_backward(*args)     # runs B1 for its mask
+    assert cuda_build.launches["tile_raster_fwd"] == before.get(
+        "tile_raster_fwd", 0) + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert int((got.abs().sum(1) > 0).sum()) > 1000
+
+
+@pytest.mark.parametrize("rowterm", [None, "touch"])
+def test_default_legs_with_per_pixel_origins_match_plain(dev, rowterm):
+    """Rays of one origin per pixel (as a rolling shutter gives) take the
+    per-pixel form of the pair in both kernels: the default legs'
+    tolerances against the plain versions."""
+    binning, data, rays = option_inputs(dev, rowterm)
+    gen = torch.Generator(dev).manual_seed(4)
+    rays[:, 0:3] += 1e-5 * torch.randn(rays[:, 0:3].shape, device=dev,
+                                       generator=gen)
+    assert bool((rays[:, 0, 1:] != rays[:, 0, :1]).any(1).all())
+    fwd = (data, binning.tile_starts, binning.tile_ends, rays, 2, 1e-4,
+           0.0113, 1.0 / 255.0, 0.99, False, True, False, 0,
+           rowterm is not None)
+    ko, _ = tile_raster._launch(*fwd)
+    po, _ = tile_raster.tile_composite_plain(*fwd)
+    torch.testing.assert_close(ko[:, 0:6], po[:, 0:6], atol=2e-4, rtol=1e-4)
+    assert torch.equal(ko[:, 6:8], po[:, 6:8])
+    g_out = torch.randn(ko.shape, device=dev,
+                        generator=torch.Generator(dev).manual_seed(0))
+    args = fwd[:4] + (ko, g_out) + fwd[4:10] + (True,) + fwd[12:]
+    got = tile_raster._launch_backward(*args)
+    want = tile_raster.tile_composite_backward_plain(*args)
+    torch.cuda.synchronize()
     assert torch.equal(got.abs().sum(1) > 0, want.abs().sum(1) > 0)
     scale = want.abs().amax(0) + 1e-30
     assert bool(((got - want).abs() <= 1e-5 * scale).all())
@@ -423,6 +517,57 @@ def test_train_step_card_matches_cpu(dev, walk_compact_fraction):
     # threshold may flip (golden.compare's 0.1% allowance).
     flips = int((card["visibility"].cpu() != cpu["visibility"]).sum())
     assert flips <= max(1, int(1e-3 * cpu["visibility"].numel()))
+
+
+@pytest.mark.parametrize("sorted_passes", [0, 16])
+def test_train_step_frees_b1_record_before_the_unsort(dev, monkeypatch,
+                                                      sorted_passes):
+    """A train step's B1 writes one walk record (the live-row mask without
+    passes, a word per 32 rows; the compositing orders with them), its B2
+    reads it, and the backward drops it before the unsort; a frame writes
+    none."""
+    import weakref
+    from threedgrut_torch import optimizers, trainer
+    from threedgrut_torch.config import Config
+    from threedgrut_torch.ops import fused_raster
+    made = []
+    order_buffer = tile_raster.order_buffer
+
+    def tracked(*args, **kw):
+        buf = order_buffer(*args, **kw)
+        made.append((weakref.ref(buf[0]), buf[0].shape[1]))
+        return buf
+
+    alive_at_unsort = []
+    unsort = fused_raster.unsort_segment_sum
+
+    def checked(*args, **kw):
+        alive_at_unsort.append([ref() is not None for ref, _ in made])
+        return unsort(*args, **kw)
+
+    monkeypatch.setattr(tile_raster, "order_buffer", tracked)
+    monkeypatch.setattr(fused_raster, "unsort_segment_sum", checked)
+    res = (128, 96)
+    p, cam, pose = scene(5000, res, dev)
+    with torch.no_grad():
+        api.render(p, cam, pose, res, isect_capacity=1 << 16, device=dev,
+                   sorted_passes=sorted_passes)
+    assert made == []
+    cfg = Config()
+    cfg.render.isect_capacity = 1 << 16
+    cfg.render.k_buffer_passes = sorted_passes
+    T = torch.tensor(look_at(np.array([0.3, -4.0, 1.0], np.float32),
+                             np.zeros(3, np.float32),
+                             np.array([0, 0, 1.0], np.float32)), device=dev)
+    gt = torch.zeros((96, 128, 3), device=dev)
+    cuda_build.launches.clear()
+    trainer.step_fn(p, optimizers.init(p), T, cam, gt,
+                    torch.ones((96, 128, 1), device=dev), 4.0, res, 3, cfg,
+                    train=True)
+    assert cuda_build.launches["tile_raster_fwd"] == 1
+    assert cuda_build.launches["tile_raster_bwd"] == 1
+    assert [w for _, w in made] == [tile_raster.walk_words(sorted_passes)]
+    assert alive_at_unsort == [[False]]
 
 
 def grt_scene(device, n=20_000, side=128):

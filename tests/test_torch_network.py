@@ -122,14 +122,16 @@ def test_transmittance_before_never_grows_in_compositing_order(passes):
 def test_order_buffer_gives_every_walked_window_its_own_step(seed):
     """tr.order_buffer: tile t's k-th window at step win_base[t] + k, the
     steps of all tiles distinct and inside the buffer, for disjoint tile
-    ranges of any length (empty ones too), sized without a host sync."""
+    ranges of any length (empty ones too), sized without a host sync; the
+    tiles' launch order heaviest first."""
     rng = np.random.default_rng(seed)
     cap, tiles = CHUNK * 40, 300
     cuts = np.sort(rng.integers(0, cap + 1, 2 * tiles)).reshape(tiles, 2)
     s = torch.tensor(cuts[:, 0], dtype=torch.int32)
     e = torch.tensor(cuts[:, 1], dtype=torch.int32)
-    words, base = tr.order_buffer(s, e, cap)
+    words, base, order = tr.order_buffer(s, e, cap)
     assert words.dtype == torch.int32 and base.dtype == torch.int32
+    assert torch.equal(order, tr.heaviest_first(e - s))
     steps = []
     for t in range(tiles):
         if e[t] > s[t]:

@@ -97,19 +97,42 @@ struct Pair {
     bool accept;          // response, alpha and segment tests
 };
 
+// The part of a pair that depends on the row and the ray's origin only:
+// w0 = o - mean and u = A w0. Where every ray of a tile starts at one
+// origin (any global-shutter camera), B1's default legs compute it once per
+// row of a window instead of once per (pixel, row).
+struct RowU {
+    float w0x, w0y, w0z;  // o - mean
+    float ux, uy, uz;     // u = A (o - mean)
+};
+
+__device__ __forceinline__ RowU row_u(const float* q, float ox, float oy,
+                                      float oz) {
+    RowU h;
+    h.w0x = ox - q[9];
+    h.w0y = oy - q[10];
+    h.w0z = oz - q[11];
+    h.ux = q[0] * h.w0x + q[1] * h.w0y + q[2] * h.w0z;
+    h.uy = q[3] * h.w0x + q[4] * h.w0y + q[5] * h.w0z;
+    h.uz = q[6] * h.w0x + q[7] * h.w0y + q[8] * h.w0z;
+    return h;
+}
+
 // One slot row q (16 floats: A row-major, mean, opacity, rgb) against one
-// ray. The transmittance test (T > min_transmittance) is the caller's.
-__device__ __forceinline__ Pair pair_eval(const float* q, const Ray& r,
-                                          int degree, float min_response,
-                                          float min_alpha, float max_alpha,
-                                          int has_t_max) {
+// ray, given the row's RowU for the ray's origin. The transmittance test
+// (T > min_transmittance) is the caller's.
+__device__ __forceinline__ Pair pair_from_u(const float* q, const RowU& h,
+                                            const Ray& r, int degree,
+                                            float min_response,
+                                            float min_alpha, float max_alpha,
+                                            int has_t_max) {
     Pair s;
-    s.w0x = r.ox - q[9];
-    s.w0y = r.oy - q[10];
-    s.w0z = r.oz - q[11];
-    s.ux = q[0] * s.w0x + q[1] * s.w0y + q[2] * s.w0z;
-    s.uy = q[3] * s.w0x + q[4] * s.w0y + q[5] * s.w0z;
-    s.uz = q[6] * s.w0x + q[7] * s.w0y + q[8] * s.w0z;
+    s.w0x = h.w0x;
+    s.w0y = h.w0y;
+    s.w0z = h.w0z;
+    s.ux = h.ux;
+    s.uy = h.uy;
+    s.uz = h.uz;
     s.vx = q[0] * r.dx + q[1] * r.dy + q[2] * r.dz;
     s.vy = q[3] * r.dx + q[4] * r.dy + q[5] * r.dz;
     s.vz = q[6] * r.dx + q[7] * r.dy + q[8] * r.dz;
@@ -128,6 +151,16 @@ __device__ __forceinline__ Pair pair_eval(const float* q, const Ray& r,
     const bool in_segment = !has_t_max || r.tmax <= 0.0f || s.hit_t <= r.tmax;
     s.accept = s.resp > min_response && s.alpha > min_alpha && in_segment;
     return s;
+}
+
+// The same for a ray of its own origin: with --fmad=false the two forms
+// give the same bits.
+__device__ __forceinline__ Pair pair_eval(const float* q, const Ray& r,
+                                          int degree, float min_response,
+                                          float min_alpha, float max_alpha,
+                                          int has_t_max) {
+    return pair_from_u(q, row_u(q, r.ox, r.oy, r.oz), r, degree,
+                       min_response, min_alpha, max_alpha, has_t_max);
 }
 
 // The sorted mode's re-sort of one pixel's window (tile_raster.py

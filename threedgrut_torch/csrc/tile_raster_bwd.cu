@@ -8,9 +8,15 @@
 // (tile_raster_fwd.cu): the block re-walks the windows the forward walked,
 // loading each absolute 128-slot window (8 KB) into shared memory, and stops
 // where the forward stopped (__syncthreads_or(T > min_transmittance) after a
-// window). Every pair goes through the forward's pair_eval (tile_pair.cuh);
+// window). Every pair goes through the forward's pair math (tile_pair.cuh);
 // with --fmad=false both kernels accept the same hits with the same alpha and
 // the same sequential T, so a pixel's weight w > 0 here iff it was > 0 there.
+// The default leg reads which rows each pixel took from the live-row mask
+// B1 wrote (`order`: a bit per row, rewalk_rows) and evaluates a pair only
+// there: a row no pixel of a warp took costs that warp nothing but its
+// share of the zeros. It evaluates too few pairs for B1's per-row w0 and u
+// to pay (measured slower with them, PERF.md). Without a mask the wrapper
+// runs B1 to write it; the wrapper launches the tiles heaviest first.
 //
 // Per pixel, the suffix sum_{k>j} w_k q_k (q = rgb . dC + hit_t dD + dO) is
 // the residual a_tot - prefix_j, with a_tot rebuilt from the forward's
@@ -56,13 +62,14 @@
 //  * ROWTERM: alpha is 0 past each pixel's last touch lt (rays row 7); the
 //    walk starts and stops where B1's does.
 //
-// Bound on this card: operations against 67 TFLOP/s f32. The pair math
-// (~75 operations) runs for every (pixel, walked slot); the gradient chain
-// (~108) and the 16 adds that sum its row over the tile run only for a live
-// pair (w > 0), and a warp with no live lane skips the shuffles. Device
-// memory sees 64 bytes read and 64 written per walked slot and 24 KB per
-// tile. The walk is serial per pixel, so the kernel is bound by instruction
-// issue.
+// Bound on this card: operations against 67 TFLOP/s f32. The default leg
+// needs the pair math (~75 operations), the gradient chain (~108) and the
+// 16 adds that sum its row over the tile only for a live pair (w > 0), and
+// a warp with no live lane skips them (the sorted legs still evaluate the
+// pair for every (pixel, walked slot) in pass A). Device memory sees 64
+// bytes read and 64 written per walked slot, 24 KB per tile and the mask's
+// 16 bytes per pixel-window. The walk is serial per pixel, so the kernel is
+// bound by instruction issue.
 #include "tile_pair.cuh"
 
 #define SUB 32           // slots per cross-warp reduction batch
@@ -196,8 +203,78 @@ __device__ __forceinline__ void warp_part(float v[ROW_F], bool live, int lane,
     }
 }
 
+// Rows [kb, ke) of a 32-row word of a window, as bits of that word.
+__device__ __forceinline__ unsigned word_rows(int kb, int ke, int j) {
+    const int a = kb - 32 * j, e = ke - 32 * j;
+    const unsigned upto = e >= 32 ? 0xffffffffu : (1u << e) - 1u;
+    return upto & ~((1u << a) - 1u);
+}
+
+// The default leg's re-walk of one window's rows [lo, hi) on B1's live-row
+// mask (`lm`: this pixel's CHUNK / 32 words of the window), 32 rows (one
+// mask word) per reduction batch. The rows some lane of the warp took
+// (the OR of the warp's words) run the taken branch of the forward's walk:
+// T_before, w, the prefix, T *= 1 - alpha and, for w > 0, d_alpha and the
+// chain; a lane whose bit is clear there leaves T and the prefix as they
+// are. The other rows of the batch get the zeros the reduction gives a row
+// no lane of the warp counted, without evaluating a pair.
+__device__ __forceinline__ void rewalk_rows(
+    const float* rows, const Ray& ray, const unsigned* lm, int base, int lo,
+    int hi, int p, int lane, float (*part)[SUB][ROW_F],
+    float* __restrict__ grad, float a_tot,
+    float dCr, float dCg, float dCb, float dO, float dD, float dT,
+    float t_final, int degree, float min_response, float min_alpha,
+    float max_alpha, int has_t_max, int aux_grads, float& T,
+    float& prefix) {
+    const int warp = p >> 5;
+    for (int j = lo >> 5; j <= (hi - 1) >> 5; ++j) {
+        const int kb = max(lo, 32 * j), ke = min(hi, 32 * j + 32);
+        const unsigned bits = lm[j * PIX];
+        float* pw = &part[warp][0][0];
+        for (int i = lane; i < (ke - kb) * ROW_F; i += 32) pw[i] = 0.0f;
+        __syncwarp();
+        for (unsigned m = __reduce_or_sync(FULL, bits) & word_rows(kb, ke, j);
+             m != 0u; m &= m - 1u) {
+            const int k = 32 * j + __ffs(m) - 1;
+            const float* q = rows + k * ROW_F;
+            float v[ROW_F];
+#pragma unroll
+            for (int i = 0; i < ROW_F; ++i) v[i] = 0.0f;
+            bool live = false;
+            if ((bits >> (k & 31)) & 1u) {
+                const Pair s = pair_eval(q, ray, degree, min_response,
+                                         min_alpha, max_alpha, has_t_max);
+                const float t_before = T;
+                const float w = s.alpha * T;
+                float qj = q[13] * dCr + q[14] * dCg + q[15] * dCb;
+                qj = aux_grads ? qj + s.hit_t * dD + dO : qj + dO;
+                prefix = prefix + w * qj;
+                T *= 1.0f - s.alpha;
+                live = w > 0.0f;
+                if (live) {
+                    const float suffix = a_tot - prefix;
+                    const float inv_one_m =
+                        1.0f / fmaxf(1.0f - s.alpha, 1e-6f);
+                    float d_alpha = t_before * qj - suffix * inv_one_m;
+                    if (aux_grads)
+                        d_alpha = d_alpha - dT * t_final * inv_one_m;
+                    slot_grads(q, s, ray, w, d_alpha, dCr, dCg, dCb, dD,
+                               degree, max_alpha, aux_grads, v);
+                }
+            }
+            warp_part(v, live, lane, part[warp][k - kb]);
+        }
+        __syncthreads();
+        block_sums(part, rows, kb, ke - kb, base, p, grad);
+        __syncthreads();
+    }
+}
+
+// The default legs are held to four blocks per SM (64 registers, 16 bytes
+// of spills: 3-5% faster than three blocks at 80 registers, PERF.md); the
+// sorted legs' shared buffer allows two blocks whatever their registers.
 template <bool SORTED, bool ROWTERM>
-__global__ void __launch_bounds__(PIX)
+__global__ void __launch_bounds__(PIX, SORTED ? 1 : 4)
 tile_raster_bwd_kernel(const float* __restrict__ data,
                        const int* __restrict__ starts,
                        const int* __restrict__ ends,
@@ -206,6 +283,7 @@ tile_raster_bwd_kernel(const float* __restrict__ data,
                        const float* __restrict__ gout,
                        const unsigned* __restrict__ order,
                        const int* __restrict__ win_base,
+                       const int* __restrict__ tile_order,
                        float* __restrict__ grad, int degree,
                        float min_transmittance, float min_response,
                        float min_alpha, float max_alpha, int has_t_max,
@@ -213,7 +291,8 @@ tile_raster_bwd_kernel(const float* __restrict__ data,
     __shared__ __align__(16) float rows[CHUNK * ROW_F];
     __shared__ float part[PIX / 32][SUB][ROW_F];
 
-    const int t = blockIdx.x;
+    // Tile of this block: heaviest first, in the wrapper's order.
+    const int t = tile_order[blockIdx.x];
     const int p = threadIdx.x;
     const int lane = p & 31, warp = p >> 5;
     const float* rt = rays + (size_t)t * 8 * PIX;
@@ -356,44 +435,15 @@ tile_raster_bwd_kernel(const float* __restrict__ data,
             }
             T = t_next;
         } else {
-            for (int kb = lo; kb < hi; kb += SUB) {
-                const int kn = min(hi - kb, SUB);
-                for (int j = 0; j < kn; ++j) {
-                    const float* q = rows + (kb + j) * ROW_F;
-                    const Pair s = pair_eval(q, ray, degree, min_response,
-                                             min_alpha, max_alpha, has_t_max);
-                    float v[ROW_F];
-#pragma unroll
-                    for (int i = 0; i < ROW_F; ++i) v[i] = 0.0f;
-                    bool live = false;
-                    bool take = s.accept && T > min_transmittance;
-                    if constexpr (ROWTERM)
-                        take = take && (float)(base + kb + j) <= lt;
-                    if (take) {
-                        const float t_before = T;
-                        const float w = s.alpha * T;
-                        float qj = q[13] * dCr + q[14] * dCg + q[15] * dCb;
-                        qj = aux_grads ? qj + s.hit_t * dD + dO : qj + dO;
-                        prefix = prefix + w * qj;
-                        T *= 1.0f - s.alpha;
-                        live = w > 0.0f;
-                        if (live) {
-                            const float suffix = a_tot - prefix;
-                            const float inv_one_m =
-                                1.0f / fmaxf(1.0f - s.alpha, 1e-6f);
-                            float d_alpha = t_before * qj - suffix * inv_one_m;
-                            if (aux_grads)
-                                d_alpha = d_alpha - dT * t_final * inv_one_m;
-                            slot_grads(q, s, ray, w, d_alpha, dCr, dCg, dCb,
-                                       dD, degree, max_alpha, aux_grads, v);
-                        }
-                    }
-                    warp_part(v, live, lane, part[warp][j]);
-                }
-                __syncthreads();
-                block_sums(part, rows, kb, kn, base, p, grad);
-                __syncthreads();
-            }
+            // B1's live-row mask of this pixel and window: step
+            // win_base[t] + (g - w0), CHUNK / 32 words.
+            const unsigned* lm =
+                order + (size_t)(win_base[t] + g - w0) * (CHUNK / 32) * PIX
+                + p;
+            rewalk_rows(rows, ray, lm, base, lo, hi, p, lane, part, grad,
+                        a_tot, dCr, dCg, dCb, dO, dD, dT, t_final, degree,
+                        min_response, min_alpha, max_alpha, has_t_max,
+                        aux_grads, T, prefix);
         }
         // The walk stops exactly where the forward's did.
         bool more = T > min_transmittance;
@@ -411,14 +461,15 @@ constexpr int SORTED_SMEM = 2 * PART * PIX * (int)sizeof(float);
 template <bool SORTED, bool ROWTERM>
 static int launch_bwd(const void* data, const void* starts, const void* ends,
                       const void* rays, const void* fwd, const void* gout,
-                      const void* order, const void* win_base, void* grad,
-                      int num_tiles, int degree, float min_transmittance,
+                      const void* order, const void* win_base,
+                      const void* tile_order, void* grad, int num_tiles,
+                      int degree, float min_transmittance,
                       float min_response, float min_alpha, float max_alpha,
                       int has_t_max, int aux_grads, cudaStream_t stream) {
     const int dyn = SORTED ? SORTED_SMEM : 0;
+    if (order == nullptr || win_base == nullptr || tile_order == nullptr)
+        return (int)cudaErrorInvalidValue;
     if (SORTED) {
-        if (order == nullptr || win_base == nullptr)
-            return (int)cudaErrorInvalidValue;
         const cudaError_t err = cudaFuncSetAttribute(
             tile_raster_bwd_kernel<SORTED, ROWTERM>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
@@ -427,19 +478,24 @@ static int launch_bwd(const void* data, const void* starts, const void* ends,
     tile_raster_bwd_kernel<SORTED, ROWTERM><<<num_tiles, PIX, dyn, stream>>>(
         (const float*)data, (const int*)starts, (const int*)ends,
         (const float*)rays, (const float*)fwd, (const float*)gout,
-        (const unsigned*)order, (const int*)win_base, (float*)grad, degree,
+        (const unsigned*)order, (const int*)win_base, (const int*)tile_order,
+        (float*)grad, degree,
         min_transmittance, min_response, min_alpha, max_alpha, has_t_max,
         aux_grads);
     return (int)cudaGetLastError();
 }
 
-// `order` and `win_base` (sorted legs only): the compositing orders that
-// B1 wrote for this walk (tile_raster_fwd.cu).
+// `tile_order`: the tile of each block, the wrapper's heaviest-first
+// order.
+// `order` and `win_base`: the walk record that B1 wrote for this walk
+// (tile_raster_fwd.cu): the sorted legs' compositing orders, the default
+// legs' live-row masks.
 extern "C" int tile_raster_bwd(const void* data, const void* starts,
                                const void* ends, const void* rays,
                                const void* fwd, const void* gout,
                                const void* order, const void* win_base,
-                               void* grad, int num_tiles, int degree,
+                               const void* tile_order, void* grad,
+                               int num_tiles, int degree,
                                float min_transmittance, float min_response,
                                float min_alpha, float max_alpha,
                                int has_t_max, int aux_grads, int passes,
@@ -449,9 +505,10 @@ extern "C" int tile_raster_bwd(const void* data, const void* starts,
                                             : launch_bwd<true, false>)
                          : (row_termination ? launch_bwd<false, true>
                                             : launch_bwd<false, false>);
-    return fn(data, starts, ends, rays, fwd, gout, order, win_base, grad,
-              num_tiles, degree, min_transmittance, min_response, min_alpha,
-              max_alpha, has_t_max, aux_grads, (cudaStream_t)stream);
+    return fn(data, starts, ends, rays, fwd, gout, order, win_base,
+              tile_order, grad, num_tiles, degree, min_transmittance,
+              min_response, min_alpha, max_alpha, has_t_max, aux_grads,
+              (cudaStream_t)stream);
 }
 
 // Dynamic shared memory (bytes) of a launch with `passes`.

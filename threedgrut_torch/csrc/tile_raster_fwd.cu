@@ -18,6 +18,18 @@
 // After each window the block stops once no pixel has T > min_transmittance;
 // row 7 reports the slots walked (the JAX kernel's `walked`).
 //
+// The default leg (walk_rows) does only the work its output needs: a pixel
+// evaluates a pair only while it can still take the row, and a warp whose
+// 32 pixels are all past that point leaves the window. Where the tile's 256
+// rays share one origin (bitwise; every global-shutter camera), the per-row
+// part of the pair (w0 = o - mean, u = A w0: 18 of its operations) is
+// computed once per row at the window's load into shared memory
+// (hoist_rows: from the values the load brings into registers, gathered by
+// shuffles), instead of once per (pixel, row). Given `order` (a backward
+// follows), it writes each pixel's live-row mask of each walked window
+// there: CHUNK / 32 words, bit k of word j set where row 32 j + k was taken
+// (w > 0), for B2. The wrapper launches the tiles heaviest first.
+//
 // With flags, every in-range slot of a walked window gets the max of w over
 // the tile's 256 pixels (warp shuffles, then shared memory). Slot ranges of
 // tiles are disjoint, so there are no races; the wrapper pre-zeroes flags and
@@ -55,19 +67,144 @@
 //    T > min_T and lt >= 128 (g + 1). A pixel whose lt lies before the
 //    tile's first row of the window composites nothing there.
 //
-// Bound on this card: ~60 f32 operations per (pixel, walked slot) against
-// 67 TFLOP/s; the rows come from shared memory as broadcasts, device memory
-// sees only 64 bytes per walked slot. Design: no prefix scans (the TPU
-// kernel's Hillis-Steele ladder and triangular matmuls existed only because
-// its vector unit cannot run a per-pixel sequential loop); the sequential
-// per-pixel recurrence is the cheapest exact form on a SIMT core. The sorted
-// leg adds the keys' pair math and, per pass run, 2 operations for each of
-// the 64 compare-exchanges; the pass count each pixel runs depends on how
-// far its hits are out of row order. Its 255 registers and 199 KB of shared
-// memory leave one block of 256 threads (8 warps) per SM.
+// Bound on this card: ~75 f32 operations per pair a pixel must evaluate
+// (while it can take rows) against 67 TFLOP/s; the rows come from shared
+// memory as broadcasts, device memory sees only 64 bytes per walked slot
+// (and 16 bytes per pixel-window of the mask). Design: no prefix scans (the
+// TPU kernel's Hillis-Steele ladder and triangular matmuls existed only
+// because its vector unit cannot run a per-pixel sequential loop); the
+// sequential per-pixel recurrence is the cheapest exact form on a SIMT
+// core. The sorted leg adds the keys' pair math and, per pass run, 2
+// operations for each of the 64 compare-exchanges; the pass count each
+// pixel runs depends on how far its hits are out of row order. Its 255
+// registers and 199 KB of shared memory leave one block of 256 threads (8
+// warps) per SM.
 #include "tile_pair.cuh"
 
 #define HALF (CHUNK / 2)  // rows of keys the sorted leg stages at a time
+
+// The default legs' per-row RowU of a window, in shared memory as two
+// float4 a row (read as broadcasts), its computation at the window's load
+// (hoist_rows), and the block's test that every ray of the tile has pixel
+// 0's origin, bit for bit.
+struct RowUPacked {
+    float4 a, b;  // (w0x, w0y, w0z, ux), (uy, uz, -, -)
+};
+
+__device__ __forceinline__ void store_row_u(RowUPacked* dst, const RowU& h) {
+    dst->a = make_float4(h.w0x, h.w0y, h.w0z, h.ux);
+    dst->b = make_float4(h.uy, h.uz, 0.0f, 0.0f);
+}
+
+__device__ __forceinline__ RowU load_row_u(const RowUPacked* src) {
+    const float4 a = src->a, b = src->b;
+    return RowU{a.x, a.y, a.z, a.w, b.x, b.y};
+}
+
+// One row's RowU from the float4 `a` of each lane: lanes 4i, 4i + 1 and
+// 4i + 2 hold floats 0-3, 4-7 and 8-11 of the row, and lane 4i stores it.
+__device__ __forceinline__ void hoist_row(RowUPacked* dst, float4 a, int p,
+                                          const Ray& r) {
+    float q[12] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int h = 1; h < 3; ++h) {
+        q[4 * h + 0] = __shfl_down_sync(0xffffffffu, a.x, h);
+        q[4 * h + 1] = __shfl_down_sync(0xffffffffu, a.y, h);
+        q[4 * h + 2] = __shfl_down_sync(0xffffffffu, a.z, h);
+        q[4 * h + 3] = __shfl_down_sync(0xffffffffu, a.w, h);
+    }
+    if ((p & 3) == 0) store_row_u(dst, row_u(q, r.ox, r.oy, r.oz));
+}
+
+// The window's rows' RowU, from the float4s p and p + PIX of the window
+// that thread p loads (`a`, `c`: rows p / 4 and CHUNK / 2 + p / 4), with
+// no load of its own. All threads of the block take part.
+__device__ __forceinline__ void hoist_rows(RowUPacked* hrow, float4 a,
+                                           float4 c, int p, const Ray& r) {
+    hoist_row(hrow + (p >> 2), a, p, r);
+    hoist_row(hrow + CHUNK / 2 + (p >> 2), c, p, r);
+}
+
+__device__ __forceinline__ bool tile_shares_origin(const float* ray,
+                                                   const Ray& r) {
+    const bool same = __float_as_uint(r.ox) == __float_as_uint(ray[0 * PIX])
+                      && __float_as_uint(r.oy)
+                             == __float_as_uint(ray[1 * PIX])
+                      && __float_as_uint(r.oz)
+                             == __float_as_uint(ray[2 * PIX]);
+    return __syncthreads_and(same) != 0;
+}
+
+// Per-pixel sums of the walk.
+struct Acc {
+    float T, r, g, b, opa, dep, hits;
+};
+
+// The default leg's walk of one window's rows [lo, hi) (rows of the tile,
+// in slot order). A pixel evaluates a pair only while it can take the row
+// (T > min_T and, with row termination, the row at or before its lt): a
+// warp whose 32 pixels are all past that point is done with the window,
+// since neither condition comes back. Taken rows set their bit of the
+// pixel's live-row mask, one word per 32 rows (`lm`, the words of this
+// pixel and window, written when a backward follows). With HOIST the rows'
+// w0 and u come from `hrow` (the tile's rays share one origin).
+template <bool ROWTERM, bool HOIST>
+__device__ __forceinline__ void walk_rows(
+    const float* rows, const RowUPacked* hrow, const Ray& ray, float lt,
+    int base, int lo, int hi, int lane, float* warp_max_w, float* flags,
+    unsigned* lm, int degree, float min_transmittance, float min_response,
+    float min_alpha, float max_alpha, int has_t_max, int aux_outputs,
+    Acc& a) {
+    int k = lo, stop = hi;
+#pragma unroll 1
+    for (int j = 0; j < CHUNK / 32; ++j) {
+        unsigned bits = 0u;
+        const int kb = min(hi, 32 * j + 32);
+        for (; k < kb; ++k) {
+            bool px = a.T > min_transmittance;
+            if constexpr (ROWTERM) px = px && (float)(base + k) <= lt;
+            if (!__any_sync(0xffffffffu, px)) {
+                stop = k;  // every pixel of the warp is done with the window
+                k = hi;
+                break;
+            }
+            float w = 0.0f;
+            if (px) {
+                const float* q = rows + k * ROW_F;
+                const Pair s =
+                    HOIST ? pair_from_u(q, load_row_u(hrow + k), ray, degree,
+                                        min_response, min_alpha, max_alpha,
+                                        has_t_max)
+                          : pair_eval(q, ray, degree, min_response,
+                                      min_alpha, max_alpha, has_t_max);
+                if (s.accept) {
+                    w = s.alpha * a.T;
+                    a.r += w * q[13];
+                    a.g += w * q[14];
+                    a.b += w * q[15];
+                    a.opa += w;
+                    if (aux_outputs) {
+                        a.dep += w * s.hit_t;
+                        a.hits += 1.0f;
+                    }
+                    a.T *= 1.0f - s.alpha;
+                    bits |= 1u << (k & 31);
+                }
+            }
+            if (flags != nullptr) {
+                float m = w;
+                for (int off = 16; off > 0; off >>= 1)
+                    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+                if (lane == 0) warp_max_w[k] = m;
+            }
+        }
+        if (lm != nullptr) lm[j * PIX] = bits;
+    }
+    if (flags != nullptr) {
+        // The rows a finished warp skipped: its weights there are 0.
+        for (int i = stop + lane; i < hi; i += 32) warp_max_w[i] = 0.0f;
+    }
+}
 
 template <bool SORTED, bool ROWTERM>
 __global__ void __launch_bounds__(PIX)
@@ -78,14 +215,19 @@ tile_raster_fwd_kernel(const float* __restrict__ data,
                        float* __restrict__ out, float* __restrict__ flags,
                        unsigned* __restrict__ order,
                        const int* __restrict__ win_base,
+                       const int* __restrict__ tile_order,
                        int degree, float min_transmittance,
                        float min_response, float min_alpha, float max_alpha,
                        int has_t_max, int aux_outputs, int passes) {
     __shared__ __align__(16) float rows[CHUNK * ROW_F];
     __shared__ float warp_max[PIX / 32][CHUNK];
     __shared__ unsigned int row_max[CHUNK];
+    // The default leg's per-row w0 and u of a window, where the tile's rays
+    // share one origin.
+    __shared__ RowUPacked hrow[SORTED ? 1 : CHUNK];
 
-    const int t = blockIdx.x;
+    // Tile of this block: heaviest first, in the wrapper's order.
+    const int t = tile_order[blockIdx.x];
     const int p = threadIdx.x;
     const int lane = p & 31, warp = p >> 5;
     const float* rt = rays + (size_t)t * 8 * PIX;
@@ -104,6 +246,7 @@ tile_raster_fwd_kernel(const float* __restrict__ data,
     float* kcol = win + CHUNK * PIX + p;
     float* rcol = win + (CHUNK + HALF) * PIX + p;
     if constexpr (SORTED) stash_ray(rcol, ray);
+    const bool hoist = !SORTED && tile_shares_origin(rt, ray);
 
     float T = 1.0f, r = 0.0f, gcol = 0.0f, b = 0.0f, opa = 0.0f, dep = 0.0f,
           hits = 0.0f;
@@ -115,9 +258,11 @@ tile_raster_fwd_kernel(const float* __restrict__ data,
         const float4* src = reinterpret_cast<const float4*>(
             data + (size_t)g * CHUNK * ROW_F);
         float4* dst = reinterpret_cast<float4*>(rows);
-        dst[p] = src[p];
-        dst[p + PIX] = src[p + PIX];
+        const float4 va = src[p], vc = src[p + PIX];
+        dst[p] = va;
+        dst[p + PIX] = vc;
         if (SORTED && p < CHUNK) row_max[p] = 0u;
+        if (hoist) hoist_rows(hrow, va, vc, p, ray);
         __syncthreads();
 
         const int base = g * CHUNK;
@@ -214,32 +359,30 @@ tile_raster_fwd_kernel(const float* __restrict__ data,
                 T = fminf(tmin, T);
             }
         } else {
-            for (int k = lo; k < hi; ++k) {
-                const float* q = rows + k * ROW_F;
-                const Pair s = pair_eval(q, ray, degree, min_response,
-                                         min_alpha, max_alpha, has_t_max);
-                float w = 0.0f;
-                bool take = s.accept && T > min_transmittance;
-                if constexpr (ROWTERM) take = take && (float)(base + k) <= lt;
-                if (take) {
-                    w = s.alpha * T;
-                    r += w * q[13];
-                    gcol += w * q[14];
-                    b += w * q[15];
-                    opa += w;
-                    if (aux_outputs) {
-                        dep += w * s.hit_t;
-                        hits += 1.0f;
-                    }
-                    T *= 1.0f - s.alpha;
-                }
-                if (flags != nullptr) {
-                    float m = w;
-                    for (int off = 16; off > 0; off >>= 1)
-                        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-                    if (lane == 0) warp_max[warp][k] = m;
-                }
-            }
+            // The live-row mask's words of this pixel and window: step
+            // win_base[t] + (g - w0), CHUNK / 32 words.
+            unsigned* lm = order == nullptr
+                               ? nullptr
+                               : order + (size_t)(win_base[t] + g - w0)
+                                             * (CHUNK / 32) * PIX + p;
+            Acc acc{T, r, gcol, b, opa, dep, hits};
+            if (hoist)
+                walk_rows<ROWTERM, true>(
+                    rows, hrow, ray, lt, base, lo, hi, lane, warp_max[warp],
+                    flags, lm, degree, min_transmittance, min_response,
+                    min_alpha, max_alpha, has_t_max, aux_outputs, acc);
+            else
+                walk_rows<ROWTERM, false>(
+                    rows, hrow, ray, lt, base, lo, hi, lane, warp_max[warp],
+                    flags, lm, degree, min_transmittance, min_response,
+                    min_alpha, max_alpha, has_t_max, aux_outputs, acc);
+            T = acc.T;
+            r = acc.r;
+            gcol = acc.g;
+            b = acc.b;
+            opa = acc.opa;
+            dep = acc.dep;
+            hits = acc.hits;
         }
         // The barrier also keeps `rows` and the flag buffers until every
         // thread is done with them: the next window writes them only after
@@ -280,11 +423,13 @@ constexpr int SORTED_SMEM = (CHUNK + HALF + 7) * PIX * (int)sizeof(float);
 template <bool SORTED, bool ROWTERM>
 static int launch_fwd(const void* data, const void* starts, const void* ends,
                       const void* rays, void* out, void* flags, void* order,
-                      const void* win_base, int num_tiles, int degree,
-                      float min_transmittance, float min_response,
-                      float min_alpha, float max_alpha, int has_t_max,
-                      int aux_outputs, int passes, cudaStream_t stream) {
+                      const void* win_base, const void* tile_order,
+                      int num_tiles, int degree, float min_transmittance,
+                      float min_response, float min_alpha, float max_alpha,
+                      int has_t_max, int aux_outputs, int passes,
+                      cudaStream_t stream) {
     const int dyn = SORTED ? SORTED_SMEM : 0;
+    if (tile_order == nullptr) return (int)cudaErrorInvalidValue;
     if (SORTED) {
         const cudaError_t err = cudaFuncSetAttribute(
             tile_raster_fwd_kernel<SORTED, ROWTERM>,
@@ -294,21 +439,26 @@ static int launch_fwd(const void* data, const void* starts, const void* ends,
     tile_raster_fwd_kernel<SORTED, ROWTERM><<<num_tiles, PIX, dyn, stream>>>(
         (const float*)data, (const int*)starts, (const int*)ends,
         (const float*)rays, (float*)out, (float*)flags, (unsigned*)order,
-        (const int*)win_base, degree, min_transmittance, min_response,
-        min_alpha, max_alpha, has_t_max, aux_outputs, passes);
+        (const int*)win_base, (const int*)tile_order, degree,
+        min_transmittance, min_response, min_alpha, max_alpha, has_t_max,
+        aux_outputs, passes);
     return (int)cudaGetLastError();
 }
 
-// `order` (sorted legs, may be null): [steps, CHUNK / 4, PIX] words that
-// receive each walked window's compositing order at step win_base[t] +
-// (window - first window of tile t), for B2.
+// `tile_order`: the tile of each block, the wrapper's heaviest-first
+// order.
+// `order` (may be null): the walk record that B2 re-walks, at step
+// win_base[t] + (window - first window of tile t) for each walked window:
+// the sorted legs' compositing orders ([steps, CHUNK / 4, PIX] words), the
+// default legs' live-row masks ([steps, CHUNK / 32, PIX] words).
 extern "C" int tile_raster_fwd(const void* data, const void* starts,
                                const void* ends, const void* rays, void* out,
                                void* flags, void* order, const void* win_base,
-                               int num_tiles, int degree,
-                               float min_transmittance, float min_response,
-                               float min_alpha, float max_alpha,
-                               int has_t_max, int aux_outputs, int passes,
+                               const void* tile_order, int num_tiles,
+                               int degree, float min_transmittance,
+                               float min_response, float min_alpha,
+                               float max_alpha, int has_t_max,
+                               int aux_outputs, int passes,
                                int row_termination, void* stream) {
     if (num_tiles <= 0) return (int)cudaGetLastError();
     auto fn = passes > 0 ? (row_termination ? launch_fwd<true, true>
@@ -316,8 +466,8 @@ extern "C" int tile_raster_fwd(const void* data, const void* starts,
                          : (row_termination ? launch_fwd<false, true>
                                             : launch_fwd<false, false>);
     return fn(data, starts, ends, rays, out, flags, order, win_base,
-              num_tiles, degree, min_transmittance, min_response, min_alpha,
-              max_alpha, has_t_max, aux_outputs, passes,
+              tile_order, num_tiles, degree, min_transmittance, min_response,
+              min_alpha, max_alpha, has_t_max, aux_outputs, passes,
               (cudaStream_t)stream);
 }
 

@@ -121,6 +121,7 @@ class _CompositeParticles(torch.autograd.Function):
         g_slots = tile_raster.tile_composite_backward(
             data_sorted, tile_starts, tile_ends, rays, out, g_out,
             *ctx.args, order=ctx.order)                       # [cap, 16]
+        ctx.order = None    # B1's record is spent: free it for the unsort
         walked = compact_walked(out, tile_starts, sorted_idx, g_slots,
                                 ctx.walk_capacity, ctx.n)
         branches["3dgut.dense" if walked is None else "3dgut.compact"] += 1

@@ -12,10 +12,15 @@ rgb (3)]. Rays are packed per tile as [num_tiles, 8, 256]: rows 0-2 origin,
 runs `tile_composite_plain` for CPU tensors. It is a torch.autograd.Function
 whose backward is kernel B2 (csrc/tile_raster_bwd.cu; plain version
 `tile_composite_backward_plain`): per-slot gradients [cap, 16] of the packed
-rows, exactly 0 on slots the forward's walk never reached. In the sorted
-mode a differentiable forward's B1 also writes each pixel-window's
-compositing order (`order_buffer`), which its B2 re-walks instead of sorting
-again; B2 given no order runs B1 for it.
+rows, exactly 0 on slots the forward's walk never reached. A
+differentiable forward's B1 also writes a record of its walk that its B2
+re-walks (`forward_order`, laid out by `order_buffer`): in the sorted mode
+each pixel-window's compositing order, which B2 follows instead of sorting
+again; without passes each pixel-window's live-row mask (a bit per row,
+set where the pixel took the row: w > 0; plain version `live_rows_plain`),
+so that B2 evaluates pairs only on rows some pixel of a warp took. B2 given
+no record runs B1 to write it. Both launch their tiles heaviest first, in
+one order the record holds (`heaviest_first`).
 
 Two options change the semantics, as in the JAX kernel:
   * `sorted_passes` > 0 (the "sorted" k-buffer mode): per pixel and
@@ -295,6 +300,65 @@ def _composite_windows(data_sorted, tile_starts, tile_ends, rays, degree,
     return out, (flags.reshape(-1) if emit_flags else None)
 
 
+def _tile_state(data_sorted, rays, t, s, e, row_termination, degree,
+                min_transmittance, min_response, min_alpha, max_alpha,
+                has_t_max, taken=None):
+    """The default legs' compositing state of tile t's slots [s, e): (rows
+    S [K, 16], pair quantities, lt [PIX] or None, and _tile_weights' 1 -
+    alpha, incl, T_before, w, each [K, PIX]). `taken` [K, PIX] (a live-row
+    mask) keeps alpha only on the rows it marks."""
+    lt = rays[t, 7] if row_termination else None
+    S = data_sorted[s:e]                                  # [K, 16]
+    q = _tile_pairs(S, rays[t], degree, min_response, min_alpha, max_alpha,
+                    has_t_max)
+    alpha = q["alpha"]
+    if lt is not None:
+        alpha = _row_gate(alpha, torch.arange(s, e, device=S.device), lt)
+    if taken is not None:
+        alpha = torch.where(taken, alpha, torch.zeros_like(alpha))
+    return (S, q, lt) + _tile_weights(alpha, min_transmittance)
+
+
+WARP = 32             # pixels of a warp: 32 consecutive pixels of a tile
+DEFAULT_STATS = ("pixel_live_pairs", "live_pairs", "warp_live_rows",
+                 "saturated_warp_rows", "row_parts", "live_row_parts")
+
+
+def shares_origin(rays):
+    """[num_tiles] bool: whether tile t's 256 ray origins (rays rows 0-2)
+    are bitwise equal, as csrc/tile_raster_fwd.cu tile_shares_origin
+    tests (every global-shutter camera)."""
+    o = rays[:, 0:3].contiguous().view(torch.int32)
+    return (o == o[:, :, :1]).all(dim=2).all(dim=1)
+
+
+def _count_default(stats, t_before, w, rows, lt, walked, min_transmittance,
+                   shared):
+    """Add one tile's work in the default legs to `stats` (walked rows only;
+    t_before, w [K, PIX] in slot order, rows [K] the slot indices, lt [PIX]
+    or None): "pixel_live_pairs", the pairs B1 evaluates (T > min_T and,
+    with row termination, the row at or before lt); "live_pairs", the rows
+    taken (w > 0: the pairs B2 evaluates); "warp_live_rows", the (warp,
+    row) with some taken lane (B2's reductions); "saturated_warp_rows",
+    the (warp, row) with no lane B1 evaluates (which B1 skips);
+    "row_parts", the pair's per-row part (w0 = o - mean, u = A w0) that
+    B1's pairs need: once per row some pixel evaluates where the tile's
+    rays share one origin (`shared`), else once per pixel-live pair;
+    "live_row_parts", the same for the taken rows (B2)."""
+    px = t_before[:walked] > min_transmittance
+    if lt is not None:
+        px &= rows[:walked].to(torch.float32)[:, None] <= lt[None, :]
+    live = w[:walked] > 0.0
+    stats["pixel_live_pairs"] += int(px.sum())
+    stats["live_pairs"] += int(live.sum())
+    stats["row_parts"] += int((px.any(1) if shared else px).sum())
+    stats["live_row_parts"] += int((live.any(1) if shared else live).sum())
+    stats["warp_live_rows"] += int(
+        live.view(walked, PIX // WARP, WARP).any(-1).sum())
+    stats["saturated_warp_rows"] += int(
+        (~px).view(walked, PIX // WARP, WARP).all(-1).sum())
+
+
 def tile_composite_plain(data_sorted, tile_starts, tile_ends, rays,
                          degree: int, min_transmittance: float,
                          min_response: float = C.MIN_KERNEL_RESPONSE,
@@ -304,9 +368,10 @@ def tile_composite_plain(data_sorted, tile_starts, tile_ends, rays,
                          emit_flags: bool = False, sorted_passes: int = 0,
                          row_termination: bool = False, stats=None):
     """Plain version of B1. Without passes: a loop over tiles, each tile's
-    whole slot range at once, transmittance by torch.cumprod; with passes,
-    window by window (and a `stats` dict gets the network's work,
-    _window_weights). Returns (out, flags or None)."""
+    whole slot range at once, transmittance by torch.cumprod (a `stats`
+    dict gets the default legs' work, _count_default); with passes, window
+    by window (and `stats` gets the network's work, _window_weights).
+    Returns (out, flags or None)."""
     if sorted_passes:
         if stats is not None:
             stats.update(live_pixel_windows=0, network_passes=0)
@@ -315,6 +380,9 @@ def tile_composite_plain(data_sorted, tile_starts, tile_ends, rays,
             min_transmittance, min_response, min_alpha, max_alpha,
             has_t_max, aux_outputs, emit_flags, sorted_passes,
             row_termination, stats)
+    if stats is not None:
+        stats.update(dict.fromkeys(DEFAULT_STATS, 0))
+        shared = shares_origin(rays).tolist()
     num_tiles = rays.shape[0]
     dev = rays.device
     out = torch.zeros((num_tiles, 8, PIX), dtype=torch.float32, device=dev)
@@ -327,14 +395,9 @@ def tile_composite_plain(data_sorted, tile_starts, tile_ends, rays,
         s, e = starts[t], ends[t]
         if e <= s:
             continue
-        lt = rays[t, 7] if row_termination else None
-        S = data_sorted[s:e]                              # [K, 16]
-        q = _tile_pairs(S, rays[t], degree, min_response, min_alpha,
-                        max_alpha, has_t_max)
-        alpha = q["alpha"]
-        if lt is not None:
-            alpha = _row_gate(alpha, torch.arange(s, e, device=dev), lt)
-        _, incl, t_before, w = _tile_weights(alpha, min_transmittance)
+        S, q, lt, _, incl, t_before, w = _tile_state(
+            data_sorted, rays, t, s, e, row_termination, degree,
+            min_transmittance, min_response, min_alpha, max_alpha, has_t_max)
         out[t, 0:3] = S[:, 13:16].T @ w
         out[t, 3] = w.sum(0)
         if aux_outputs:
@@ -343,7 +406,11 @@ def tile_composite_plain(data_sorted, tile_starts, tile_ends, rays,
         live = t_before > min_transmittance
         t_after = torch.where(live, incl, torch.full_like(incl, BIG))
         out[t, 5] = torch.clamp(t_after.min(0).values, max=1.0)
-        out[t, 7] = float(_walked(incl, s, e, min_transmittance, lt))
+        walked = _walked(incl, s, e, min_transmittance, lt)
+        out[t, 7] = float(walked)
+        if stats is not None:
+            _count_default(stats, t_before, w, torch.arange(s, e, device=dev),
+                           lt, walked, min_transmittance, shared[t])
         if emit_flags:
             flags[s:e] = w.max(1).values
     return out, flags
@@ -496,14 +563,19 @@ def tile_composite_backward_plain(data_sorted, tile_starts, tile_ends, rays,
                                   has_t_max: bool = True,
                                   aux_grads: bool = True,
                                   sorted_passes: int = 0,
-                                  row_termination: bool = False):
+                                  row_termination: bool = False, mask=None):
     """Plain version of B2: per-slot gradients [cap, 16] of the packed rows
     for the output cotangent g_out [num_tiles, 8, 256], given the forward's
     output `out`. Without passes a loop over tiles; the suffix sums come
-    from the forward totals (a_tot - cumsum), as in the kernel; with passes
-    window by window. Slots past a tile's early exit, and slots of no tile,
-    get exactly 0."""
+    from the forward totals (a_tot - cumsum), as in the kernel; with a
+    live-row `mask` (live_rows_plain's or B1's (words, win_base)) only the
+    rows it marks composite, as in the kernel's re-walk. With passes window
+    by window. Slots past a tile's early exit, and slots of no tile, get
+    exactly 0."""
     if sorted_passes:
+        if mask is not None:
+            raise ValueError("a live-row mask belongs to the default legs "
+                             "(0 sorted passes)")
         return _composite_windows_backward(
             data_sorted, tile_starts, tile_ends, rays, out, g_out, degree,
             min_transmittance, min_response, min_alpha, max_alpha, has_t_max,
@@ -516,14 +588,14 @@ def tile_composite_backward_plain(data_sorted, tile_starts, tile_ends, rays,
         s, e = starts[t], ends[t]
         if e <= s:
             continue
-        lt = rays[t, 7] if row_termination else None
-        S = data_sorted[s:e]
-        q = _tile_pairs(S, rays[t], degree, min_response, min_alpha,
-                        max_alpha, has_t_max)
-        alpha = q["alpha"]
-        if lt is not None:
-            alpha = _row_gate(alpha, torch.arange(s, e, device=S.device), lt)
-        one_m, incl, t_before, w = _tile_weights(alpha, min_transmittance)
+        taken = None
+        if mask is not None:
+            base = int(mask[1][t])
+            taken = unpack_rows(mask[0][base:base + _windows(s, e)], s, e)
+        S, q, lt, one_m, incl, t_before, w = _tile_state(
+            data_sorted, rays, t, s, e, row_termination, degree,
+            min_transmittance, min_response, min_alpha, max_alpha, has_t_max,
+            taken)
         walked = _walked(incl, s, e, min_transmittance, lt)
         if walked <= 0:
             continue
@@ -563,23 +635,96 @@ def check_passes(sorted_passes: int) -> None:
         raise ValueError(f"sorted_passes must be >= 0, got {sorted_passes}")
 
 
-_FWD_ARGS = [_P] * 8 + [_I, _I] + [_F] * 4 + [_I] * 4 + [_P]
-_BWD_ARGS = [_P] * 9 + [_I, _I] + [_F] * 4 + [_I] * 4 + [_P]
+_FWD_ARGS = [_P] * 9 + [_I, _I] + [_F] * 4 + [_I] * 4 + [_P]
+_BWD_ARGS = [_P] * 10 + [_I, _I] + [_F] * 4 + [_I] * 4 + [_P]
 
 
-def order_buffer(tile_starts, tile_ends, cap: int):
-    """Room for the compositing orders that B1's sorted leg writes and B2's
-    reads: (words [steps, CHUNK // 4, PIX] int32, win_base [num_tiles]
-    int32), tile t's k-th window at step win_base[t] + k. Sized for every
-    window of every tile's range, at most cap / CHUNK + num_tiles (ranges
-    are disjoint), so no host sync."""
+def heaviest_first(work):
+    """B1's and B2's block order: the tiles by decreasing `work`
+    [num_tiles] (their slot counts), int32, so the longest blocks do not
+    start in the last wave."""
+    return torch.argsort(work, descending=True).to(torch.int32)
+
+
+def walk_words(sorted_passes: int) -> int:
+    """Words per pixel and window of the walk record B1 writes for B2: the
+    compositing order (sorted legs: a byte per position) or the live-row
+    mask (default legs: a bit per row)."""
+    return CHUNK // 4 if sorted_passes else CHUNK // 32
+
+
+def order_buffer(tile_starts, tile_ends, cap: int, words: int = CHUNK // 4):
+    """Room for the walk records that B1 writes and B2 reads: (words
+    [steps, `words`, PIX] int32, win_base [num_tiles] int32, tile_order
+    [num_tiles] int32), tile t's k-th window at step win_base[t] + k;
+    `words` per walk_words (default: the sorted legs' compositing orders);
+    tile_order the block order both kernels launch (heaviest_first), made
+    once for the pair. Sized for every window of every tile's range, at
+    most cap / CHUNK + num_tiles (ranges are disjoint), so no host sync."""
     s, e = tile_starts.long(), tile_ends.long()
     first = torch.div(s, CHUNK, rounding_mode="floor")
     nwin = torch.where(e > s, torch.div(e - 1, CHUNK, rounding_mode="floor")
                        + 1 - first, torch.zeros_like(s))
     win_base = (torch.cumsum(nwin, 0) - nwin).to(torch.int32)
-    words = torch.empty((cap // CHUNK + s.shape[0], CHUNK // 4, PIX),
-                        dtype=torch.int32, device=tile_starts.device)
+    buf = torch.empty((cap // CHUNK + s.shape[0], words, PIX),
+                      dtype=torch.int32, device=tile_starts.device)
+    return buf, win_base, heaviest_first(e - s)
+
+
+def _windows(s: int, e: int) -> int:
+    """Absolute windows that a tile's slot range [s, e) touches."""
+    return (e - 1) // CHUNK + 1 - s // CHUNK if e > s else 0
+
+
+_BIT = torch.arange(32, dtype=torch.int64)
+
+
+def pack_rows(taken, s: int, e: int):
+    """A tile's live-row mask words [windows, CHUNK // 32, PIX] int32 (bit
+    k of word j: row 32 j + k of the window) from its taken rows [e - s,
+    PIX] bool over slots [s, e)."""
+    w0 = s // CHUNK
+    nw = _windows(s, e)
+    full = torch.zeros((nw * CHUNK, PIX), dtype=torch.int64,
+                       device=taken.device)
+    full[s - w0 * CHUNK:e - w0 * CHUNK] = taken.to(torch.int64)
+    bits = full.view(nw, CHUNK // 32, 32, PIX) << _BIT.to(
+        taken.device)[None, None, :, None]
+    words = bits.sum(2)                                  # [0, 2^32)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def unpack_rows(words, s: int, e: int):
+    """The taken rows [e - s, PIX] bool of a tile's mask words (pack_rows)."""
+    nw = words.shape[0]
+    w = words.to(torch.int64) & 0xFFFFFFFF
+    bits = (w[:, :, None, :] >> _BIT.to(words.device)[None, None, :, None]) & 1
+    lo = s - (s // CHUNK) * CHUNK
+    return bits.reshape(nw * CHUNK, PIX)[lo:lo + e - s] != 0
+
+
+def live_rows_plain(data_sorted, tile_starts, tile_ends, rays, degree: int,
+                    min_transmittance: float,
+                    min_response: float = C.MIN_KERNEL_RESPONSE,
+                    min_alpha: float = C.MIN_ALPHA,
+                    max_alpha: float = C.MAX_ALPHA, has_t_max: bool = True,
+                    row_termination: bool = False):
+    """Plain version of the live-row mask B1's default legs write for B2:
+    (words, win_base) as order_buffer(..., CHUNK // 32) lays them out, bit
+    k of word j of a pixel-window set where the pixel took row 32 j + k of
+    the window (w > 0), every other word 0."""
+    words, win_base, _ = order_buffer(tile_starts, tile_ends,
+                                      data_sorted.shape[0], CHUNK // 32)
+    words.zero_()
+    for t, (s, e) in enumerate(zip(tile_starts.tolist(),
+                                   tile_ends.tolist())):
+        if e <= s:
+            continue
+        w = _tile_state(data_sorted, rays, t, s, e, row_termination, degree,
+                        min_transmittance, min_response, min_alpha,
+                        max_alpha, has_t_max)[-1]
+        base = int(win_base[t])
+        words[base:base + _windows(s, e)] = pack_rows(w > 0.0, s, e)
     return words, win_base
 
 
@@ -594,29 +739,34 @@ def dynamic_smem(sorted_passes: int, backward: bool = False) -> int:
     return int(fn(int(sorted_passes)))
 
 
-def _check_order(order, cap, num_tiles):
+def _check_order(order, cap, num_tiles, sorted_passes):
     cuda_build.checked_inputs(
         ("order", order[0], torch.int32,
-         (cap // CHUNK + num_tiles, CHUNK // 4, PIX)),
-        ("win_base", order[1], torch.int32, (num_tiles,)))
+         (cap // CHUNK + num_tiles, walk_words(sorted_passes), PIX)),
+        ("win_base", order[1], torch.int32, (num_tiles,)),
+        ("tile_order", order[2], torch.int32, (num_tiles,)))
 
 
 def _launch(data_sorted, tile_starts, tile_ends, rays, degree,
             min_transmittance, min_response, min_alpha, max_alpha,
             has_t_max, aux_outputs, emit_flags, sorted_passes=0,
             row_termination=False, order=None):
-    """B1. With sorted passes, `order` (order_buffer) receives each walked
-    window's compositing order for B2."""
+    """B1. `order` (order_buffer with walk_words(sorted_passes) words)
+    receives each walked window's record for B2: the compositing orders
+    with sorted passes, the live-row masks without; its tile order is the
+    launch's (without a record, heaviest_first's)."""
     dev = rays.device
     cap = data_sorted.shape[0]
     num_tiles = rays.shape[0]
     _check_launch(data_sorted, tile_starts, tile_ends, rays, degree,
                   sorted_passes)
     if order is not None:
-        _check_order(order, cap, num_tiles)
+        _check_order(order, cap, num_tiles, sorted_passes)
     out = torch.empty((num_tiles, 8, PIX), dtype=torch.float32, device=dev)
     flags = (torch.zeros(cap, dtype=torch.float32, device=dev)
              if emit_flags else None)
+    tile_order = (heaviest_first(tile_ends - tile_starts) if order is None
+                  else order[2])
     lib = cuda_build.library("tile_raster_fwd", _FWD_ARGS)
     stream = torch.cuda.current_stream(dev).cuda_stream
     cuda_build.launches["tile_raster_fwd"] += 1
@@ -625,8 +775,9 @@ def _launch(data_sorted, tile_starts, tile_ends, rays, degree,
         rays.data_ptr(), out.data_ptr(),
         flags.data_ptr() if emit_flags else None,
         None if order is None else order[0].data_ptr(),
-        None if order is None else order[1].data_ptr(), num_tiles, degree,
-        min_transmittance, min_response, min_alpha, max_alpha,
+        None if order is None else order[1].data_ptr(),
+        tile_order.data_ptr(), num_tiles,
+        degree, min_transmittance, min_response, min_alpha, max_alpha,
         int(bool(has_t_max)), int(bool(aux_outputs)), int(sorted_passes),
         int(bool(row_termination)), stream))
     return out, flags
@@ -636,30 +787,32 @@ def _launch_backward(data_sorted, tile_starts, tile_ends, rays, out, g_out,
                      degree, min_transmittance, min_response, min_alpha,
                      max_alpha, has_t_max, aux_grads, sorted_passes=0,
                      row_termination=False, order=None):
-    """B2. Its sorted leg re-walks the compositing orders B1 wrote into
-    `order` for this forward; without them, B1 runs first to write them."""
+    """B2. It re-walks the record B1 wrote into `order` for this forward
+    (the compositing orders with sorted passes, the live-row masks
+    without), in its tile order; without it, B1 runs first to write it."""
     cap = data_sorted.shape[0]
     num_tiles = rays.shape[0]
     _check_launch(data_sorted, tile_starts, tile_ends, rays, degree,
                   sorted_passes, out=out, g_out=g_out)
-    if sorted_passes and order is None:
-        order = order_buffer(tile_starts, tile_ends, cap)
+    if order is None:
+        order = order_buffer(tile_starts, tile_ends, cap,
+                             walk_words(sorted_passes))
         _launch(data_sorted, tile_starts, tile_ends, rays, degree,
                 min_transmittance, min_response, min_alpha, max_alpha,
                 has_t_max, False, False, sorted_passes, row_termination,
                 order)
-    if sorted_passes:
-        _check_order(order, cap, num_tiles)
+    _check_order(order, cap, num_tiles, sorted_passes)
     # Zeroed: slots the walk never reaches keep an exact 0.
     grad = torch.zeros((cap, ROW_F), dtype=torch.float32, device=rays.device)
+    tile_order = order[2]
     lib = cuda_build.library("tile_raster_bwd", _BWD_ARGS)
     stream = torch.cuda.current_stream(rays.device).cuda_stream
     cuda_build.launches["tile_raster_bwd"] += 1
     cuda_build.check("tile_raster_bwd", lib.tile_raster_bwd(
         data_sorted.data_ptr(), tile_starts.data_ptr(), tile_ends.data_ptr(),
         rays.data_ptr(), out.data_ptr(), g_out.data_ptr(),
-        order[0].data_ptr() if sorted_passes else None,
-        order[1].data_ptr() if sorted_passes else None, grad.data_ptr(),
+        order[0].data_ptr(), order[1].data_ptr(),
+        tile_order.data_ptr(), grad.data_ptr(),
         num_tiles, degree, min_transmittance, min_response, min_alpha,
         max_alpha, int(bool(has_t_max)), int(bool(aux_grads)),
         int(sorted_passes), int(bool(row_termination)), stream))
@@ -679,8 +832,8 @@ def tile_composite_backward(data_sorted, tile_starts, tile_ends, rays, out,
     _backward_windows, in slot layout). `aux_grads=False` drops the depth
     and transmittance cotangents (rows 4-5 of g_out are not read);
     `sorted_passes` and `row_termination` must be the forward's, `order`
-    the compositing orders its B1 wrote, if it wrote them. Launches the
-    kernel for CUDA tensors; the plain version for CPU tensors."""
+    the walk record its B1 wrote (forward_order), if it wrote one. Launches
+    the kernel for CUDA tensors; the plain version for CPU tensors."""
     args = (data_sorted, tile_starts, tile_ends, rays, out,
             g_out.contiguous(), degree, min_transmittance, min_response,
             min_alpha, max_alpha, has_t_max, aux_grads, sorted_passes,
@@ -693,11 +846,14 @@ def tile_composite_backward(data_sorted, tile_starts, tile_ends, rays, out,
 
 def forward_order(data_sorted, tile_starts, tile_ends, rays, sorted_passes,
                   needs_grad: bool):
-    """The order buffer a differentiable forward's B1 fills for its B2:
-    only on the card, with sorted passes, when a backward will run."""
-    if not (needs_grad and sorted_passes and rays.device.type != "cpu"):
+    """The walk record a differentiable forward's B1 fills for its B2 (the
+    compositing orders with sorted passes, the live-row masks without):
+    only on the card, when a backward will run. The backward frees it once
+    B2 has read it."""
+    if not (needs_grad and rays.device.type != "cpu"):
         return None
-    return order_buffer(tile_starts, tile_ends, data_sorted.shape[0])
+    return order_buffer(tile_starts, tile_ends, data_sorted.shape[0],
+                        walk_words(sorted_passes))
 
 
 class _TileComposite(torch.autograd.Function):
@@ -740,6 +896,7 @@ class _TileComposite(torch.autograd.Function):
         g_data = tile_composite_backward(data_sorted, tile_starts, tile_ends,
                                          rays, out, g_out, *ctx.args,
                                          order=ctx.order)
+        ctx.order = None    # B1's record is spent: free it
         return (g_data,) + (None,) * 14
 
 
