@@ -78,9 +78,11 @@ Phases, each of which fails the run on a miss:
      at 16 and at 64 channels within the f32 summation bound; B9 at the
      1M flat cull's inputs bit-equal and bit-identical), timed with
      CUDA events beside its bound and, for B5 and B6, one PyTorch call
-     computing the same sums; B1's and B2's default legs as the train
-     step runs them (B1 writing its live-row mask, B2 on it, bit-equal to
-     B2 given none), their bounds on the work the inputs need (the plain
+     computing the same sums; B5's, B6's and B9's kernels' ptxas reports
+     and blocks per SM (the CUDA runtime's occupancy query); B1's and
+     B2's default legs as the train step runs them (B1 writing its
+     live-row mask, B2 on it, bit-equal to B2 given none), their bounds
+     on the work the inputs need (the plain
      version's counts: pairs a pixel can take, live pairs, warp-live and
      saturated-warp rows, the pair's per-row parts: once per row where a
      tile's rays share one origin) and the four default instantiations'
@@ -108,6 +110,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -840,7 +843,7 @@ def grt_cull_legs(dev, tag):
     return launches, captured["args"], leg_ms
 
 
-def b9_record(args, launches, leg_ms, tag):
+def b9_record(args, launches, leg_ms, tag, ptxas):
     """B9 against its plain version on the card at the 1M flat cull's
     inputs `args`: both outputs bit-equal, two launches bit-identical.
     Bound from this run's counts: bytes of the gid and mask of every slot
@@ -874,9 +877,11 @@ def b9_record(args, launches, leg_ms, tag):
                          1, warmup=0),
         bound_ms=b[0], bound_by=b[1], library_ms=None, segments=int(
             seg_ws.shape[0]), super_slots=slots, hits=hits, written=written,
-        cull_leg_ms=leg_ms)
+        cull_leg_ms=leg_ms,
+        ptxas=entry_occupancy(ptxas, stream_compact.blocks_per_sm()))
     print(f"B9 at 1M: {rec['ms']:.4f} ms (bound {rec['bound_ms']:.4f}, "
-          f"plain {rec['plain_ms']:.3f} ms) {tag}", flush=True)
+          f"plain {rec['plain_ms']:.3f} ms); ptxas {rec['ptxas']} {tag}",
+          flush=True)
     return rec
 
 
@@ -1376,7 +1381,8 @@ def b8_record(data, inp, b7_runs, launches, walk, ptxas, tag):
         lambda g, i: segment_sum.segment_sum_rows_by_ids_plain(g, i, n),
         (rows, sid), lengths, kept, kept * 256 + rows.shape[0] * 4 + n * 256,
         lambda: acc.index_add_(0, ids_l, rows),
-        total("segment_sum_rows_by_ids"), tag)
+        total("segment_sum_rows_by_ids"), tag,
+        sums_occupancy(ptxas, "B6"))
     rec6["launches_grt_train"] = {n_: v.get("segment_sum_rows_by_ids", 0)
                                   for n_, v in launches.items()}
     return rec8, rec6
@@ -1639,7 +1645,8 @@ def backward_records(tr, view, launches, tag, ptxas):
         total * 64 + n * 4 + n * 64,
         lambda: torch.segment_reduce(seg_data, "sum", lengths=seg_len,
                                      axis=0, unsafe=True),
-        launches["segment_sum_rows"], tag))
+        launches["segment_sum_rows"], tag,
+        sums_occupancy(ptxas, "B5")))
 
     # B6: the compact branch's rows.
     wc = walk_capacity_for(tr.cfg, cap)
@@ -1661,7 +1668,8 @@ def backward_records(tr, view, launches, tag, ptxas):
         (rows6, sid6), lengths6, kept,
         kept * 64 + rows6.shape[0] * 4 + n * 64,
         lambda: acc.index_add_(0, ids_l, rows6),
-        launches["segment_sum_rows_by_ids"], tag))
+        launches["segment_sum_rows_by_ids"], tag,
+        sums_occupancy(ptxas, "B6")))
     return records
 
 
@@ -1688,6 +1696,38 @@ def ptxas_report(reports):
                     out[entry]["static_smem_bytes"] = int(
                         words[words.index("smem") - 2])
     return out
+
+
+def entry_occupancy(ptxas, occupancy):
+    """{kernel: its ptxas report (empty where this run compiled nothing),
+    threads per block and the blocks an SM holds at once} for the kernels
+    of `occupancy`, a wrapper's blocks_per_sm() ({label: (threads, blocks
+    as the CUDA runtime computes them)}; a template instantiation's integer
+    arguments follow the name in angle brackets)."""
+    reports = {}
+    for k, v in ptxas.items():
+        m = re.match(r"_Z(\d+)", k)
+        if not m:
+            continue
+        end = m.end() + int(m[1])
+        targs = re.match(r"I((?:Li\d+E)+)E", k[end:])
+        label = k[m.end():end] + (
+            f"<{','.join(re.findall(r'Li(\d+)E', targs[1]))}>"
+            if targs else "")
+        reports[label] = v
+    return {label: dict(reports.get(label, {}), threads=threads,
+                        blocks_per_sm=blocks)
+            for label, (threads, blocks) in occupancy.items()}
+
+
+def sums_occupancy(ptxas, which):
+    """entry_occupancy of B5's kernel (`which` "B5") or of B6's two
+    passes ("B6")."""
+    from threedgrut_torch.ops import segment_sum
+    occ = segment_sum.blocks_per_sm()
+    return entry_occupancy(ptxas, {
+        k: v for k, v in occ.items()
+        if (k == "segment_sum_rows_kernel") == (which == "B5")})
 
 
 def leg_ptxas(ptxas, kernel, *legs):
@@ -1868,11 +1908,12 @@ def option_records(runs, tag, ptxas):
 
 
 def sums_record(name, kernel, plain, args, lengths, n_rows, nbytes, library,
-                launches, tag):
+                launches, tag, occupancy):
     """A record of B5 or B6 (`name`) on the rows args[0] against its plain
     version: within segment_sum.f32_sum_bound, the same particles with a
     nonzero sum; times of the kernel, the plain version and `library`, one
-    PyTorch call computing the same sums."""
+    PyTorch call computing the same sums; `occupancy`: its kernels' ptxas
+    reports and blocks per SM (entry_occupancy)."""
     from threedgrut_torch.ops import segment_sum
     got, want = kernel(*args), plain(*args)
     bound = segment_sum.f32_sum_bound(
@@ -1900,7 +1941,8 @@ def sums_record(name, kernel, plain, args, lengths, n_rows, nbytes, library,
         channels=nch, launches=launches, launches_forward=0, max_abs_err=err,
         ms=cuda_ms(lambda: kernel(*args), 20),
         plain_ms=cuda_ms(lambda: plain(*args), 3),
-        bound_ms=b[0], bound_by=b[1], library_ms=cuda_ms(library, 20))
+        bound_ms=b[0], bound_by=b[1], library_ms=cuda_ms(library, 20),
+        ptxas=occupancy)
 
 
 def main() -> int:
@@ -2218,7 +2260,7 @@ def main() -> int:
     records += b8_record(g_data, g_inp, b7_runs, grt_train_launches,
                          grt_walk, ptxas, tag)
     del g_inp, g_data, b7_runs
-    records.append(b9_record(b9_args, b9_launches, leg_ms, tag))
+    records.append(b9_record(b9_args, b9_launches, leg_ms, tag, ptxas))
     del b9_args
 
     # ---- 10. where a frame's, a train step's and a trace's time goes -----

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from tests.test_gut_reference import random_scene
+from tests.test_torch_compaction_passes import compact_streams_passes
 from tests.test_torch_grt import DEG, npy, tt
 from tests.test_torch_grt import single_thread  # noqa: F401 (autouse)
 from threedgrut_tpu import constants as JC
@@ -183,6 +184,15 @@ def test_compact_streams_plain_matches_jax(b9):
     np.testing.assert_array_equal(npy(dep), want[1])
     written = int((npy(dep) < stream_compact.FILL_DEPTH).sum())
     assert 0 < written < case[-1]
+
+
+def test_compact_streams_passes_match_jax(b9):
+    """The plain mirror of B9's kernel (count, scan, write over windows)
+    equals the JAX kernel bit for bit on the same cases."""
+    case, want = b9
+    gid, dep = compact_streams_passes(*tt(*case[:-1]), case[-1])
+    np.testing.assert_array_equal(npy(gid), want[0].astype(np.int64))
+    np.testing.assert_array_equal(npy(dep), want[1])
 
 
 def test_super_lists_expand_matches_jax():

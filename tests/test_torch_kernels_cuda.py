@@ -12,7 +12,8 @@ sequential transmittance); whole frames card vs CPU within golden.compare.
 B2: atol 1e-5 x each column's max (the same per-pixel values, summed over
 the tile's pixels in another order), the nonzero slots exactly equal. B5,
 B6: within segment_sum.f32_sum_bound (sequential f32 sums against the
-plain f64 ones). B7: rows 0-5 atol 2e-4 / rtol 1e-4 (the same per-pair
+plain f64 ones); B6 at both widths also bit-equal to each segment's rows
+added in row order in f32 on the host. B7: rows 0-5 atol 2e-4 / rtol 1e-4 (the same per-pair
 alpha; products and colour sums in another order), hit counts off by at
 most 1 on at most 0.1% of the rays and walked windows equal on all but
 0.1% of the bundles (a T_before at min_transmittance may flip); traces and
@@ -30,7 +31,8 @@ the default legs' tolerances, and two launches bit-identical. B1's
 default legs' live-row mask bit-equal to live_rows_plain's on every walked
 window, B2 on it bit-equal to B2 given none, and both legs with per-pixel
 origins (no tile's rays share one) at the default legs' tolerances. B9 exact
-(a copy) and bit-identical across launches; the flat cull's legs card vs
+(a copy; also against its plain three-pass mirror on edge cases) and
+bit-identical across launches; the flat cull's legs card vs
 CPU within golden.lists_agree at TRACE_FLIP_SHARE (cone-margin flips)."""
 import os
 import shutil
@@ -861,6 +863,128 @@ def test_segment_sum_by_ids_64_channels_matches_plain(dev):
     assert bool(((got - want).abs() <= bound).all())
     with pytest.raises(ValueError, match="F in"):
         segment_sum.segment_sum_rows_by_ids(g[:, :24].contiguous(), ids, n)
+
+
+def sequential_sums(g, ids, n):
+    """[n, F] f32 sums of each particle's rows in row order, from 0, on the
+    host: np.cumsum in float32 adds one row after the other."""
+    g, ids = g.cpu().numpy(), ids.cpu().numpy()
+    out = np.zeros((n, g.shape[1]), np.float32)
+    lo = np.searchsorted(ids, np.arange(n + 1), side="left")
+    for p in np.nonzero(lo[1:] > lo[:-1])[0]:
+        rows = np.concatenate([np.zeros((1, g.shape[1]), np.float32),
+                               g[lo[p]:lo[p + 1]]])
+        out[p] = np.cumsum(rows, axis=0, dtype=np.float32)[-1]
+    return out
+
+
+def b6_ids(case, n, rng):
+    """Sorted int32 ids of one B6 case (the test's docstring)."""
+    if case == "gaps":            # absent particles, fillers n and n + 3
+        ids = np.r_[rng.choice(n, n // 3, replace=False).repeat(
+            rng.integers(1, 9, n // 3)), np.full(300, n), np.full(40, n + 3)]
+    elif case == "one_particle":
+        ids = np.full(3000, 17)
+    elif case == "long":          # a 5,000-row segment among short ones
+        ids = np.r_[rng.integers(0, n, 4000), np.full(5000, n // 2)]
+    else:                         # no rows
+        ids = np.zeros(0)
+    return np.sort(ids).astype(np.int32)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("nch", [16, 64])
+@pytest.mark.parametrize("case", ["gaps", "one_particle", "long", "empty"])
+def test_segment_sum_by_ids_is_the_sequential_f32_sum(dev, case, nch,
+                                                      offset):
+    """B6 at both widths equals, bit for bit, each particle's rows added in
+    row order in float32 on the host (ids with gaps, ids >= n, one particle
+    holding every row, a 5,000-row segment, no rows at all), on two
+    launches; with `offset` 1 the rows are a contiguous view one float into
+    its storage, off the 16-byte boundary the vector loads need (the walk
+    at one channel a thread)."""
+    rng = np.random.default_rng(nch + len(case))
+    n = 2000
+    ids = torch.tensor(b6_ids(case, n, rng), device=dev)
+    m = ids.shape[0]
+    buf = torch.empty(offset + m * nch, dtype=torch.float32, device=dev)
+    g = buf[offset:].view(m, nch)
+    g.copy_(torch.tensor(rng.normal(size=(m, nch)).astype(np.float32)))
+    assert g.is_contiguous()
+    if m:                         # (an empty tensor's data_ptr is 0)
+        assert (g.data_ptr() % 16 != 0) == (offset == 1)
+    before = cuda_build.launches["segment_sum_rows_by_ids"]
+    got = segment_sum.segment_sum_rows_by_ids(g, ids, n)
+    again = segment_sum.segment_sum_rows_by_ids(g, ids, n)
+    assert cuda_build.launches["segment_sum_rows_by_ids"] == before + 2
+    want = sequential_sums(g, ids, n)
+    torch.cuda.synchronize()
+    assert got.shape == (n, nch)
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.int32),
+                                  want.view(np.int32))
+    assert torch.equal(got, again)
+
+
+def b9_edge_case(dev, seed):
+    """B9 inputs with every edge the passes meet: 12 windows, segments
+    [0, 0) (empty), [1, 2) (one window), [2, 5) (window 3 all hits),
+    [6, 9) (stream 5 without a hit) and [9, 9); windows 0, 5, 9, 10 and 11
+    lie in no segment. Bases from each stream's CHUNK-padded count; every
+    third stream's limit one window short (its last kept hit lies inside
+    an input window), and a flat capacity two windows below the total (a
+    cap_w below the last streams' limits and bases)."""
+    rng = np.random.default_rng(seed)
+    nws = 12
+    ws = np.array([0, 1, 2, 6, 9], np.int32)
+    we = np.array([0, 2, 5, 9, 9], np.int32)
+    bits = np.zeros(nws * 128, np.int64)
+    for s in range(16):
+        bits |= (rng.random(nws * 128) < 0.6).astype(np.int64) << s
+    bits[3 * 128:4 * 128] = 0xFFFF
+    bits[6 * 128:9 * 128] &= ~(1 << 5)
+    counts = np.array([[((bits[a * 128:b * 128] >> s) & 1).sum()
+                        for s in range(16)] for a, b in zip(ws, we)])
+    pad_w = -(-counts.reshape(-1) // 128)
+    base = (np.cumsum(pad_w) - pad_w).astype(np.int32)
+    lim = base + pad_w
+    lim[::3] = base[::3] + np.maximum(pad_w[::3] - 1, 0)
+    cap = (int(pad_w.sum()) - 2) * 128
+    t = lambda x: torch.tensor(x, device=dev)
+    return (t(rng.integers(0, 1 << 24, nws * 128).astype(np.int32)),
+            t(bits.astype(np.int32)),
+            t(rng.uniform(1, 9, (nws, 16, 128)).astype(np.float32)), t(ws),
+            t(we), t(base), t(lim.astype(np.int32)), cap)
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_compact_streams_kernel_edge_cases(dev, seed):
+    """B9 equals its plain version and the plain three-pass mirror bit for
+    bit on b9_edge_case, and two launches are bit-identical."""
+    args = b9_edge_case(dev, seed)
+    before = cuda_build.launches["compact_streams"]
+    k = stream_compact.compact_streams(*args)
+    k2 = stream_compact.compact_streams(*args)
+    assert cuda_build.launches["compact_streams"] == before + 2
+    p = stream_compact.compact_streams_plain(*args)
+    # (imported here: that module imports this one's cases)
+    from tests.test_torch_compaction_passes import compact_streams_passes
+    m = [x.to(dev) for x in compact_streams_passes(
+        *[x.cpu() if torch.is_tensor(x) else x for x in args])]
+    torch.cuda.synchronize()
+    for a, b, c, d in zip(k, k2, p, m):
+        assert torch.equal(a, b) and torch.equal(a, c) and torch.equal(a, d)
+    written = int((k[1] < stream_compact.FILL_DEPTH).sum())
+    assert 0 < written < args[-1]
+
+
+def test_blocks_per_sm_come_from_the_runtime(dev):
+    """B5's, B6's and B9's occupancy queries name every kernel of their
+    sources, each with its block size and 1 to 32 blocks an SM holds."""
+    for mod, n in ((segment_sum, 5), (stream_compact, 3)):
+        occ = mod.blocks_per_sm()
+        assert len(occ) == n
+        for threads, blocks in occ.values():
+            assert threads in (256, 512) and 1 <= blocks <= 32
 
 
 @pytest.mark.parametrize("walk_compact_fraction", [0.625, 0.0])

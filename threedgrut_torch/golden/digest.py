@@ -2,7 +2,7 @@
 of the kernels bit for bit against each other:
 
     python threedgrut_torch/golden/digest.py [--root CHECKOUT] [--time]
-                                             [--step] [--only gut|grt]
+                                             [--step] [--only gut|grt|b6b9]
 
 `--root` names the checkout whose `threedgrut_torch` is imported (default:
 the one holding this file), so one run can digest another version's
@@ -23,7 +23,19 @@ digits) of a kernel's output:
     and 1M scenes and capacities (512x512 rays from (0, 0, -4)), through
     the dense and the flat cull, and on the 100k dense inputs with a bound
     t_max on every third bundle and an initial transmittance of 0.6 on
-    every other one ("edge").
+    every other one ("edge");
+  * B6's per-particle sums ([n, F]) of the rows the train paths give it:
+    at 16 channels the 3DGUT compact branch's (bench.py's 1M scene above:
+    B2's gradients for a seeded cotangent on the windows B1 walked, sorted
+    by particle and rounded to bf16, walk capacity Config()'s 0.625 of the
+    capacity), at 64 the 3DGRT compact branch's (bench_grt's 100k dense
+    inputs at 16 passes, B8's gradients, walk capacity 0.625 of the flat
+    capacity);
+  * B9's output (gid, depth) at the 1M flat cull's inputs (bench_grt's 1M
+    scene through bundle_candidates_twolevel_flat's compact_kernel leg,
+    captured at the call) and on a small seeded case with windows in no
+    segment, limits that end inside a window and a flat capacity below
+    the last streams' limits.
 
 With `--time` it also prints CUDA-event times (mean of 10 launches after
 one) of B1 and B2 on the 1M scene at the TIMED legs (B1 without a record,
@@ -32,7 +44,11 @@ a train step runs it), where the version launches its tiles heaviest first
 also in launch order (tile t in block t), and that order's own cost
 (heaviest_first: device ms, host us per call); and of B7 and of B8 on the
 100k dense inputs at 0, 1 and 16 passes, B8 on the compositing orders its
-B7 wrote where the version has them.
+B7 wrote where the version has them; and of B6 at both widths (also
+on its rows with every segment cut to its first TAIL_CAP rows, the rest
+relabelled n, to show what the long segments cost) and B9 at 1M, and the
+flat cull's compact_kernel leg at 1M (host clock to a synchronize, median
+of 3 after a warm run).
 
 With `--step` it runs the default train step at full width (chip_smoke.py's
 train_setup: bench.py's 1M scene, camera and Config() defaults at 800x800)
@@ -74,6 +90,7 @@ GRT_SCENES = [("100k", 100_000, (0.01, 0.05), 1792, 24320, 919296, 1004800),
               ("1M", 1_000_000, (0.004, 0.02), 7680, 216832, 3384832,
                4591104)]
 GRT_PASSES = (0, 1, 2, 16, 70)
+TAIL_CAP = 32           # rows per segment in B6's capped timing
 
 
 def digest(*tensors) -> str:
@@ -201,27 +218,36 @@ def time_leg(tile_raster, fwd, b2_in, passes, rowterm):
     return t
 
 
-def gut_digests(dev, timed):
+def gut_inputs(dev, n, res, cap, raise_scale):
+    """(params, binning, slot data, grid, rays) of a SCENES entry: the
+    seeded scene seen from (0.3, -4, 1), prepared for B1."""
     import torch
     from threedgrut_torch.cameras import (example_camera, look_at,
                                           pose_from_matrix)
     from threedgrut_torch.model.gaussians import bench_scene, from_numpy
-    from threedgrut_torch.ops import tile_raster
     from threedgrut_torch.render import gut
+    fields = bench_scene(n, seed=2, specular_std=0.1)
+    if raise_scale:
+        fields["scale"] = fields["scale"] + np.float32(np.log(4.0))
+    p = from_numpy(fields, device=dev)
+    T = look_at(np.array([0.3, -4.0, 1.0], np.float32),
+                np.zeros(3, np.float32), np.array([0, 0, 1.0], np.float32))
+    cam = example_camera(res, dev)
+    pose = pose_from_matrix(torch.tensor(T, device=dev))
+    with torch.no_grad():
+        _, binning, data, grid = gut.prepare(
+            p.get_positions(), p.get_rotation(), p.get_scale(),
+            p.get_density(), p.get_features(), cam, pose, res, cap)
+        rays = gut.packed_world_rays(cam, pose, grid)
+    return p, binning, data, grid, rays
+
+
+def gut_digests(dev, timed):
+    import torch
+    from threedgrut_torch.ops import tile_raster
     for sname, n, res, cap, raise_scale in SCENES:
-        fields = bench_scene(n, seed=2, specular_std=0.1)
-        if raise_scale:
-            fields["scale"] = fields["scale"] + np.float32(np.log(4.0))
-        p = from_numpy(fields, device=dev)
-        T = look_at(np.array([0.3, -4.0, 1.0], np.float32),
-                    np.zeros(3, np.float32), np.array([0, 0, 1.0], np.float32))
-        cam = example_camera(res, dev)
-        pose = pose_from_matrix(torch.tensor(T, device=dev))
-        with torch.no_grad():
-            _, binning, data, grid = gut.prepare(
-                p.get_positions(), p.get_rotation(), p.get_scale(),
-                p.get_density(), p.get_features(), cam, pose, res, cap)
-            rays = gut.packed_world_rays(cam, pose, grid)
+        p, binning, data, grid, rays = gut_inputs(dev, n, res, cap,
+                                                  raise_scale)
         s, e = binning.tile_starts, binning.tile_ends
         mid = torch.where(e > s, torch.div(s + e, 2, rounding_mode="floor"),
                           -1).to(torch.float32)
@@ -256,6 +282,232 @@ def gut_digests(dev, timed):
             print(f"time {sname} heaviest_first: device {ms:.4f} ms, host "
                   f"{host_us:.1f} us per call", flush=True)
         del p, binning, data, rays
+
+
+def capped_segments(ids, n, cap):
+    """Sorted ids with each particle's rows past its first `cap` relabelled
+    n (dropped), and the permutation that sorts the result."""
+    import torch
+    first = torch.searchsorted(ids, ids, right=False)
+    rank = torch.arange(ids.shape[0], device=ids.device) - first
+    capped = torch.where(rank < cap, ids, torch.full_like(ids, n))
+    return torch.sort(capped, stable=True)
+
+
+def kernel_breakdown(fn, calls=5):
+    """{kernel name: device ms per call of fn} from torch.profiler over
+    `calls` calls after a warm one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = ev.cuda_time_total
+        if us > 0 and ev.device_type.name == "CUDA":
+            out[ev.key[:60]] = round(us / 1e3 / calls, 4)
+    return out
+
+
+def b6_line(name, rows, ids, n, timed):
+    """B6's digest on (rows, ids), with the work it does; with `timed`
+    also its time, its kernels' device times, and its time on the rows
+    with capped segments."""
+    import torch
+    from threedgrut_torch.ops import segment_sum
+    out = segment_sum.segment_sum_rows_by_ids(rows, ids, n)
+    lengths = torch.bincount(ids.long(), minlength=n + 1)[:n]
+    torch.cuda.synchronize()
+    print(f"digest b6-{rows.shape[1]} {name}: B6 {digest(out)} (rows "
+          f"{rows.shape[0]}, kept {int((ids < n).sum())}, particles with "
+          f"rows {int((lengths > 0).sum())}, longest segment "
+          f"{int(lengths.max())}, nonzero rows "
+          f"{int((out != 0).any(1).sum())})", flush=True)
+    if timed:
+        fn = lambda: segment_sum.segment_sum_rows_by_ids(rows, ids, n)
+        ms = cuda_ms(fn, 20)
+        cids, order = capped_segments(ids, n, TAIL_CAP)
+        crows = rows[order]
+        capped = cuda_ms(lambda: segment_sum.segment_sum_rows_by_ids(
+            crows, cids, n), 20)
+        print(f"time b6-{rows.shape[1]} {name}: B6 {ms:.4f} ms, segments "
+              f"cut to {TAIL_CAP} rows {capped:.4f} ms (kept "
+              f"{int((cids < n).sum())}); device ms by kernel "
+              f"{json.dumps(kernel_breakdown(fn))}", flush=True)
+
+
+def b9_small_case(dev, seed=11):
+    """A seeded B9 case: 30 segments of 0-6 windows with a window in no
+    segment after every fifth, bases from each stream's CHUNK-padded
+    count, every other stream's limit one window short and a flat capacity
+    three windows below the total."""
+    import torch
+    rng = np.random.default_rng(seed)
+    wins = rng.integers(0, 7, 30)
+    gaps = (np.arange(30) % 5 == 4).astype(np.int64)
+    ws = np.cumsum(np.r_[0, (wins + gaps)[:-1]]).astype(np.int32)
+    we = (ws + wins).astype(np.int32)
+    nws = int(we[-1]) + 2
+    bits = np.zeros(nws * 128, np.int64)
+    dens = rng.choice([0.9, 0.4, 0.03], nws).repeat(128)
+    for st in range(16):
+        bits |= (rng.random(nws * 128) < dens).astype(np.int64) << st
+    counts = np.array([[((bits[a * 128:b * 128] >> st) & 1).sum()
+                        for st in range(16)] for a, b in zip(ws, we)])
+    pad_w = -(-counts.reshape(-1) // 128)
+    base = (np.cumsum(pad_w) - pad_w).astype(np.int32)
+    lim = base + pad_w
+    lim[::2] = base[::2] + np.maximum(pad_w[::2] - 1, 0)
+    t = lambda x: torch.tensor(x, device=dev)
+    return (t(rng.integers(0, 1 << 24, nws * 128).astype(np.int32)),
+            t(bits.astype(np.int32)),
+            t(rng.uniform(1, 9, (nws, 16, 128)).astype(np.float32)), t(ws),
+            t(we), t(base), t(lim.astype(np.int32)),
+            (int(pad_w.sum()) - 3) * 128)
+
+
+def b9_line(name, args, timed):
+    """B9's digest on `args`, with its hits and the 32-byte sectors of the
+    depth input that hold one; with `timed` also its time and its kernels'
+    device times."""
+    import torch
+    from threedgrut_torch.ops import stream_compact
+    gid, dep = stream_compact.compact_streams(*args)
+    bits, depth = args[1], args[2]
+    nws = depth.shape[0]
+    streams = torch.arange(16, device=bits.device)
+    hit = ((bits.view(nws, 1, 128) >> streams[None, :, None]) & 1).bool()
+    torch.cuda.synchronize()
+    print(f"digest b9 {name}: B9 {digest(gid, dep)} (segments "
+          f"{args[3].shape[0]}, windows {nws}, written "
+          f"{int((dep < stream_compact.FILL_DEPTH).sum())} of "
+          f"{dep.shape[0]}; hits {int(hit.sum())} in "
+          f"{int(hit.view(nws, 16, 16, 8).any(-1).sum())} depth sectors)",
+          flush=True)
+    if timed:
+        fn = lambda: stream_compact.compact_streams(*args)
+        ms = cuda_ms(fn)
+        print(f"time b9 {name}: B9 {ms:.4f} ms; device ms by kernel "
+              f"{json.dumps(kernel_breakdown(fn))}", flush=True)
+
+
+def b6_b9_inputs(dev):
+    """B6's and B9's inputs (module docstring): {name: ("b6", (rows, ids,
+    n)) or ("b9", compact_streams' arguments)}, and a function running the
+    1M flat cull's compact_kernel leg."""
+    import torch
+    from threedgrut_torch.config import Config
+    from threedgrut_torch.ops import (bundle_trace, fused_raster,
+                                      sorted_gather, stream_compact,
+                                      tile_raster)
+    from threedgrut_torch.render import grt
+    from threedgrut_torch.trainer import walk_capacity_for
+    # B6 at 16 channels: the 3DGUT compact branch at bench.py's 1M scene.
+    sname, n, res, cap, raise_scale = SCENES[1]
+    p, binning, data, grid, rays = gut_inputs(dev, n, res, cap, raise_scale)
+    s, e = binning.tile_starts, binning.tile_ends
+    fwd = (data, s, e, rays, 2, 1e-4, 0.0113, 1.0 / 255.0, 0.99, False)
+    out, _ = tile_raster._launch(*fwd, True, False, 0, False)
+    g_out = torch.randn(out.shape, device=dev,
+                        generator=torch.Generator(dev).manual_seed(0))
+    grad = tile_raster._launch_backward(
+        *(fwd[:4] + (out, g_out) + fwd[4:] + (True, 0, False)))
+    n_p = p.get_positions().shape[0]
+    walked = fused_raster.compact_walked(out, s, binning.sorted_particle_idx,
+                                         grad, walk_capacity_for(Config(),
+                                                                 cap), n_p)
+    assert walked is not None
+    with torch.no_grad():
+        ids, rows = sorted_gather.sort_rows(*walked, "bf16")
+    cases = {f"3dgut-{sname} compact": ("b6", (rows, ids, n_p))}
+    del p, binning, data, grid, rays, out, g_out, grad, walked
+
+    # B6 at 64 channels: the 3DGRT compact branch at bench_grt's 100k.
+    name, n, scales, cand, sup, flat_cap, sflat = GRT_SCENES[0]
+    acts, o, d = grt_scene(n, scales, dev)
+    with torch.no_grad():
+        inp = grt.prepare(*acts, o, d, kernel_degree=4,
+                          candidate_capacity=cand, super_capacity=sup,
+                          flat_capacity=flat_cap)
+        data = grt.gather_candidates(inp)
+    args = (data, inp.rays, inp.win_starts, inp.win_ends, 4, 3, 1e-3,
+            0.0113, 1.0 / 255.0, 0.99, 16)
+    out = bundle_trace._launch(*args)
+    g_out = torch.randn(out.shape, device=dev,
+                        generator=torch.Generator(dev).manual_seed(16))
+    g_out[:, 6:] = 0.0
+    grad = bundle_trace._launch_backward(*(args[:4] + (out, g_out)
+                                           + args[4:]))
+    n_p = inp.rows64.shape[0]
+    walked = fused_raster.compact_walked_bundles(
+        out, inp.win_starts, inp.flat_idx, inp.valid, grad,
+        -(-int(flat_cap * 0.625) // 256) * 256, n_p)
+    assert walked is not None
+    with torch.no_grad():
+        ids, rows = sorted_gather.sort_rows(*walked)
+    cases[f"grt-{name} compact"] = ("b6", (rows, ids, n_p))
+    del acts, o, d, inp, data, out, g_out, grad, walked
+
+    # B9 at the 1M flat cull's inputs, captured at its call.
+    name, n, scales, cand, sup, flat_cap, sflat = GRT_SCENES[1]
+    acts, o, d = grt_scene(n, scales, dev)
+    with torch.no_grad():
+        dn, active = grt._rays_unit(d)
+        cull_in = grt._cull_inputs(acts[0], acts[2], acts[3], dn, active, 4,
+                                   False)
+    cargs = (*cull_in[:3], o, cull_in[3], 256, cand)
+    kw = dict(super_capacity=sup, super_flat_capacity=sflat,
+              flat_capacity=flat_cap, compact_kernel=True)
+    captured, real = {}, stream_compact.compact_streams
+
+    def capture(*a):
+        captured["args"] = a
+        return real(*a)
+
+    stream_compact.compact_streams = capture
+    try:
+        with torch.no_grad():
+            assert not bool(grt.bundle_candidates_twolevel_flat(*cargs,
+                                                                **kw)[4])
+    finally:
+        stream_compact.compact_streams = real
+    cases[f"flat-cull-{name}"] = ("b9", captured.pop("args"))
+    cases["small"] = ("b9", b9_small_case(dev))
+
+    def cull_leg():
+        with torch.no_grad():
+            grt.bundle_candidates_twolevel_flat(*cargs, **kw)
+
+    return cases, cull_leg
+
+
+def b6_b9_digests(dev, timed):
+    """B6's and B9's digests (module docstring)."""
+    import torch
+    cases, cull_leg = b6_b9_inputs(dev)
+    for name, (kind, args) in cases.items():
+        if kind == "b6":
+            b6_line(name, *args, timed)
+        else:
+            b9_line(name, args, timed)
+    if timed:
+        runs = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cull_leg()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        print(f"time flat-cull-1M compact_kernel leg: "
+              f"{statistics.median(runs[1:]):.3f} ms (median of "
+              f"{[round(r, 3) for r in runs[1:]]})", flush=True)
 
 
 def grt_digests(dev, timed):
@@ -365,8 +617,9 @@ def main() -> int:
     ap.add_argument("--time", action="store_true")
     ap.add_argument("--step", action="store_true",
                     help="profile the default train step per tile order")
-    ap.add_argument("--only", choices=("gut", "grt"),
-                    help="digest only B1/B2 (gut) or only B7/B8 (grt)")
+    ap.add_argument("--only", choices=("gut", "grt", "b6b9"),
+                    help="digest only B1/B2 (gut), only B7/B8 (grt) or "
+                         "only B6/B9 (b6b9)")
     args = ap.parse_args()
     sys.path.insert(0, args.root)
     import torch
@@ -378,12 +631,15 @@ def main() -> int:
     print(f"digest of {Path(threedgrut_torch.__file__).parent}", flush=True)
     kernels = {"gut": ["tile_raster_fwd", "tile_raster_bwd"],
                "grt": ["bundle_trace_fwd", "bundle_trace_bwd"]}
-    cuda_build.build(None if args.step else kernels.get(args.only))
+    cuda_build.build(None if args.step or args.only == "b6b9"
+                     else kernels.get(args.only))
     dev = torch.device("cuda:0")
-    if args.only != "grt":
+    if args.only in (None, "gut"):
         gut_digests(dev, args.time)
-    if args.only != "gut":
+    if args.only in (None, "grt"):
         grt_digests(dev, args.time)
+    if args.only in (None, "b6b9"):
+        b6_b9_digests(dev, args.time)
     if args.step:
         from threedgrut_torch.ops import tile_raster
         step_profile(dev, tile_raster)

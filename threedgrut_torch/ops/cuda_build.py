@@ -139,6 +139,23 @@ def library(name: str, argtypes) -> ctypes.CDLL:
     return lib
 
 
+def blocks_per_sm(lib: ctypes.CDLL, entry: str,
+                  kernels) -> Dict[str, Tuple[int, int]]:
+    """{kernel: (threads per block, blocks an SM of the current device holds
+    at once)} for `kernels` ((label, threads) in the order in which the C
+    entry `entry` of the loaded library `lib` writes its counts): the
+    CUDA runtime's (cudaOccupancyMaxActiveBlocksPerMultiprocessor). The
+    entry takes an int array and returns a CUDA error."""
+    fn = getattr(lib, entry)
+    fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int)], ctypes.c_int
+    out = (ctypes.c_int * len(kernels))()
+    err = fn(out)
+    if err:
+        raise RuntimeError(f"{entry}: occupancy query failed (cudaError "
+                           f"{err})")
+    return {k: (t, int(b)) for (k, t), b in zip(kernels, out)}
+
+
 def checked_inputs(*specs):
     """Validate (name, tensor, dtype, shape) kernel inputs before their
     pointers go to C: all on one CUDA device, of the dtype and shape,

@@ -10,7 +10,8 @@ that its TPU compiler favours; the port keeps rows.)
   * `segment_sum_rows` (B5): segment p is [min(ends[p-1], cap),
     min(ends[p], cap)) for the binning's inclusive slot-count cumsum `ends`.
   * `segment_sum_rows_by_ids` (B6): segment p is the run of rows whose sorted
-    id equals p; rows with id >= n are dropped.
+    id equals p; rows with id >= n are dropped. Its kernel first writes each
+    segment's first row, then walks the segments as B5 does.
 
 Both launch csrc/segment_sum.cu for CUDA tensors and run their plain version
 (an f64 `index_add_` cast back to f32) for CPU tensors.
@@ -18,6 +19,7 @@ Both launch csrc/segment_sum.cu for CUDA tensors and run their plain version
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Tuple
 
 import torch
 
@@ -28,6 +30,13 @@ NCH_BY_IDS = (16, 64)   # the widths B6's kernel is instantiated for
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_B5_ARGS = [_P, _P, _I, _I, _P, _P]
+# csrc/segment_sum.cu's kernels (a template's <channels, channels a
+# thread>) and their threads per block, in segment_sum_blocks_per_sm's order
+_KERNELS = (("segment_sum_rows_kernel", 256), ("segment_starts_kernel", 256),
+            ("segment_sum_rows_by_ids_kernel<16,4>", 256),
+            ("segment_sum_rows_by_ids_kernel<16,1>", 256),
+            ("segment_sum_rows_by_ids_kernel<64,1>", 256))
 
 
 def segment_sum_rows_plain(g: torch.Tensor,
@@ -68,7 +77,7 @@ def segment_sum_rows(g: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
     cuda_build.checked_inputs(("g", g, torch.float32, (cap, NCH)),
                               ("ends", ends, torch.int32, (n,)))
     out = torch.empty((n, NCH), dtype=torch.float32, device=g.device)
-    lib = cuda_build.library("segment_sum_rows", [_P, _P, _I, _I, _P, _P])
+    lib = cuda_build.library("segment_sum_rows", _B5_ARGS)
     stream = torch.cuda.current_stream(g.device).cuda_stream
     cuda_build.launches["segment_sum_rows"] += 1
     cuda_build.check("segment_sum_rows", lib.segment_sum_rows(
@@ -91,14 +100,23 @@ def segment_sum_rows_by_ids(g: torch.Tensor, ids_sorted: torch.Tensor,
     cuda_build.checked_inputs(("g", g, torch.float32, (m, f)),
                               ("ids_sorted", ids_sorted, torch.int32, (m,)))
     out = torch.empty((n, f), dtype=torch.float32, device=g.device)
+    starts = torch.empty(n + 1, dtype=torch.int32, device=g.device)
     lib = cuda_build.library("segment_sum_rows_by_ids",
-                             [_P, _P, _I, _I, _I, _P, _P])
+                             [_P, _P, _I, _I, _I, _P, _P, _P])
     stream = torch.cuda.current_stream(g.device).cuda_stream
     cuda_build.launches["segment_sum_rows_by_ids"] += 1
     cuda_build.check("segment_sum_rows_by_ids", lib.segment_sum_rows_by_ids(
-        g.data_ptr(), ids_sorted.data_ptr(), m, n, f, out.data_ptr(),
-        stream))
+        g.data_ptr(), ids_sorted.data_ptr(), m, n, f, starts.data_ptr(),
+        out.data_ptr(), stream))
     return out
+
+
+def blocks_per_sm() -> Dict[str, Tuple[int, int]]:
+    """{kernel: (threads per block, blocks an SM holds at once)} for
+    csrc/segment_sum.cu's kernels, as the CUDA runtime computes them."""
+    return cuda_build.blocks_per_sm(
+        cuda_build.library("segment_sum_rows", _B5_ARGS),
+        "segment_sum_blocks_per_sm", _KERNELS)
 
 
 def f32_sum_bound(abs_sums: torch.Tensor, lengths: torch.Tensor,
