@@ -65,7 +65,8 @@ Phases, each of which fails the run on a miss:
      the order of equal depths), the default leg against the dense cull,
      and each leg timed;
   9. kernels: each kernel against its plain version on the card at the
-     main paths' shapes (B3, B4 and every TileBinning field exactly equal;
+     main paths' shapes (B3, B4 and every TileBinning field exactly equal,
+     B3's and B4's kernels' ptxas reports and blocks per SM;
      B1, B2 (also their 16-pass and row-terminated legs, at the sorted and
      row-terminated train paths' inputs, two launches bit-identical; the
      sorted legs also at 1 pass, the difference being `network_ms`, and
@@ -127,11 +128,16 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
 
 # Operation counts per unit of work, read off the kernel sources: one
-# tile-min power test (csrc/tile_power.cuh), a key expansion slot
-# (csrc/expand_keys.cu: the power re-test plus the row extent), one
-# (pixel, slot) pair of the compositor (csrc/tile_raster_fwd.cu).
-FLOP_POWER_TEST = 50
-FLOP_EXPAND_SLOT = 65
+# tile-min power test with the particle's part computed once
+# (csrc/tile_power.cuh: 42 adds, subtractions and multiplications), that
+# part and the row half-extent once per particle (csrc/cull_masks.cu:
+# 16 a, 16 b, 16 c, two reciprocals, the half-extent's 7), a key
+# expansion slot (csrc/expand_keys.cu: the power re-test plus the row
+# extent), one (pixel, slot) pair of the compositor
+# (csrc/tile_raster_fwd.cu).
+FLOP_POWER_TEST = 42
+FLOP_POWER_PARTICLE = 14
+FLOP_EXPAND_SLOT = 57
 FLOP_PAIR = 75
 # Of those, the per-row part w0 = o - mean, u = A w0 (3 + 9 + 6): where a
 # tile's 256 rays share one origin (every global-shutter camera) it is
@@ -1945,6 +1951,96 @@ def sums_record(name, kernel, plain, args, lengths, n_rows, nbytes, library,
         ptxas=occupancy)
 
 
+def binning_records(proj, binning, grid, cap, launches, ptxas, tag):
+    """B3 and B4 against their plain versions on the card at the main
+    path's projection `proj` (tile culling on, as bin_particles runs
+    them), bit for bit, timed, with their bounds from this run's counts
+    and their kernels' ptxas reports and blocks per SM; then the card's
+    full-width TileBinning `binning` against the plain path on the CPU.
+    `launches`: (train path's, forward path's) launch counts. Returns the
+    two records."""
+    from threedgrut_torch.ops import expand, tiles
+    total = int(binning.num_intersections)
+    n = proj.depth.shape[0]
+    b3_in = (proj.tile_min.int().contiguous(),
+             proj.tile_max.int().contiguous(), proj.n_tiles.int().contiguous(),
+             proj.conic.contiguous(), proj.center.contiguous(),
+             proj.max_power.contiguous())
+    records = []
+    occ = entry_occupancy(ptxas, expand.blocks_per_sm())
+    k_out = expand.cull_masks(*b3_in)
+    p_out = expand.cull_masks_plain(*b3_in)
+    err3 = max(int((a.long() - b.long()).abs().max())
+               for a, b in zip(k_out, p_out))
+    if err3:
+        fail(f"B3 cull_masks differs from its plain version by {err3}")
+    bw = b3_in[1][:, 0] - b3_in[0][:, 0]
+    bh = b3_in[1][:, 1] - b3_in[0][:, 1]
+    tested = int(torch.where((b3_in[2] > 0) & (bw <= 8) & (bh <= 8),
+                             bw * bh, 0).sum())
+    # bytes the function needs: the six inputs (44 B), the count and the
+    # three mask words (16 B). The record B3 writes for B4 is scratch
+    # between them, counted apart (record_bytes), not in the bound.
+    b3_bound = bound_ms(n * (44 + 16),
+                        FLOP_POWER_TEST * tested + FLOP_POWER_PARTICLE * n)
+    records.append(dict(
+        name="cull_masks", route="cuda",
+        source="threedgrut_torch/csrc/cull_masks.cu",
+        replaces="threedgrut_tpu/ops/pallas/expand.py:407",
+        launches=launches[0]["cull_masks"],
+        launches_forward=launches[1]["cull_masks"], max_abs_err=float(err3),
+        ms=cuda_ms(lambda: expand.cull_masks(*b3_in), 20),
+        plain_ms=cuda_ms(lambda: expand.cull_masks_plain(*b3_in), 3),
+        bound_ms=b3_bound[0], bound_by=b3_bound[1], library_ms=None,
+        tested_cells=tested, record_bytes=n * 4 * expand.RECORD_WORDS,
+        ptxas={k: v for k, v in occ.items() if k == "cull_masks_kernel"}))
+
+    # B4
+    counts, record = k_out
+    ids_of_rank, ends_rank = tiles.depth_rank(counts, proj.depth)
+    b4_in = (ends_rank, ids_of_rank, record, cap, grid, True)
+    k4 = expand.expand_keys(*b4_in)
+    p4 = expand.expand_keys_plain(*b4_in)
+    err4 = max(int((a - b).abs().max()) for a, b in zip(k4, p4))
+    if err4:
+        fail(f"B4 expand_keys differs from its plain version by {err4}")
+    # bytes the function needs: 12 written per slot; the end, the id and
+    # the 56 B of per-particle fields (bbox min and max, count, mask words,
+    # conic, centre, max power) of every rank that owns a slot below the
+    # capacity (the others are never needed). The 64-byte records B4
+    # gathers in their place are counted apart (record_bytes).
+    c_rank = counts[ids_of_rank.long()]
+    live = int(((c_rank > 0) & (ends_rank - c_rank < cap)).sum())
+    b4_bound = bound_ms(cap * 12 + live * (8 + 56),
+                        FLOP_EXPAND_SLOT * min(total, cap))
+    records.append(dict(
+        name="expand_keys", route="cuda",
+        source="threedgrut_torch/csrc/expand_keys.cu",
+        replaces="threedgrut_tpu/ops/pallas/expand.py:265",
+        launches=launches[0]["expand_keys"],
+        launches_forward=launches[1]["expand_keys"], max_abs_err=float(err4),
+        ms=cuda_ms(lambda: expand.expand_keys(*b4_in), 20),
+        plain_ms=cuda_ms(lambda: expand.expand_keys_plain(*b4_in), 3),
+        bound_ms=b4_bound[0], bound_by=b4_bound[1], library_ms=None,
+        live_ranks=live, record_bytes=live * 4 * expand.RECORD_WORDS,
+        ptxas={k: v for k, v in occ.items() if k != "cull_masks_kernel"}))
+    print(f"B3 {records[-2]['ms']:.4f} ms (bound {b3_bound[0]:.4f}, "
+          f"{tested} cells tested), B4 {records[-1]['ms']:.4f} ms (bound "
+          f"{b4_bound[0]:.4f}, {live} live ranks of {n}); ptxas {occ} "
+          f"{tag}", flush=True)
+    del counts, record, k_out, p_out, k4, p4, c_rank
+
+    # TileBinning at full width: card vs the plain path on the CPU.
+    bc = tiles.bin_particles(tiles.Projection(*[x.cpu() for x in proj]),
+                             grid, cap)
+    for fld in tiles.TileBinning._fields:
+        if not torch.equal(getattr(binning, fld).cpu(), getattr(bc, fld)):
+            fail(f"full-width TileBinning.{fld} differs from the plain path")
+    print("full-width TileBinning card == CPU plain path, every field",
+          flush=True)
+    return records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1960,7 +2056,7 @@ def main() -> int:
     from threedgrut_torch.cameras import example_camera, pose_from_matrix
     from threedgrut_torch.model.gaussians import bench_scene, from_numpy
     from threedgrut_torch.config import Config, preset_3dgut_sorted
-    from threedgrut_torch.ops import cuda_build, expand, tile_raster, tiles
+    from threedgrut_torch.ops import cuda_build, tile_raster
     from threedgrut_torch.render import gut
 
     # ---- 1. device -------------------------------------------------------
@@ -2133,66 +2229,11 @@ def main() -> int:
           f"scene)", flush=True)
     if bool(binning.overflow):
         fail("main path overflowed")
-    n = proj.depth.shape[0]
-    b3_in = (proj.tile_min.int().contiguous(), proj.tile_max.int().contiguous(),
-             proj.n_tiles.int().contiguous(), proj.conic.contiguous(),
-             proj.center.contiguous(), proj.max_power.contiguous())
-    records = []
-
-    # B3
-    k_out = expand.cull_masks(*b3_in)
-    p_out = expand.cull_masks_plain(*b3_in)
-    err3 = int((k_out - p_out).abs().max())
-    if err3:
-        fail(f"B3 cull_masks differs from its plain version by {err3}")
-    bw = b3_in[1][:, 0] - b3_in[0][:, 0]
-    bh = b3_in[1][:, 1] - b3_in[0][:, 1]
-    tested = int(torch.where((b3_in[2] > 0) & (bw <= 8) & (bh <= 8),
-                             bw * bh, 0).sum())
-    b3_bound = bound_ms(n * (44 + 16), FLOP_POWER_TEST * tested)
-    records.append(dict(
-        name="cull_masks", route="cuda",
-        source="threedgrut_torch/csrc/cull_masks.cu",
-        replaces="threedgrut_tpu/ops/pallas/expand.py:407",
-        launches=train_launches["cull_masks"],
-        launches_forward=fwd_launches["cull_masks"], max_abs_err=float(err3),
-        ms=cuda_ms(lambda: expand.cull_masks(*b3_in), 20),
-        plain_ms=cuda_ms(lambda: expand.cull_masks_plain(*b3_in), 3),
-        bound_ms=b3_bound[0], bound_by=b3_bound[1], library_ms=None))
-
-    # B4
-    masks = k_out
-    ids_of_rank, ends_rank = tiles.depth_rank(masks[0], proj.depth)
-    b4_in = (ends_rank, ids_of_rank, b3_in[0], b3_in[1], masks, b3_in[3],
-             b3_in[4], b3_in[5], cap, grid, True)
-    k4 = expand.expand_keys(*b4_in)
-    p4 = expand.expand_keys_plain(*b4_in)
-    err4 = max(int((a - b).abs().max()) for a, b in zip(k4, p4))
-    if err4:
-        fail(f"B4 expand_keys differs from its plain version by {err4}")
-    b4_bound = bound_ms(cap * 12 + n * (8 + 56),
-                        FLOP_EXPAND_SLOT * min(total, cap))
-    records.append(dict(
-        name="expand_keys", route="cuda",
-        source="threedgrut_torch/csrc/expand_keys.cu",
-        replaces="threedgrut_tpu/ops/pallas/expand.py:265",
-        launches=train_launches["expand_keys"],
-        launches_forward=fwd_launches["expand_keys"], max_abs_err=float(err4),
-        ms=cuda_ms(lambda: expand.expand_keys(*b4_in), 20),
-        plain_ms=cuda_ms(lambda: expand.expand_keys_plain(*b4_in), 3),
-        bound_ms=b4_bound[0], bound_by=b4_bound[1], library_ms=None))
-
-    # TileBinning at full width: card vs the plain path on the CPU.
-    bc = tiles.bin_particles(tiles.Projection(*[x.cpu() for x in proj]),
-                             grid, cap)
-    for fld in tiles.TileBinning._fields:
-        if not torch.equal(getattr(binning, fld).cpu(), getattr(bc, fld)):
-            fail(f"full-width TileBinning.{fld} differs from the plain path")
-    print("full-width TileBinning card == CPU plain path, every field",
-          flush=True)
+    ptxas = ptxas_report(reports)
+    records = binning_records(proj, binning, grid, cap,
+                              (train_launches, fwd_launches), ptxas, tag)
 
     # B1, without and with emit_flags
-    ptxas = ptxas_report(reports)
     for kname in ("tile_raster_fwd", "tile_raster_bwd"):
         for rowterm in (False, True):
             print(f"ptxas {kname} default leg (row_termination={rowterm}): "

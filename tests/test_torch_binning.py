@@ -34,7 +34,8 @@ def cull_inputs(n, seed):
 
 def test_cull_masks_plain_matches_jax(monkeypatch):
     args = cull_inputs(jex._CM_BLK * 2, seed=17)
-    got = tex.cull_masks(*(torch.tensor(a) for a in args)).numpy()
+    counts, record = tex.cull_masks(*(torch.tensor(a) for a in args))
+    got = [counts.numpy()] + list(tex.unpack_record(record).masks.T.numpy())
     jargs = [jnp.asarray(a) for a in args]
     with monkeypatch.context() as m:
         m.setenv("THREEDGRUT_CULLMASK", "xla")
@@ -101,16 +102,11 @@ def test_expand_keys_plain_matches_jax(n, cull, cap):
     grid = (6, 5)
     proj = make_proj(n, 3, dead_frac=0.0 if cap == 1024 else 0.4)
     tp = ttiles.Projection(*(torch.tensor(np.asarray(x)) for x in proj))
-    if cull:
-        masks = tex.cull_masks(tp.tile_min, tp.tile_max, tp.n_tiles,
-                               tp.conic, tp.center, tp.max_power)
-    else:
-        masks = torch.zeros((4, n), dtype=torch.int32)
-        masks[0] = tp.n_tiles
-    ids_of_rank, ends_rank = ttiles.depth_rank(masks[0], tp.depth)
-    got = tex.expand_keys(ends_rank, ids_of_rank, tp.tile_min, tp.tile_max,
-                          masks, tp.conic, tp.center, tp.max_power, cap,
-                          grid, cull)
+    counts, record = tex.cull_masks(tp.tile_min, tp.tile_max, tp.n_tiles,
+                                    tp.conic, tp.center, tp.max_power, cull)
+    masks = torch.cat([counts[None], tex.unpack_record(record).masks.T])
+    ids_of_rank, ends_rank = ttiles.depth_rank(counts, tp.depth)
+    got = tex.expand_keys(ends_rank, ids_of_rank, record, cap, grid, cull)
     want = jax_expand_keys(proj, masks.numpy(), cap, grid, cull)
     if cap == 1024:
         assert int(ends_rank[-1]) > cap              # the overflow case

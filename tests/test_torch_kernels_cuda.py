@@ -5,7 +5,8 @@ is not installed:
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances: B3 and B4 exact (--fmad=false, same f32 operations); B1 rows
+Tolerances: B3 and B4 exact (--fmad=false, same f32 operations; also on
+the binning edge cases of b4_edge_case, in both culling modes); B1 rows
 0-5 atol 2e-4 / rtol 1e-4 (colour sums in another order), hit counts, the
 walked slots and the flagged slots exact (same per-pair alpha and the same
 sequential transmittance); whole frames card vs CPU within golden.compare.
@@ -95,19 +96,99 @@ def test_cull_masks_kernel_matches_plain(dev):
     before = cuda_build.launches["cull_masks"]
     got = expand.cull_masks(*args)
     assert cuda_build.launches["cull_masks"] == before + 1
-    assert torch.equal(got, expand.cull_masks_plain(*args))
+    for a, b in zip(got, expand.cull_masks_plain(*args)):
+        assert torch.equal(a, b)
     assert int(got[0].sum()) > 0
 
 
 @pytest.mark.parametrize("cap", [1 << 18, 4096])
 def test_expand_keys_kernel_matches_plain(dev, cap):
     proj, _, _, grid, _ = prepared(dev)
-    args = b3_inputs(proj)
-    masks = expand.cull_masks(*args)
-    ids_of_rank, ends_rank = tiles.depth_rank(masks[0], proj.depth)
-    b4 = (ends_rank, ids_of_rank, args[0], args[1], masks, args[3], args[4],
-          args[5], cap, grid, True)
+    counts, record = expand.cull_masks(*b3_inputs(proj))
+    ids_of_rank, ends_rank = tiles.depth_rank(counts, proj.depth)
+    b4 = (ends_rank, ids_of_rank, record, cap, grid, True)
     for a, b in zip(expand.expand_keys(*b4), expand.expand_keys_plain(*b4)):
+        assert torch.equal(a, b)
+
+
+# B3's and B4's edge cases (b4_edge_case)
+B4_CASES = ["below", "above", "total0", "n1", "big", "singles",
+            "zero-inside"]
+
+
+def b4_edge_case(dev, name):
+    """(B3's inputs, depths, an order of ranks or None, capacity, tile
+    grid) of a binning edge case on a 24 x 16 tile grid, seeded:
+    "below" and "above" 1,500 particles (30% with no tile) at a capacity
+    below the total and above it (not a multiple of 256); "total0" no
+    particle with a tile; "n1" one particle; "big" one particle whose
+    20 x 15-tile bbox (unmaskable) owns 300 slots among 39 small ones;
+    "singles" 700 particles of one tile each, centred in it, so that
+    every 256-slot window holds exactly 256 single-slot ranks; and
+    "zero-inside" 4,000 particles, 80% with no tile, ranked in a random
+    order instead of by depth, so that zero-count ranks lie inside the
+    list and a window's slots span more than 256 ranks."""
+    rng = np.random.default_rng(B4_CASES.index(name))
+    gx, gy = 24, 16
+    n = {"n1": 1, "big": 40, "singles": 700, "zero-inside": 4000}.get(
+        name, 1500)
+    size = 2 if name == "zero-inside" else 8
+    tmin = np.stack([rng.integers(0, gx - size, n),
+                     rng.integers(0, gy - size, n)], -1)
+    wh = rng.integers(1, size + 1, (n, 2))
+    if name == "singles":
+        wh[:] = 1
+    if name == "big":
+        tmin[0], wh[0] = (2, 1), (20, 15)
+    tmax = tmin + wh
+    ntiles = wh[:, 0] * wh[:, 1]
+    dead = {"below": 0.3, "above": 0.3, "total0": 1.0, "zero-inside": 0.8}
+    ntiles[rng.random(n) < dead.get(name, 0.0)] = 0
+    conic = np.abs(rng.normal(0.02, 0.015, (n, 3)))
+    conic[:, 1] *= rng.choice([-0.3, 0.3], n)
+    center = (tmin + rng.uniform(0, 1, (n, 2)) * wh) * 16.0
+    if name == "singles":
+        center = (tmin + 0.5) * 16.0
+    max_power = rng.uniform(0.5, 6.0, n)
+    t = lambda x, dt: torch.tensor(np.asarray(x, dt), device=dev)
+    b3 = (t(tmin, np.int32), t(tmax, np.int32), t(ntiles, np.int32),
+          t(conic, np.float32), t(center, np.float32),
+          t(max_power, np.float32))
+    depth = t(rng.uniform(1.0, 9.0, n), np.float32)
+    order = (t(rng.permutation(n), np.int32) if name == "zero-inside"
+             else None)
+    cap = {"below": 2048, "above": 30000, "total0": 1024, "n1": 512,
+           "big": 1024, "singles": 1024, "zero-inside": 2048}[name]
+    return b3, depth, order, cap, (gx, gy)
+
+
+def b4_args(case, counts, record, tile_culling):
+    """expand_keys' arguments for b4_edge_case's `case` on B3's outputs:
+    ranks by tiles.depth_rank, or in the case's own order."""
+    _, depth, order, cap, grid = case
+    if order is None:
+        ids_of_rank, ends_rank = tiles.depth_rank(counts, depth)
+    else:
+        ids_of_rank = order
+        ends_rank = torch.cumsum(counts[order.long()], 0, dtype=torch.int32)
+    return ends_rank, ids_of_rank, record, cap, grid, tile_culling
+
+
+@pytest.mark.parametrize("tile_culling", [True, False])
+@pytest.mark.parametrize("name", B4_CASES)
+def test_binning_kernels_on_edge_cases(dev, name, tile_culling):
+    """B3 (counts and records) and B4 bit-equal to their plain versions on
+    b4_edge_case, in both culling modes."""
+    case = b4_edge_case(dev, name)
+    got = expand.cull_masks(*case[0], tile_culling=tile_culling)
+    for a, b in zip(got, expand.cull_masks_plain(*case[0],
+                                                 tile_culling=tile_culling)):
+        assert torch.equal(a, b)
+    args = b4_args(case, *got, tile_culling)
+    before = cuda_build.launches["expand_keys"]
+    k = expand.expand_keys(*args)
+    assert cuda_build.launches["expand_keys"] == before + 1
+    for a, b in zip(k, expand.expand_keys_plain(*args)):
         assert torch.equal(a, b)
 
 
@@ -978,9 +1059,10 @@ def test_compact_streams_kernel_edge_cases(dev, seed):
 
 
 def test_blocks_per_sm_come_from_the_runtime(dev):
-    """B5's, B6's and B9's occupancy queries name every kernel of their
-    sources, each with its block size and 1 to 32 blocks an SM holds."""
-    for mod, n in ((segment_sum, 5), (stream_compact, 3)):
+    """B3's, B4's, B5's, B6's and B9's occupancy queries name every kernel
+    of their sources, each with its block size and 1 to 32 blocks an SM
+    holds."""
+    for mod, n in ((segment_sum, 5), (stream_compact, 3), (expand, 3)):
         occ = mod.blocks_per_sm()
         assert len(occ) == n
         for threads, blocks in occ.values():

@@ -218,9 +218,10 @@ def time_leg(tile_raster, fwd, b2_in, passes, rowterm):
     return t
 
 
-def gut_inputs(dev, n, res, cap, raise_scale):
-    """(params, binning, slot data, grid, rays) of a SCENES entry: the
-    seeded scene seen from (0.3, -4, 1), prepared for B1."""
+def gut_prepared(dev, n, res, cap, raise_scale):
+    """(params, camera, pose, gut.prepare's (projection, binning, slot
+    data, grid)) of a SCENES entry: the seeded scene seen from
+    (0.3, -4, 1)."""
     import torch
     from threedgrut_torch.cameras import (example_camera, look_at,
                                           pose_from_matrix)
@@ -235,9 +236,20 @@ def gut_inputs(dev, n, res, cap, raise_scale):
     cam = example_camera(res, dev)
     pose = pose_from_matrix(torch.tensor(T, device=dev))
     with torch.no_grad():
-        _, binning, data, grid = gut.prepare(
-            p.get_positions(), p.get_rotation(), p.get_scale(),
-            p.get_density(), p.get_features(), cam, pose, res, cap)
+        prep = gut.prepare(p.get_positions(), p.get_rotation(),
+                           p.get_scale(), p.get_density(), p.get_features(),
+                           cam, pose, res, cap)
+    return p, cam, pose, prep
+
+
+def gut_inputs(dev, n, res, cap, raise_scale):
+    """(params, binning, slot data, grid, rays) of a SCENES entry, prepared
+    for B1."""
+    import torch
+    from threedgrut_torch.render import gut
+    p, cam, pose, (_, binning, data, grid) = gut_prepared(dev, n, res, cap,
+                                                          raise_scale)
+    with torch.no_grad():
         rays = gut.packed_world_rays(cam, pose, grid)
     return p, binning, data, grid, rays
 
@@ -510,6 +522,123 @@ def b6_b9_digests(dev, timed):
               f"{[round(r, 3) for r in runs[1:]]})", flush=True)
 
 
+def binning_calls(proj, grid, tile_culling):
+    """This version's B3 and B4 on a projection, as its bin_particles runs
+    them: (B3's [4, N] output (counts, m0, m1, m2), a function running
+    B3 (None where the version runs none: the parent without tile
+    culling), a function of the capacity running B4, the depth ranks'
+    particle ids and ends). Versions since B3 writes a record (expand.
+    unpack_record) return its counts and mask words as the [4, N]."""
+    import torch
+    from threedgrut_torch.ops import expand, tiles
+    b3_in = (proj.tile_min.int().contiguous(),
+             proj.tile_max.int().contiguous(), proj.n_tiles.int().contiguous(),
+             proj.conic.contiguous(), proj.center.contiguous(),
+             proj.max_power.contiguous())
+    if hasattr(expand, "unpack_record"):
+        b3 = lambda: expand.cull_masks(*b3_in, tile_culling=tile_culling)
+        counts, record = b3()
+        masks = torch.cat([counts[None],
+                           expand.unpack_record(record).masks.T])
+        b4_in = (record,)
+    else:
+        b3 = (lambda: expand.cull_masks(*b3_in)) if tile_culling else None
+        if b3 is not None:
+            masks = b3()
+        else:
+            masks = torch.zeros((4, b3_in[2].shape[0]), dtype=torch.int32,
+                                device=proj.depth.device)
+            masks[0] = b3_in[2]
+        b4_in = (b3_in[0], b3_in[1], masks) + b3_in[3:]
+    ids, ends = tiles.depth_rank(masks[0], proj.depth)
+    return masks, b3, (lambda cap: expand.expand_keys(
+        ends, ids, *b4_in, cap, grid, tile_culling)), ids, ends
+
+
+def b4_sectors(proj, masks, ids, ends, cap):
+    """Ranks owning a slot below `cap` and the 32-byte sectors their
+    per-particle reads touch: per rank summed, and distinct, for the
+    separate fields (the four [4, N] rows, tile_min, tile_max, conic,
+    centre, max_power) and for one 64-byte record."""
+    import torch
+    c = masks[0][ids.long()]
+    live = (c > 0) & (ends - c < cap)
+    p = ids[live].long()
+    spans = [(4, 4 * r * proj.depth.shape[0]) for r in range(4)] + [
+        (8, 0), (8, 0), (12, 0), (8, 0), (4, 0)]
+    per_rank, distinct = 0, 0
+    for k, (nbytes, base) in enumerate(spans):
+        a = base + nbytes * p
+        first, last = a // 32, (a + nbytes - 1) // 32
+        per_rank += int((last - first + 1).sum())
+        secs = torch.cat([first, last]) + (k << 40)
+        distinct += int(torch.unique(secs).numel())
+    return dict(live_ranks=int(live.sum()), field_sectors=per_rank,
+                field_sectors_distinct=distinct,
+                record_sectors=2 * int(live.sum()))
+
+
+def bbox_histogram(proj):
+    """Cells B3 tests per live maskable particle (bbox <= 8 x 8 tiles), as
+    {cells: particles}, and the same of each warp's (32 consecutive
+    particles') largest, which sets the warp's pace."""
+    import torch
+    bw = (proj.tile_max[:, 0] - proj.tile_min[:, 0]).long()
+    bh = (proj.tile_max[:, 1] - proj.tile_min[:, 1]).long()
+    cells = torch.where((proj.n_tiles > 0) & (bw <= 8) & (bh <= 8)
+                        & (bw > 0) & (bh > 0), bw * bh, 0)
+    n = cells.shape[0]
+    warp = torch.nn.functional.pad(cells, (0, -n % 32)).view(-1, 32)
+    hist = lambda x: {k: v for k, v in enumerate(
+        torch.bincount(x, minlength=65).tolist()) if v}
+    return dict(cells=hist(cells), warp_max=hist(warp.amax(1)),
+                tested=int(cells.sum()),
+                warp_slots=32 * int(warp.amax(1).sum()))
+
+
+def b3b4_digests(dev, timed):
+    """B3's and B4's digests (module docstring)."""
+    import torch
+    from threedgrut_torch.ops import tiles
+    for sname, n, res, cap, raise_scale in SCENES:
+        _, _, _, (proj, _, _, grid) = gut_prepared(dev, n, res, cap,
+                                                   raise_scale)
+        for cull in (True, False):
+            masks, b3, b4, ids, ends = binning_calls(proj, grid, cull)
+            total = int(masks[0].sum())
+            over = max(256, total // 2 // 256 * 256)
+            torch.cuda.synchronize()
+            print(f"digest b3b4 {sname} culling={cull}: B3 {digest(masks)} "
+                  f"(particles {masks.shape[1]}, with tiles "
+                  f"{int((masks[0] > 0).sum())}, total {total})", flush=True)
+            for c in (cap, over):
+                out = b4(c)
+                torch.cuda.synchronize()
+                print(f"digest b3b4 {sname} culling={cull} cap={c}: B4 "
+                      f"{digest(*out)} (total {total}, sentinel tiles "
+                      f"{int((out[0] == grid[0] * grid[1]).sum())})",
+                      flush=True)
+            if n > 100_000:
+                b = tiles.bin_particles(proj, grid, cap, cull)
+                fields = {f: digest(getattr(b, f))
+                          for f in tiles.TileBinning._fields}
+                torch.cuda.synchronize()
+                print(f"digest b3b4 {sname} culling={cull} TileBinning: "
+                      f"{json.dumps(fields)}", flush=True)
+            if timed and n > 100_000 and cull:
+                t3 = cuda_ms(b3, 20)
+                t4 = cuda_ms(lambda: b4(cap), 20)
+                print(f"time b3b4 {sname}: B3 {t3:.4f} ms, B4 {t4:.4f} ms, "
+                      f"sum {t3 + t4:.4f} ms; device ms by kernel "
+                      f"{json.dumps(kernel_breakdown(b3))} "
+                      f"{json.dumps(kernel_breakdown(lambda: b4(cap)))}; "
+                      f"{json.dumps(b4_sectors(proj, masks, ids, ends, cap))}"
+                      f"; bbox {json.dumps(bbox_histogram(proj))}",
+                      flush=True)
+            del masks, b3, b4, ids, ends
+        del proj
+
+
 def grt_digests(dev, timed):
     """B7's and B8's digests on bench_grt's scenes (module docstring)."""
     import torch
@@ -617,9 +746,9 @@ def main() -> int:
     ap.add_argument("--time", action="store_true")
     ap.add_argument("--step", action="store_true",
                     help="profile the default train step per tile order")
-    ap.add_argument("--only", choices=("gut", "grt", "b6b9"),
-                    help="digest only B1/B2 (gut), only B7/B8 (grt) or "
-                         "only B6/B9 (b6b9)")
+    ap.add_argument("--only", choices=("gut", "grt", "b6b9", "b3b4"),
+                    help="digest only B1/B2 (gut), only B7/B8 (grt), only "
+                         "B6/B9 (b6b9) or only B3/B4 (b3b4)")
     args = ap.parse_args()
     sys.path.insert(0, args.root)
     import torch
@@ -630,7 +759,8 @@ def main() -> int:
     import threedgrut_torch
     print(f"digest of {Path(threedgrut_torch.__file__).parent}", flush=True)
     kernels = {"gut": ["tile_raster_fwd", "tile_raster_bwd"],
-               "grt": ["bundle_trace_fwd", "bundle_trace_bwd"]}
+               "grt": ["bundle_trace_fwd", "bundle_trace_bwd"],
+               "b3b4": ["cull_masks", "expand_keys"]}
     cuda_build.build(None if args.step or args.only == "b6b9"
                      else kernels.get(args.only))
     dev = torch.device("cuda:0")
@@ -640,6 +770,8 @@ def main() -> int:
         grt_digests(dev, args.time)
     if args.only in (None, "b6b9"):
         b6_b9_digests(dev, args.time)
+    if args.only in (None, "b3b4"):
+        b3b4_digests(dev, args.time)
     if args.step:
         from threedgrut_torch.ops import tile_raster
         step_profile(dev, tile_raster)

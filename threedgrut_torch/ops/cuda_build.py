@@ -175,6 +175,15 @@ def checked_inputs(*specs):
     return [t for _, t, _, _ in specs]
 
 
+def check_aligned(*specs):
+    """Raise unless each (name, tensor, bytes) input starts at a multiple
+    of `bytes`, as the kernel's vector loads need."""
+    for name, t, nbytes in specs:
+        if t.data_ptr() % nbytes:
+            raise ValueError(f"{name} must start at a multiple of {nbytes} "
+                             f"bytes")
+
+
 def check(name: str, err: int) -> None:
     """Raise if a C entry reported a CUDA error for its launch."""
     if err != 0:

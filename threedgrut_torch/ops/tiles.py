@@ -1,10 +1,11 @@
 """Tile binning: particle->tile intersections, (tile, depth) order and tile
 ranges; port of threedgrut_tpu/ops/tiles.py.
 
-The pipeline is the JAX package's: count-time cull masks (kernel B3), a
-cumsum of the counts, a stable depth-rank sort that compacts the live
-particles, slot expansion (kernel B4), one stable sort on the tile key, and
-searchsorted tile ranges. Because expansion runs in depth-rank order, the
+The pipeline is the JAX package's: count-time cull masks (kernel B3, which
+also writes each particle's record for B4), a cumsum of the counts, a
+stable depth-rank sort that compacts the live particles, slot expansion
+(kernel B4), one stable sort on the tile key, and searchsorted tile
+ranges. Because expansion runs in depth-rank order, the
 stable tile sort yields (tile, depth) order without a depth key.
 
 Overflow is data: `isect_capacity` is a fixed bound, `num_intersections`
@@ -68,21 +69,16 @@ def bin_particles(proj: Projection, tile_grid: Tuple[int, int],
     conic = proj.conic.contiguous()
     center = proj.center.contiguous()
     max_power = proj.max_power.contiguous()
-    if tile_culling:
-        masks = ex.cull_masks(tile_min, tile_max, n_tiles, conic, center,
-                              max_power)
-    else:
-        masks = torch.zeros((4, n), dtype=torch.int32, device=dev)
-        masks[0] = n_tiles
-    counts = masks[0]
+    counts, record = ex.cull_masks(tile_min, tile_max, n_tiles, conic,
+                                   center, max_power, tile_culling)
     ends = torch.cumsum(counts, 0, dtype=torch.int32)
     total = ends[-1]
     overflow = total > cap
 
     ids_of_rank, ends_rank = depth_rank(counts, proj.depth)
     tile_key, pid, rowbits = ex.expand_keys(
-        ends_rank, ids_of_rank, tile_min, tile_max, masks, conic, center,
-        max_power, cap, tile_grid, tile_culling)
+        ends_rank, ids_of_rank, record, cap, tile_grid, tile_culling)
+    del record                  # freed before the tile sort
 
     # Stable sort on the tile key alone keeps each tile's depth order; the
     # 8-bit row extent rides in the payload's top bits.

@@ -167,7 +167,7 @@ def step_fn(params: Gaussians, opt_state: optimizers.AdamState, T_to_world,
 
 class Trainer:
     """Single-card trainer. Densification strategies are not ported yet
-    (ROADMAP queue A item 7)."""
+    (ROADMAP queue A item 2)."""
 
     def __init__(self, cfg: Config, dataset, val_dataset=None,
                  params: Optional[Gaussians] = None, device="cuda"):
