@@ -43,6 +43,22 @@ Phases, each of which fails the run on a miss:
      bench.py-shaped JSON line; then the same 6 steps with
      preset_3dgut_sorted (B1 and B2's sorted legs) and with
      row_termination=True, each with its own JSON line ("mode");
+  6b. densification: (d) every strategy operation (densify, prune,
+     relocate, add_gaussians, perturb, reset_density, accumulate) on the
+     card against the CPU from the same state and draws at bench_grt's
+     100k scene (masks, taken slots, sources and counts exact, floats
+     within STRATEGY_RTOL/ATOL); then 6 Trainer.train_step calls with a
+     strategy on a compressed schedule (events at steps 2, 4, 6; 5% of
+     each scene dead): (a) GSStrategy on the full-width 3DGUT step
+     (bench.py's 1M scene in 1,503,232 slots: clones, splits and prunes,
+     growth), (b) MCMCStrategy on the same step (950,000 in 1,003,520
+     slots: relocations, growth to exactly 1,000,000 at step 4), (c)
+     MCMCStrategy with preset_3dgrt on bench_grt's 100k scene (110,592
+     slots, filled at step 6); per step alive, the strategy's counts,
+     loss, ms, overflow, capacity and launches (B1 and B2, or B7, B8 and
+     B6, once a step), each leg's peak memory; (e) each strategy
+     operation timed with CUDA events at (a)'s and (b)'s sizes and one
+     profiled densified step of each ("strategy.*" spans);
   7. 3DGRT main path: api.trace at tools/bench_grt.py's inference
      configuration (100k Gaussians, 512x512 rays, 16 re-sort passes), 6
      traces, then at its 1M capacities, 3 traces; overflow, launch counts,
@@ -109,6 +125,7 @@ The line before the last holds the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
 import re
@@ -213,6 +230,37 @@ GRT_GRAD_LOOSE_SHARE = 0.05
 GRT_SIDE = 512
 GRT_PARITY_SIDE = 128
 GRT_PARITY_RES = (128, 64)
+# Phase 6b, densification: the schedule compressed so that every event
+# falls inside DENSIFY_STEPS steps (every other value is Config()'s); the
+# share of each leg's particles given an opacity below both strategies'
+# thresholds (0.005), so that prune and relocate have work (bench.py's
+# scene has opacity 0.5 everywhere); the legs' capacities.
+DENSIFY_SCHEDULE = dict(densify_start=2, densify_frequency=2,
+                        mcmc_add_frequency=2, densify_end=7,
+                        reset_density_frequency=4)
+DENSIFY_STEPS = 6
+DENSIFY_DEAD_SHARE = 0.05
+DENSIFY_DEAD_OPACITY = 0.001
+# GS: bench.py's 1M scene in 1,503,232 slots; after step 1 the gradient
+# threshold becomes the DENSIFY_GS_SOURCES-th largest average, and the
+# scale threshold 0.003 of the extent (0.012: the scene's scales are
+# 0.004-0.02, above Config()'s 0.01 x 4.0 everything would clone).
+DENSIFY_GS_CAP = 1_503_232
+DENSIFY_GS_SOURCES = 100_000
+DENSIFY_GS_SCALE = 0.003
+# MCMC: 950,000 particles in 1,003,520 slots grow by 5% an event to
+# mcmc_max_gaussians (1,000,000) at step 4; the 3DGRT leg's 100k scene in
+# 110,592 slots fills them at step 6 (+5,000, +5,250, +342).
+DENSIFY_MCMC_N = 950_000
+DENSIFY_MCMC_CAP = 1_003_520
+DENSIFY_MCMC_MAX = 1_000_000
+DENSIFY_GRT_CAP = 110_592
+DENSIFY_TIME_ITERS = 10
+# Strategy operations card vs CPU from the same state and draws: masks,
+# alive, taken slots and sources exactly; floats within these (the same
+# f32 operations; CUDA's and the CPU's exp, pow and products may differ by
+# an ulp).
+STRATEGY_RTOL, STRATEGY_ATOL = 1e-5, 1e-6
 
 
 def phase_start() -> int:
@@ -501,12 +549,14 @@ def step_agreement(tg, ag, tc, ac):
     return rep, ok
 
 
-def grt_bench_scene(n, scales, dev, side=GRT_SIDE, crop=None):
+def grt_bench_scene(n, scales, dev, side=GRT_SIDE, crop=None,
+                    capacity=None):
     """tools/bench_grt.py's scene as Gaussians on `dev` (the same seeded
     numpy draws in the same order: positions, quaternions, scales, albedo,
-    ray jitter) and its side x side ray grid from (0, 0, -4) in 16x16-tile
-    order, as CUDA/CPU tensors (origins, unit directions). `crop` keeps the
-    central crop x crop rays of the grid."""
+    ray jitter), padded to `capacity` (default: the next multiple of 4096),
+    and its side x side ray grid from (0, 0, -4) in 16x16-tile order, as
+    CUDA/CPU tensors (origins, unit directions). `crop` keeps the central
+    crop x crop rays of the grid."""
     from threedgrut_torch.model.gaussians import from_arrays
     rng = np.random.default_rng(0)
     pos = rng.normal(0, 1.0, (n, 3)).astype(np.float32)
@@ -515,7 +565,8 @@ def grt_bench_scene(n, scales, dev, side=GRT_SIDE, crop=None):
                            (n, 3))).astype(np.float32)
     albedo = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
     params = from_arrays(pos, q, np.log(s), np.zeros((n, 1), np.float32),
-                         albedo, np.zeros((n, 45), np.float32), device=dev)
+                         albedo, np.zeros((n, 45), np.float32), capacity,
+                         device=dev)
     px = (np.arange(side) + 0.5) / side * 0.8 - 0.4
     gx, gy = np.meshgrid(px, px, indexing="xy")
     jit = rng.uniform(-0.4 / side, 0.4 / side, (2,) + gx.shape)
@@ -1187,26 +1238,12 @@ def grt_fwd_bwd_main_path(dev, tag, flat=False):
     return launches, grt_walk_capacity(GRT_CONFIGS[0]["flat_cap"])
 
 
-def grt_train_main_path(dev, tag):
-    """GRT_TRAIN_STEPS Trainer.train_step calls with preset_3dgrt on
-    bench_grt's 100k scene: a 512x512 pinhole camera (focal 640 px, centred
-    principal point) at (0, 0, -4) looking at the origin, zero ground
-    truth, isect_capacity GRT_TRAIN_ISECT; the last step with
-    walk_compact_fraction 0 (gather_rows' backward). Fails unless every
-    value is finite, no step from the second on overflows, and every step
-    launched B7, B8 and B6 once and nothing else. Returns the launches."""
+def grt_train_view(dev, side=GRT_SIDE):
+    """The 3DGRT trainer's view of bench_grt's scene: a side x side pinhole
+    camera (focal 640 px, centred principal point) at (0, 0, -4) looking at
+    the origin, zero ground truth."""
     from threedgrut_torch.cameras import PinholeCamera, look_at
-    from threedgrut_torch.config import preset_3dgrt
     from threedgrut_torch.datasets.protocols import View
-    from threedgrut_torch.ops import cuda_build, fused_raster
-    from threedgrut_torch.trainer import Trainer, grt_super_lists
-    cfg = GRT_CONFIGS[0]
-    cfg3 = preset_3dgrt()
-    cfg3.render.isect_capacity = GRT_TRAIN_ISECT
-    cfg3.model.progressive_sh_interval = 0
-    base = phase_start()
-    params, _, _ = grt_bench_scene(cfg["n"], cfg["scales"], dev)
-    side = GRT_SIDE
 
     def t(x):
         return torch.tensor(x, dtype=torch.float32, device=dev)
@@ -1218,8 +1255,29 @@ def grt_train_main_path(dev, tag):
     T = look_at(np.array([0.0, 0.0, -4.0], np.float32),
                 np.zeros(3, np.float32), np.array([0.0, -1.0, 0.0],
                                                   np.float32))
-    view = View(T_to_world=T, camera=cam, resolution=(side, side),
+    return View(T_to_world=T, camera=cam, resolution=(side, side),
                 rgb_gt=np.zeros((side, side, 3), np.float32))
+
+
+def grt_train_main_path(dev, tag):
+    """GRT_TRAIN_STEPS Trainer.train_step calls with preset_3dgrt on
+    bench_grt's 100k scene: a 512x512 pinhole camera (focal 640 px, centred
+    principal point) at (0, 0, -4) looking at the origin, zero ground
+    truth, isect_capacity GRT_TRAIN_ISECT; the last step with
+    walk_compact_fraction 0 (gather_rows' backward). Fails unless every
+    value is finite, no step from the second on overflows, and every step
+    launched B7, B8 and B6 once and nothing else. Returns the launches."""
+    from threedgrut_torch.config import preset_3dgrt
+    from threedgrut_torch.ops import cuda_build, fused_raster
+    from threedgrut_torch.trainer import Trainer, grt_super_lists
+    cfg = GRT_CONFIGS[0]
+    cfg3 = preset_3dgrt()
+    cfg3.render.isect_capacity = GRT_TRAIN_ISECT
+    cfg3.model.progressive_sh_interval = 0
+    base = phase_start()
+    params, _, _ = grt_bench_scene(cfg["n"], cfg["scales"], dev)
+    side = GRT_SIDE
+    view = grt_train_view(dev)
     tr = Trainer(cfg3, OneView(view, 4.0), params=params, device=dev)
     want = {n: 1 for n in cuda_build.kernels_of("grt")}
     cuda_build.launches.clear()
@@ -1392,6 +1450,412 @@ def b8_record(data, inp, b7_runs, launches, walk, ptxas, tag):
     rec6["launches_grt_train"] = {n_: v.get("segment_sum_rows_by_ids", 0)
                                   for n_, v in launches.items()}
     return rec8, rec6
+
+
+# ---- phase 6b: densification ---------------------------------------------
+
+COUNT_NAMES = {"gs": ("clone", "split", "prune"),
+               "mcmc": ("relocate", "add")}
+
+
+def densify_config(cfg, method):
+    """`cfg` with strategy `method` on the compressed schedule."""
+    cfg.strategy.method = method
+    for k, v in DENSIFY_SCHEDULE.items():
+        setattr(cfg.strategy, k, v)
+    return cfg
+
+
+def kill_share(params, n, seed=0):
+    """Give DENSIFY_DEAD_SHARE of the first n particles (a seeded numpy
+    choice) opacity DENSIFY_DEAD_OPACITY. Returns how many."""
+    idx = np.random.default_rng(seed).choice(
+        n, int(round(DENSIFY_DEAD_SHARE * n)), replace=False)
+    logit = float(np.log(DENSIFY_DEAD_OPACITY / (1.0 - DENSIFY_DEAD_OPACITY)))
+    with torch.no_grad():
+        params.density[torch.as_tensor(idx, device=params.density.device)] \
+            = logit
+    return len(idx)
+
+
+def make_strategy(cfg, capacity, dev):
+    from threedgrut_torch.strategy import gs, mcmc
+    if cfg.strategy.method == "gs":
+        return gs.GSStrategy(cfg.strategy, capacity, dev)
+    return mcmc.MCMCStrategy(cfg.strategy, cfg.optimizer, capacity, dev)
+
+
+def copy_gaussians(p, dev):
+    from threedgrut_torch.model.gaussians import FIELDS, Gaussians
+    return Gaussians(**{f: getattr(p, f).detach().to(dev, copy=True)
+                        for f in FIELDS})
+
+
+def densified_run(tr, view, leg, step_ok, tag, after_step=None):
+    """DENSIFY_STEPS Trainer.train_step calls with the trainer's strategy,
+    the last with walk_compact_fraction 0 (the dense backward). Prints per
+    step the alive count, the strategy's counts, loss, ms (host clock
+    around a step ending in a synchronize), overflow, isect capacity and
+    launches; fails unless every value is finite and step_ok(the step's
+    launches). Returns (rows, the run's launches, the last aux)."""
+    from threedgrut_torch.ops import cuda_build
+    names = COUNT_NAMES[tr.cfg.strategy.method]
+    walk = tr.cfg.render.walk_compact_fraction
+    cuda_build.launches.clear()
+    rows, aux = [], None
+    for k in range(DENSIFY_STEPS):
+        if k == DENSIFY_STEPS - 1:
+            tr.cfg.render.walk_compact_fraction = 0.0
+        cap = tr.isect_capacity
+        before = dict(cuda_build.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aux = tr.train_step(view)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        step = {n: v - before.get(n, 0)
+                for n, v in cuda_build.launches.items()
+                if v != before.get(n, 0)}
+        row = dict(step=k + 1, alive=int(tr.params.num_active()),
+                   **{n: int(tr.strategy.counts.get(n, 0)) for n in names},
+                   loss=float(aux["terms"]["total"]), ms=ms,
+                   overflow=bool(aux["overflow"]), isect_capacity=cap,
+                   launches=step)
+        print(f"{leg} step {k + 1}: {json.dumps(row)} {tag}", flush=True)
+        finite = all(bool(torch.isfinite(x).all()) for x in
+                     [aux["pred"], *aux["grads"].values(),
+                      *(getattr(tr.params, f) for f in aux["grads"])])
+        if not (finite and math.isfinite(row["loss"])):
+            fail(f"{leg} step {k + 1}: a value is not finite")
+        if not step_ok(step):
+            fail(f"{leg} step {k + 1} launched {step}")
+        rows.append(row)
+        if after_step is not None:
+            after_step(k, tr)
+    tr.cfg.render.walk_compact_fraction = walk
+    return rows, dict(cuda_build.launches), aux
+
+
+def leg_record(leg, n, capacity, dead, rows, peak, launches, method):
+    """A densified leg's summary: its scene, alive counts, the strategy's
+    totals, step ms before growth (step 1) and after (median of steps 3
+    and 5, which run no event), peak memory and launches."""
+    return dict(leg=leg, n=n, capacity=capacity, dead=dead,
+                alive=[r["alive"] for r in rows],
+                totals={k: sum(r[k] for r in rows)
+                        for k in COUNT_NAMES[method]},
+                step_ms_before=rows[0]["ms"],
+                step_ms_after=float(np.median([rows[2]["ms"],
+                                               rows[4]["ms"]])),
+                peak_gib=peak, launches=launches)
+
+
+def strategy_op_ms(tr, view, aux, tag):
+    """Each operation of the trainer's strategy as its hooks run it (its
+    draws included) on a copy of the trainer's parameters: the CUDA-event
+    mean of DENSIFY_TIME_ITERS calls after one. Every operation is a
+    masked write over the whole capacity: its work does not depend on how
+    many particles move."""
+    from threedgrut_torch.optimizers import positions_lr_schedule
+    from threedgrut_torch.strategy import gs, mcmc
+    strat, g, dev = tr.strategy, tr.generator, tr.device
+    cfg = strat.cfg
+    p = copy_gaussians(tr.params, dev)
+    opt, c = tr.opt_state, p.capacity
+    if cfg.method == "gs":
+        cam = torch.as_tensor(view.T_to_world, dtype=torch.float32,
+                              device=dev)[:3, 3]
+
+        def accumulate(state):
+            return gs.accumulate(state, p, aux["pos_grad_norm"], cam,
+                                 aux["visibility"], cfg.prune_weight_ema)
+
+        st = accumulate(strat.state)
+        ops = {
+            "accumulate": lambda: accumulate(st),
+            "densify": lambda: gs.densify(
+                p, opt, st, torch.randn((c, 3), generator=g, device=dev),
+                torch.randn((c, 3), generator=g, device=dev),
+                tr.scene_extent, cfg.densify_grad_threshold,
+                cfg.densify_scale_threshold, 0.8 * cfg.split_n),
+            "prune": lambda: gs.prune(p, cfg.prune_density_threshold),
+            "reset": lambda: gs.reset_density(p, cfg.reset_density_value)}
+    else:
+        thr = cfg.mcmc_opacity_threshold
+        n_add = int(0.05 * int(p.num_active()))
+        pos_lr = positions_lr_schedule(tr.cfg.optimizer, tr.scene_extent,
+                                       tr.global_step)
+
+        def sample():
+            return mcmc._sample_sources(g, mcmc.source_probs(p, thr), c)
+
+        ops = {
+            "sample_sources": sample,
+            "relocate": lambda: mcmc.relocate(p, opt, sample(), thr,
+                                              strat.binoms),
+            "add": lambda: mcmc.add_gaussians(p, opt, sample(), thr,
+                                              strat.binoms, n_add),
+            "perturb": lambda: mcmc.perturb(
+                p, torch.randn((c, 3), generator=g, device=dev), pos_lr,
+                cfg.mcmc_noise_lr)}
+    out = {name: cuda_ms(fn, DENSIFY_TIME_ITERS) for name, fn in ops.items()}
+    print(f"strategy ops ({cfg.method}, capacity {c}), CUDA-event ms, mean "
+          f"of {DENSIFY_TIME_ITERS} after one: {json.dumps(out)} {tag}",
+          flush=True)
+    return out
+
+
+def strategy_profile(tr, view, leg, tag):
+    """One train step under torch.profiler (after a warm one) with the
+    strategy's events due at every step (densify_end far off, frequencies
+    1), so that its "strategy.*" spans show each operation of the leg."""
+    s = tr.strategy.cfg
+    s.densify_end, s.densify_frequency, s.mcmc_add_frequency = 1 << 30, 1, 1
+    prof = profile_run(lambda: tr.train_step(view),
+                       ("train.", "strategy."))
+    print(f"profiled densified train step ({leg}): {json.dumps(prof)} "
+          f"{tag}", flush=True)
+    if not any(k.startswith("strategy.")
+               for k in prof["stage_device_span_ms"]):
+        fail(f"{leg}: the profile shows no strategy span")
+    return prof
+
+
+def densify_gut_leg(dev, tag, method):
+    """Phase 6b (a) GS and (b) MCMC, on the default 3DGUT step at full
+    width: bench.py's scene, camera and zero ground truth, re-padded
+    (GS: 1M in DENSIFY_GS_CAP slots; MCMC: DENSIFY_MCMC_N in
+    DENSIFY_MCMC_CAP), 5% of it dead, DENSIFY_STEPS steps on the
+    compressed schedule. Fails unless every step launched B1 and B2 once,
+    every 3DGUT kernel ran, and GS cloned, split and pruned and grew, or
+    MCMC relocated, added and held DENSIFY_MCMC_MAX after step 4. Then
+    times the strategy's operations and profiles a densified step."""
+    from threedgrut_torch.config import Config
+    from threedgrut_torch.model.gaussians import (FIELDS, bench_scene,
+                                                  padded_fields)
+    from threedgrut_torch.ops import cuda_build
+    from threedgrut_torch.strategy import gs
+    n, cap = ((MAIN_N, DENSIFY_GS_CAP) if method == "gs"
+              else (DENSIFY_MCMC_N, DENSIFY_MCMC_CAP))
+    f = bench_scene(n, seed=0)
+    fields = padded_fields(*(f[k][:n] for k in FIELDS[:-1]), capacity=cap)
+    cfg = densify_config(Config(), method)
+    if method == "gs":
+        cfg.strategy.densify_scale_threshold = DENSIFY_GS_SCALE
+    gt = np.zeros((MAIN_RES[1], MAIN_RES[0], 3), np.float32)
+    leg = f"densify {method} (3DGUT)"
+    base = phase_start()
+    tr, view = train_setup(fields, MAIN_RES, MAIN_CAP, gt, dev, cfg=cfg)
+    dead = kill_share(tr.params, n)
+    tr.strategy = make_strategy(tr.cfg, cap, dev)
+
+    def set_threshold(k, tr):
+        if method == "gs" and k == 0:
+            avg = gs.grad_average(tr.strategy.state)[tr.params.alive]
+            thr = float(torch.topk(avg, DENSIFY_GS_SOURCES).values[-1])
+            tr.strategy.cfg.densify_grad_threshold = thr
+            print(f"{leg}: densify_grad_threshold after step 1 = {thr!r} "
+                  f"(the {DENSIFY_GS_SOURCES}-th largest average gradient "
+                  f"of the alive particles)", flush=True)
+
+    rows, launches, aux = densified_run(
+        tr, view, leg, lambda s: (s.get("tile_raster_fwd") == 1
+                                  and s.get("tile_raster_bwd") == 1),
+        tag, set_threshold)
+    peak = phase_peak_gib(base)
+    for kname in cuda_build.kernels_of("gut"):
+        if launches.get(kname, 0) <= 0:
+            fail(f"kernel {kname} was not launched on {leg}")
+    rec = leg_record(leg, n, cap, dead, rows, peak, launches, method)
+    if min(rec["totals"].values()) <= 0 or (
+            rec["alive"][-1] <= n if method == "gs"
+            else rec["alive"][3] != DENSIFY_MCMC_MAX):
+        fail(f"{leg}: {rec['totals']}, alive {rec['alive']}")
+    print(f"{leg}: {json.dumps(rec)} {tag}", flush=True)
+    rec["op_ms"] = strategy_op_ms(tr, view, aux, tag)
+    rec["profile"] = strategy_profile(tr, view, leg, tag)
+    return rec
+
+
+def densify_grt_leg(dev, tag):
+    """Phase 6b (c): preset_mcmc(preset_3dgrt()) (the reference's
+    colmap_3dgrt_mcmc app) on bench_grt's 100k scene in DENSIFY_GRT_CAP
+    slots, 5% dead, the 3DGRT trainer's view, DENSIFY_STEPS steps on the
+    compressed schedule. Fails unless every step launched B7, B8 and B6
+    once and nothing else, and MCMC relocated, added and filled the
+    capacity by step 6."""
+    from threedgrut_torch.config import preset_3dgrt, preset_mcmc
+    from threedgrut_torch.ops import cuda_build
+    from threedgrut_torch.trainer import Trainer
+    cfg = GRT_CONFIGS[0]
+    cfg3 = densify_config(preset_mcmc(preset_3dgrt()), "mcmc")
+    cfg3.render.isect_capacity = GRT_TRAIN_ISECT
+    cfg3.model.progressive_sh_interval = 0
+    leg = "densify mcmc (3DGRT)"
+    base = phase_start()
+    params, _, _ = grt_bench_scene(cfg["n"], cfg["scales"], dev,
+                                   capacity=DENSIFY_GRT_CAP)
+    dead = kill_share(params, cfg["n"])
+    view = grt_train_view(dev)
+    tr = Trainer(cfg3, OneView(view, 4.0), params=params,
+                 strategy=make_strategy(cfg3, DENSIFY_GRT_CAP, dev),
+                 device=dev)
+    want = {n: 1 for n in cuda_build.kernels_of("grt")}
+    rows, launches, _ = densified_run(tr, view, leg, lambda s: s == want,
+                                      tag)
+    peak = phase_peak_gib(base)
+    rec = leg_record(leg, cfg["n"], DENSIFY_GRT_CAP, dead, rows, peak,
+                     launches, "mcmc")
+    if min(rec["totals"].values()) <= 0 \
+            or rec["alive"][-1] != DENSIFY_GRT_CAP:
+        fail(f"{leg}: {rec['totals']}, alive {rec['alive']}")
+    print(f"{leg}: {json.dumps(rec)} {tag}", flush=True)
+    return rec
+
+
+def strategy_card_vs_cpu(pc, dev, seed=0):
+    """Each strategy operation (densify, prune, relocate, add_gaussians,
+    perturb, reset_density, accumulate) on the card and on the CPU from the
+    same state (the CPU's result of the operation before it, copied to the
+    card) with the same draws (made on the CPU from a seeded generator and
+    copied to the card). pc: Gaussians on the CPU (not changed). Returns
+    {operation: report}: `exact` (alive, the densify masks, taken slots and
+    sources, the counts and grad_denom equal), `max_abs_diff` of every float
+    (parameters, moments, state) and `within` (each float within
+    STRATEGY_ATOL + STRATEGY_RTOL |cpu|)."""
+    from threedgrut_torch.model.gaussians import FIELDS
+    from threedgrut_torch.optimizers import (PARAM_FIELDS, OptimizerConfig,
+                                             positions_lr_schedule,
+                                             state_from_numpy)
+    from threedgrut_torch.strategy import gs, mcmc
+    c = pc.capacity
+    rng = np.random.default_rng(seed)
+    g = torch.Generator().manual_seed(seed)
+    m, v = ({f: rng.normal(size=tuple(getattr(pc, f).shape)).astype(
+        np.float32) for f in PARAM_FIELDS} for _ in range(2))
+    opt = state_from_numpy(m, {f: np.abs(x) for f, x in v.items()}, 5,
+                           "cpu")
+    state = gs.GSState(
+        grad_accum=torch.tensor(rng.exponential(1e-4, c).astype(np.float32)),
+        grad_denom=torch.tensor(rng.integers(0, 5, c).astype(np.int32)),
+        rolling_vis=torch.tensor(rng.uniform(0.2, 1.0, c).astype(
+            np.float32)))
+    p = copy_gaussians(pc, "cpu")
+    binoms = {"cpu": mcmc.binom_table(51, "cpu"),
+              str(dev): mcmc.binom_table(51, dev)}
+    extent, thr, sthr = 4.0, 0.005, 0.0075
+    gthr = float(np.quantile(gs.grad_average(state)[p.alive].numpy(), 0.9))
+    pos_lr = positions_lr_schedule(OptimizerConfig(), extent, 100)
+
+    def densify(p, o, s, d, draws):
+        cl, sp = gs.densify_masks(p, s, extent, gthr, sthr)
+        take, src = gs._assign_free_slots(cl | sp, ~p.alive)
+        o, s, counts = gs.densify(p, o, s, *draws, extent, gthr, sthr, 1.6)
+        return o, s, dict(clone_mask=cl, split_mask=sp, take=take,
+                          src=torch.where(take, src, -1), **counts)
+
+    def prune(p, o, s, d, draws):
+        return o, s, dict(gone=gs.prune(p, thr))
+
+    def relocate(p, o, s, d, draws):
+        o, n = mcmc.relocate(p, o, draws[0], thr, binoms[str(d)])
+        return o, s, dict(n=n)
+
+    def add(p, o, s, d, draws):
+        o, n = mcmc.add_gaussians(p, o, draws[0], thr, binoms[str(d)],
+                                  int(0.05 * int(p.num_active())))
+        return o, s, dict(n=n)
+
+    def perturb(p, o, s, d, draws):
+        mcmc.perturb(p, draws[0], pos_lr, 5e5)
+        return o, s, {}
+
+    def reset(p, o, s, d, draws):
+        gs.reset_density(p, 0.01)
+        return o, s, {}
+
+    def accumulate(p, o, s, d, draws):
+        return o, gs.accumulate(s, p, *draws, 0.9), {}
+
+    def sources(p):
+        return [mcmc._sample_sources(g, mcmc.source_probs(p, thr), c)]
+
+    def grads(p):
+        norm = torch.tensor(rng.exponential(1e-4, c).astype(np.float32))
+        norm[torch.tensor(rng.uniform(size=c) < 0.3)] = 0.0
+        return [norm, torch.tensor([0.0, -4.0, 1.0]),
+                torch.tensor(rng.uniform(size=c) < 0.5)]
+
+    # (name, function, draws, whether the chain goes on from its result:
+    # not from prune's, so that relocate still finds the dead particles).
+    ops = [("densify", densify,
+            lambda p: [torch.randn((c, 3), generator=g) for _ in range(2)],
+            True),
+           ("prune", prune, lambda p: [], False),
+           ("relocate", relocate, sources, True),
+           ("add_gaussians", add, sources, True),
+           ("perturb", perturb,
+            lambda p: [torch.randn((c, 3), generator=g)], True),
+           ("reset_density", reset, lambda p: [], True),
+           ("accumulate", accumulate, grads, True)]
+    report = {}
+    for name, fn, draw, carry in ops:
+        draws = draw(p)
+        before = (copy_gaussians(p, "cpu"), opt, state)
+        pd = copy_gaussians(p, dev)
+        od = opt._replace(
+            exp_avg={k: x.to(dev) for k, x in opt.exp_avg.items()},
+            exp_avg_sq={k: x.to(dev) for k, x in opt.exp_avg_sq.items()})
+        sd = gs.GSState(*(x.to(dev) for x in dataclasses.astuple(state)))
+        od, sd, ints_d = fn(pd, od, sd, dev, [x.to(dev) for x in draws])
+        opt, state, ints_c = fn(p, opt, state, torch.device("cpu"), draws)
+        ints = [(pd.alive, p.alive), (sd.grad_denom, state.grad_denom)] + [
+            (ints_d[k], ints_c[k]) for k in ints_c]
+        floats = ([(getattr(pd, f), getattr(p, f)) for f in FIELDS[:-1]]
+                  + [(od.exp_avg[f], opt.exp_avg[f]) for f in PARAM_FIELDS]
+                  + [(od.exp_avg_sq[f], opt.exp_avg_sq[f])
+                     for f in PARAM_FIELDS]
+                  + [(sd.grad_accum, state.grad_accum),
+                     (sd.rolling_vis, state.rolling_vis)])
+        diffs = [((a.detach().cpu() - b.detach()).abs(), b.detach().abs())
+                 for a, b in floats]
+        report[name] = dict(
+            exact=all(torch.equal(a.cpu(), b) for a, b in ints),
+            max_abs_diff=max(float(d.max()) for d, _ in diffs),
+            within=all(bool((d <= STRATEGY_ATOL + STRATEGY_RTOL * b).all())
+                       for d, b in diffs),
+            counts={k: int(x.sum()) for k, x in ints_c.items()
+                    if k != "src"})
+        if not carry:
+            p, opt, state = before
+    return report
+
+
+def densification(dev, tag):
+    """Phase 6b: the trainer's densification. (d) every strategy operation
+    card vs CPU at bench_grt's 100k scene; (a) GS and (b) MCMC on the
+    default 3DGUT step at full width; (c) MCMC on the 3DGRT train step;
+    (e) the strategy operations' times and a profiled densified step of
+    (a) and (b). Returns the legs' records."""
+    t0 = time.time()
+    cfg = GRT_CONFIGS[0]
+    pc, _, _ = grt_bench_scene(cfg["n"], cfg["scales"], "cpu",
+                               capacity=DENSIFY_GRT_CAP)
+    kill_share(pc, cfg["n"])
+    report = strategy_card_vs_cpu(pc, dev)
+    print(f"strategy operations card vs CPU ({cfg['n']} particles in "
+          f"{DENSIFY_GRT_CAP} slots; floats within {STRATEGY_ATOL} + "
+          f"{STRATEGY_RTOL} |cpu|): {json.dumps(report)} {tag}", flush=True)
+    bad = [op for op, r in report.items() if not (r["exact"]
+                                                  and r["within"])]
+    if bad:
+        fail(f"strategy operations {bad} on the card disagree with the CPU")
+    del pc
+    recs = [densify_gut_leg(dev, tag, "gs"), densify_gut_leg(dev, tag, "mcmc"),
+            densify_grt_leg(dev, tag)]
+    print(f"phase 6b (densification) wall {time.time() - t0:.1f} s",
+          flush=True)
+    return recs
 
 
 def orbit_T(k: int) -> np.ndarray:
@@ -2197,6 +2661,9 @@ def main() -> int:
         option_runs[mode] = (tr_m, view_m, launches_m, passes, rowterm)
         train_rec[mode] = rec_m
 
+    # ---- 6b. densification: the trainer's strategies ----------------------
+    densify_recs = densification(dev, tag)
+
     # ---- 7. 3DGRT main path: bench_grt's configurations ------------------
     grt_launches, (gp, g_o, g_d, g_inp) = grt_main_path(dev, tag)
     flat_launches, _ = grt_main_path(dev, tag, flat=True)
@@ -2350,6 +2817,22 @@ def main() -> int:
            fbbreak["device_busy_ms"], flbreak["device_busy_ms"]) <= 0.0:
         fail("the profiler recorded no device time")
 
+    # The densified steps' launches of each kernel, by leg: the default
+    # legs of B1 and B2 (none of their sorted or row-terminated legs), B6
+    # at 16 channels on the 3DGUT legs and at 64 on the 3DGRT one.
+    for r in records:
+        base, _, option = r["name"].partition("[")
+        r["launches_densify"] = {
+            d["leg"]: (0 if option and not r.get("channels")
+                       else d["launches"].get(base, 0))
+            for d in densify_recs
+            if r.get("channels") != (16 if "3DGRT" in d["leg"] else 64)}
+    for d in densify_recs:
+        print(f"{d['leg']}: alive {d['alive']}, {d['totals']}, step ms "
+              f"before growth {d['step_ms_before']:.3f}, after "
+              f"{d['step_ms_after']:.3f}, max_memory_allocated "
+              f"{d['peak_gib']:.3f} GiB, strategy ops ms "
+              f"{json.dumps(d.get('op_ms'))} {tag}", flush=True)
     for r in records:
         print(f"kernel {r['name']}: {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "

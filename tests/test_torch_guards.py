@@ -92,3 +92,16 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
                   np.ones((256, 3), np.float32))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         api.load_scene(str(ROOT / "missing.npz"))
+
+
+def test_strategies_refuse_a_missing_card(monkeypatch):
+    """The densification strategies keep their state on the card by
+    default; with none present they raise instead of using the CPU."""
+    from threedgrut_torch.config import Config
+    from threedgrut_torch.strategy import gs, mcmc
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Config()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gs.GSStrategy(cfg.strategy, 16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mcmc.MCMCStrategy(cfg.strategy, cfg.optimizer, 16)

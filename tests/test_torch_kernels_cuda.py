@@ -1199,3 +1199,77 @@ def test_flat_cull_legs_card_match_cpu(dev):
                                      golden.TRACE_FLIP_SHARE)
         print(f"flat cull {leg} card vs CPU: {rep}")
         assert ok, (leg, rep)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_strategy_ops_card_match_cpu(dev, seed):
+    """Every densification operation (densify, prune, relocate,
+    add_gaussians, perturb, reset_density, accumulate) on the card against
+    the CPU from the same state and draws: chip_smoke phase 6b (d) at 20k
+    particles in 24,576 slots. Masks, taken slots, sources, counts and
+    grad_denom exact; floats within chip_smoke's STRATEGY_ATOL +
+    STRATEGY_RTOL |cpu|."""
+    import chip_smoke
+    pc, _, _ = chip_smoke.grt_bench_scene(20_000, (0.01, 0.05), "cpu",
+                                          side=16, capacity=24_576)
+    chip_smoke.kill_share(pc, 20_000, seed)
+    rep = chip_smoke.strategy_card_vs_cpu(pc, dev, seed)
+    for op, r in rep.items():
+        assert r["exact"] and r["within"], (op, r)
+    assert rep["densify"]["counts"]["take"] > 0
+    assert rep["densify"]["counts"]["clone"] > 0
+    assert rep["densify"]["counts"]["split"] > 0
+    assert rep["relocate"]["counts"]["n"] >= 1000   # clones of the dead too
+    assert rep["add_gaussians"]["counts"]["n"] > 0
+
+
+@pytest.mark.parametrize("method", ["gs", "mcmc"])
+def test_trainer_densifies_on_the_card(dev, method):
+    """A Trainer with GSStrategy or MCMCStrategy on the card at 20k
+    particles in 24,576 slots, 5% dead: 6 steps on chip_smoke's compressed
+    schedule (events at steps 2, 4 and 6; GS with the gradient threshold at
+    the 1000th largest average after step 1 and chip_smoke's scale
+    threshold). Every step launches B1 and B2 once, every value stays
+    finite, and the scene densifies: GS clones, splits, prunes the dead
+    share and grows; MCMC relocates the dead share and grows by 5%."""
+    import chip_smoke
+    from threedgrut_torch.config import Config
+    from threedgrut_torch.datasets.protocols import View
+    from threedgrut_torch.model.gaussians import FIELDS, padded_fields
+    from threedgrut_torch.strategy import gs
+    from threedgrut_torch.trainer import Trainer
+    n, cap, res = 20_000, 24_576, (256, 192)
+    f = bench_scene(n, seed=2)
+    fields = padded_fields(*(f[k][:n] for k in FIELDS[:-1]), capacity=cap)
+    cfg = chip_smoke.densify_config(Config(), method)
+    cfg.render.isect_capacity = 1 << 18
+    cfg.model.progressive_sh_interval = 0
+    cfg.strategy.densify_scale_threshold = chip_smoke.DENSIFY_GS_SCALE
+    T = look_at(np.array([0.3, -4.0, 1.0], np.float32),
+                np.zeros(3, np.float32), np.array([0, 0, 1.0], np.float32))
+    view = View(T_to_world=T, camera=example_camera(res, dev),
+                resolution=res, rgb_gt=np.zeros((res[1], res[0], 3),
+                                                np.float32))
+    tr = Trainer(cfg, chip_smoke.OneView(view, 4.0),
+                 params=from_numpy(fields, device=dev), device=dev)
+    dead = chip_smoke.kill_share(tr.params, n)
+    tr.strategy = chip_smoke.make_strategy(tr.cfg, cap, dev)
+
+    def set_threshold(k, tr):
+        if k == 0 and method == "gs":
+            avg = gs.grad_average(tr.strategy.state)[tr.params.alive]
+            tr.strategy.cfg.densify_grad_threshold = float(
+                torch.topk(avg, 1000).values[-1])
+
+    rows, launches, _ = chip_smoke.densified_run(
+        tr, view, f"densify {method}",
+        lambda s: (s.get("tile_raster_fwd") == 1
+                   and s.get("tile_raster_bwd") == 1), "[test]",
+        set_threshold)
+    alive = [r["alive"] for r in rows]
+    if method == "gs":
+        assert rows[1]["prune"] >= dead and rows[1]["clone"] > 0
+        assert rows[1]["split"] > 0 and alive[-1] > n
+    else:
+        assert rows[1]["relocate"] == dead
+        assert alive[1] == int(1.05 * n) and alive[-1] > alive[1]

@@ -2,17 +2,21 @@
 (render -> background -> 0.8 L1 + 0.2 DSSIM -> backward -> Adam or
 SelectiveAdam) and the eval step, each through the 3DGUT rasterizer or,
 with render.method = 3dgrt, the 3DGRT trace; progressive SH, capacity
-growth on overflow, and checkpoints in the JAX package's .npz format.
+growth on overflow, densification through a strategy's hooks
+(strategy/gs.py, strategy/mcmc.py), and checkpoints in the JAX package's
+.npz format.
 
 PyTorch runs eagerly, so a step is a sequence of calls rather than one
 compiled program; each phase runs under a `torch.profiler.record_function`
 label ("train.forward", "train.loss", "train.backward", "train.adam").
 Random draws (the random background, ray jitter) come from the trainer's
-torch.Generator, seeded with cfg.train.seed; they are not the JAX package's
-numbers.
+torch.Generator, seeded with cfg.train.seed, as do the strategies' (split
+offsets, relocation and growth sources, position noise); they are not the
+JAX package's numbers.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import time
@@ -166,15 +170,20 @@ def step_fn(params: Gaussians, opt_state: optimizers.AdamState, T_to_world,
 
 
 class Trainer:
-    """Single-card trainer. Densification strategies are not ported yet
-    (ROADMAP queue A item 2)."""
+    """Single-card trainer. `strategy` (strategy/gs.GSStrategy,
+    strategy/mcmc.MCMCStrategy or None) densifies the scene after each
+    step, as the JAX package's Trainer does: post_backward, then
+    post_optimizer_step, after the overflow handling. Its state must live
+    on the trainer's device."""
 
     def __init__(self, cfg: Config, dataset, val_dataset=None,
-                 params: Optional[Gaussians] = None, device="cuda"):
+                 params: Optional[Gaussians] = None, strategy=None,
+                 device="cuda"):
         self.cfg = cfg
         self.device = resolve(device)
         self.dataset = dataset
         self.val_dataset = val_dataset
+        self.strategy = strategy
         self.scene_extent = float(dataset.scene_extent)
         self.global_step = 0
         self.params = params
@@ -242,6 +251,9 @@ class Trainer:
             # The step just run also used the old capacity; its flag
             # reports the shortage already answered.
             self._pending_overflow = None
+        if self.strategy is not None:
+            self.strategy.post_backward(self, view, aux)
+            self.strategy.post_optimizer_step(self, view, aux)
         return aux
 
     def eval_view(self, view) -> Dict[str, Any]:
@@ -320,6 +332,12 @@ class Trainer:
         flat["global_step"] = np.int64(self.global_step)
         flat["scene_extent"] = np.float64(self.scene_extent)
         flat["isect_capacity"] = np.int64(self.isect_capacity)
+        # Densification buffers travel with the checkpoint.
+        strat_state = getattr(self.strategy, "state", None)
+        if strat_state is not None and dataclasses.is_dataclass(strat_state):
+            for f in dataclasses.fields(strat_state):
+                flat[f"strategy/{f.name}"] = getattr(
+                    strat_state, f.name).cpu().numpy()
         # Atomic: a process killed mid-save never leaves a truncated file.
         tmp = path + ".tmp"
         with open(tmp, "wb") as fh:
@@ -331,9 +349,11 @@ class Trainer:
 
     @classmethod
     def load_checkpoint(cls, path: str, dataset, val_dataset=None,
-                        device="cuda") -> "Trainer":
+                        device="cuda", strategy=None) -> "Trainer":
         """Resume from a checkpoint written by this class or by the JAX
-        package's Trainer (same keys; its .json config beside it)."""
+        package's Trainer (same keys; its .json config beside it). The
+        `strategy/<field>` keys, where present, restore `strategy`'s state
+        on the device its state already lives on."""
         with open(path.replace(".npz", ".json")) as fh:
             cfg = from_dict(json.load(fh))
         dev = resolve(device)
@@ -341,7 +361,7 @@ class Trainer:
             params = from_numpy({f: data[f"params/{f}"] for f in FIELDS},
                                 dev)
             trainer = cls(cfg, dataset, val_dataset, params=params,
-                          device=dev)
+                          strategy=strategy, device=dev)
             trainer.opt_state = optimizers.state_from_numpy(
                 {f: data[f"m/{f}"] for f in optimizers.PARAM_FIELDS},
                 {f: data[f"v/{f}"] for f in optimizers.PARAM_FIELDS},
@@ -350,4 +370,16 @@ class Trainer:
             trainer.scene_extent = float(data["scene_extent"])
             if "isect_capacity" in data:
                 trainer.isect_capacity = int(data["isect_capacity"])
+            strat_state = getattr(strategy, "state", None)
+            if strat_state is not None \
+                    and dataclasses.is_dataclass(strat_state):
+                restored = {
+                    f.name: torch.tensor(
+                        data[f"strategy/{f.name}"],
+                        device=getattr(strat_state, f.name).device)
+                    for f in dataclasses.fields(strat_state)
+                    if f"strategy/{f.name}" in data}
+                if restored:
+                    strategy.state = dataclasses.replace(strat_state,
+                                                         **restored)
         return trainer
