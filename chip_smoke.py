@@ -59,6 +59,26 @@ Phases, each of which fails the run on a miss:
      B6, once a step), each leg's peak memory; (e) each strategy
      operation timed with CUDA events at (a)'s and (b)'s sizes and one
      profiled densified step of each ("strategy.*" spans);
+  6c. data, entry points and eval: scenes written at the start into a
+     temporary directory (bench.py's 1M scene as the ground truth, the
+     port's own renders as frames), then driven through the port's entry
+     points (`threedgrut_torch.train`, `threedgrut_torch.render`): (a)
+     nerf_synthetic_3dgut on a lego-shaped NeRF scene (24/8 views of
+     800x800 RGBA, lego's camera_angle_x, 100,000 random particles, 200
+     steps, GS on a compressed schedule), the render entry on its test
+     split, and a resume from its step-100 checkpoint that restores the
+     strategy and densifies again (C11); (b) colmap_3dgut_mcmc on a Mip-
+     NeRF 360-shaped COLMAP scene (one OPENCV camera at 4948x3288, 32
+     images in images_4/ at 1237x822, 100,000 points), 100 steps with MCMC
+     events, and one of its train steps card vs CPU; (c)
+     nerf_synthetic_3dgrt on (a)'s files, 20 steps, and the render entry
+     with the 3DGRT eval overrides; (d) the multi-sensor MCMC acceptance
+     run (800x800, 12 views, 100 steps), the render entry rebuilding the
+     scene from the checkpoint, and a fisheye rolling-shutter train step
+     card vs CPU. Per leg: the artifacts, alive particles, step and data
+     ms (first epoch and later), decode ms and the decoder, validation and
+     test PSNR/SSIM, mean_render_s, peak memory and launches (every kernel
+     of the renderer at least once a train step);
   7. 3DGRT main path: api.trace at tools/bench_grt.py's inference
      configuration (100k Gaussians, 512x512 rays, 16 re-sort passes), 6
      traces, then at its 1M capacities, 3 traces; overflow, launch counts,
@@ -1478,13 +1498,6 @@ def kill_share(params, n, seed=0):
     return len(idx)
 
 
-def make_strategy(cfg, capacity, dev):
-    from threedgrut_torch.strategy import gs, mcmc
-    if cfg.strategy.method == "gs":
-        return gs.GSStrategy(cfg.strategy, capacity, dev)
-    return mcmc.MCMCStrategy(cfg.strategy, cfg.optimizer, capacity, dev)
-
-
 def copy_gaussians(p, dev):
     from threedgrut_torch.model.gaussians import FIELDS, Gaussians
     return Gaussians(**{f: getattr(p, f).detach().to(dev, copy=True)
@@ -1635,6 +1648,7 @@ def densify_gut_leg(dev, tag, method):
                                                   padded_fields)
     from threedgrut_torch.ops import cuda_build
     from threedgrut_torch.strategy import gs
+    from threedgrut_torch.train import make_strategy
     n, cap = ((MAIN_N, DENSIFY_GS_CAP) if method == "gs"
               else (DENSIFY_MCMC_N, DENSIFY_MCMC_CAP))
     f = bench_scene(n, seed=0)
@@ -1686,6 +1700,7 @@ def densify_grt_leg(dev, tag):
     capacity by step 6."""
     from threedgrut_torch.config import preset_3dgrt, preset_mcmc
     from threedgrut_torch.ops import cuda_build
+    from threedgrut_torch.train import make_strategy
     from threedgrut_torch.trainer import Trainer
     cfg = GRT_CONFIGS[0]
     cfg3 = densify_config(preset_mcmc(preset_3dgrt()), "mcmc")
@@ -1855,6 +1870,512 @@ def densification(dev, tag):
             densify_grt_leg(dev, tag)]
     print(f"phase 6b (densification) wall {time.time() - t0:.1f} s",
           flush=True)
+    return recs
+
+
+# ---- phase 6c: data, entry points and eval ------------------------------
+
+# The scenes' sizes (the entry points' widths are the presets'; depth is
+# cut: views and iterations). (a) NeRF-synthetic as lego is laid out:
+# transforms_{train,test}.json, 800x800 RGBA PNGs, lego's camera_angle_x.
+DATA_GT_N = 1_000_000
+NERF_RES = 800
+NERF_ANGLE_X = 0.6911112
+NERF_VIEWS = (24, 8)
+NERF_ITERS = 200
+# (b) a Mip-NeRF 360-shaped COLMAP scene: one OPENCV camera at 4948x3288
+# (small k1, k2, p1, p2), its images_4/ at 1237x822, every 8th image in
+# the validation split, points3D drawn from the ground-truth scene.
+COLMAP_SIZE = (4948, 3288)
+COLMAP_PARAMS = (3300.0, 3300.0, 2474.0, 1644.0, 0.012, -0.0025, 0.0004,
+                 -0.0003)
+COLMAP_DOWN = 4
+COLMAP_IMAGES = 32
+COLMAP_POINTS = 100_000
+COLMAP_ITERS = 100
+# (c) the 3DGRT preset on (a)'s files; (d) the multi-sensor rig.
+GRT_ENTRY_ITERS = 20
+MS_RES = 800
+MS_VIEWS = 12
+MS_ITERS = 100
+
+
+def nerf_schedule(iters):
+    """(a)'s GS schedule, compressed into `iters` steps (200: densify at 50,
+    100 and 150, a density reset at 150; validation at 100 and 200; a
+    checkpoint at 100; a resume of 60 steps from it)."""
+    q = iters // 4
+    return dict(start=q, freq=q, end=iters, reset=3 * q, val=2 * q,
+                ckpt=2 * q, resume=int(0.3 * iters))
+
+
+def gt_scene(dev):
+    """The ground-truth scene of (a) and (b): bench.py's seeded 1M."""
+    from threedgrut_torch.model.gaussians import bench_scene, from_numpy
+    f = bench_scene(DATA_GT_N, seed=0, specular_std=0.1)
+    return f, from_numpy(f, device=dev)
+
+
+def render_frame(params, cam, T, res, dev, caps):
+    """(rgb, opacity) numpy of one frame of the ground-truth scene; caps[0]
+    is the capacity to start from, kept grown for the next frame."""
+    from threedgrut_torch import api
+    with torch.no_grad():
+        out, caps[0] = render_retry(api, params, cam, T, res, caps[0], dev)
+    return (out.rgb.clamp(0.0, 1.0).cpu().numpy(),
+            out.opacity.cpu().numpy())
+
+
+def sphere_poses(n, radius, seed, z_range=(0.6, 2.2)):
+    """n camera-to-world (right-down-front) poses on a ring of the given
+    radius around the origin, looking at it, heights drawn from `seed`."""
+    from threedgrut_torch.cameras import look_at
+    rng = np.random.default_rng(seed)
+    out = []
+    for k in range(n):
+        a = 2.0 * math.pi * (k + rng.uniform(0.0, 0.5)) / n
+        eye = np.array([radius * math.cos(a), radius * math.sin(a),
+                        rng.uniform(*z_range)], np.float32)
+        out.append(look_at(eye, np.zeros(3, np.float32),
+                           np.array([0.0, 0.0, 1.0], np.float32)))
+    return out
+
+
+def save_png(path, img) -> None:
+    from PIL import Image
+    Image.fromarray((np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(
+        np.uint8)).save(path, compress_level=1)
+
+
+def write_nerf_scene(root, params, dev):
+    """(a)'s scene on disk: frames of the ground-truth scene as straight-
+    alpha RGBA (colour = rgb / opacity, alpha = opacity), poses in the
+    right-up-back convention. Returns its wall seconds."""
+    from threedgrut_torch.cameras import PinholeCamera
+    t0 = time.time()
+    f = 0.5 * NERF_RES / math.tan(0.5 * NERF_ANGLE_X)
+    cam = PinholeCamera(*(torch.tensor(x, dtype=torch.float32, device=dev)
+                          for x in ([f, f], [NERF_RES / 2] * 2, [0.0] * 6,
+                                    [0.0] * 2, [0.0] * 4)))
+    res, caps = (NERF_RES, NERF_RES), [MAIN_CAP]
+    for split, n, seed in (("train", NERF_VIEWS[0], 1),
+                           ("test", NERF_VIEWS[1], 2)):
+        (root / split).mkdir(parents=True)
+        frames = []
+        for k, T in enumerate(sphere_poses(n, 4.0, seed)):
+            rgb, op = render_frame(params, cam, T, res, dev, caps)
+            color = np.where(op[..., None] > 1e-6,
+                             rgb / np.maximum(op[..., None], 1e-6), 0.0)
+            save_png(root / split / f"r_{k}.png",
+                     np.concatenate([color, op[..., None]], -1))
+            rub = T.astype(np.float64).copy()
+            rub[:3, 1:3] *= -1.0
+            frames.append({"file_path": f"./{split}/r_{k}",
+                           "transform_matrix": rub.tolist()})
+        (root / f"transforms_{split}.json").write_text(json.dumps(
+            {"camera_angle_x": NERF_ANGLE_X, "frames": frames}))
+    return time.time() - t0
+
+
+def write_colmap_scene(root, fields, params, dev):
+    """(b)'s scene on disk: sparse/0 (cameras.bin with the OPENCV camera,
+    images.bin, points3D.bin of COLMAP_POINTS particles of the ground-truth
+    scene with their SH base colours) and images_4/ rendered through the
+    loader's own camera model of that camera at 1/4. Returns its wall
+    seconds."""
+    from threedgrut_torch.cameras import matrix_to_quat
+    from threedgrut_torch.constants import SH_C0
+    from threedgrut_torch.datasets import colmap
+    from threedgrut_torch.datasets.dataset_colmap import _camera_to_model
+    from threedgrut_torch.device import tuple_to
+    t0 = time.time()
+    sparse, images_dir = root / "sparse" / "0", root / f"images_{COLMAP_DOWN}"
+    sparse.mkdir(parents=True)
+    images_dir.mkdir()
+    ccam = colmap.ColmapCamera("OPENCV", *COLMAP_SIZE,
+                               np.array(COLMAP_PARAMS, np.float64))
+    cam = tuple_to(_camera_to_model(ccam, COLMAP_DOWN), dev)
+    res = tuple(-(-s // COLMAP_DOWN) for s in COLMAP_SIZE)
+    images, caps = {}, [MAIN_CAP]
+    for k, T in enumerate(sphere_poses(COLMAP_IMAGES, 4.5, 3)):
+        R = T[:3, :3].T
+        q = matrix_to_quat(torch.tensor(R)).numpy().astype(np.float64)
+        name = f"frame_{k:04d}.png"
+        images[k + 1] = colmap.ColmapImage(
+            q, (-R @ T[:3, 3]).astype(np.float64), 1, name)
+        save_png(images_dir / name, render_frame(params, cam, T, res, dev,
+                                                 caps)[0])
+    pick = np.random.default_rng(4).choice(DATA_GT_N, COLMAP_POINTS,
+                                           replace=False)
+    colmap.write_cameras_bin(str(sparse / "cameras.bin"), {1: ccam})
+    colmap.write_images_bin(str(sparse / "images.bin"), images)
+    colmap.write_points3d_bin(
+        str(sparse / "points3D.bin"), fields["positions"][pick],
+        np.clip(fields["features_albedo"][pick] * SH_C0 + 0.5, 0.0, 1.0))
+    return time.time() - t0
+
+
+def run_leg(leg, argv, iters, kernels, tag):
+    """threedgrut_torch.train.run(argv) with the launch counts set to 0
+    just before and read just after. Fails unless every train step
+    launched the forward kernels of `kernels` at least once and each
+    backward kernel (B5 and B6 together on the 3DGUT path, whose fused
+    backward takes one of them) exactly once. Returns (trainer, test
+    summary, launches, record)."""
+    from threedgrut_torch import train as train_entry
+    from threedgrut_torch.ops import cuda_build
+    base = phase_start()
+    cuda_build.launches.clear()
+    t0 = time.time()
+    tr, summary = train_entry.run(argv)
+    wall = time.time() - t0
+    launches = dict(cuda_build.launches)
+    peak = phase_peak_gib(base)
+    steps = [s for s in tr.step_times if s["step"] > tr.global_step - iters]
+    if len(steps) != iters:
+        fail(f"{leg}: {len(steps)} train steps recorded, not {iters}")
+    b56 = ("segment_sum_rows", "segment_sum_rows_by_ids")
+    gut_path = "tile_raster_fwd" in kernels
+    bad = {}
+    for k in kernels:
+        if gut_path and k in b56:
+            continue
+        n = launches.get(k, 0)
+        if n < iters or (cuda_build.KERNELS[k][2] == "backward"
+                         and n != iters):
+            bad[k] = n
+    if gut_path and sum(launches.get(k, 0) for k in b56) != iters:
+        bad["B5 + B6"] = [launches.get(k, 0) for k in b56]
+    if bad:
+        fail(f"{leg}: in {iters} train steps {bad} (launches {launches})")
+    n_views = len(tr.dataset)
+    first = [s["data_ms"] for s in steps[:n_views]]
+    later = [s["data_ms"] for s in steps[n_views:]]
+    rec = dict(leg=leg, wall_s=wall, steps=iters, views=n_views,
+               alive_after=int(tr.params.num_active()),
+               capacity=tr.params.capacity,
+               isect_capacity=tr.isect_capacity,
+               step_ms_median_after_first_epoch=float(np.median(
+                   [s["step_ms"] for s in steps[n_views:]] or
+                   [s["step_ms"] for s in steps])),
+               data_ms_first_epoch=float(np.mean(first)),
+               data_ms_later=float(np.mean(later)) if later else None,
+               events={s["step"]: s["events"] for s in steps
+                       if "events" in s},
+               test=summary, peak_gib=peak, launches=launches)
+    return tr, summary, launches, rec
+
+
+def check_run_dir(leg, run, ckpts, train_log_steps, val_steps, n_test):
+    """The train entry's artifacts in `run`: each checkpoint's .npz and
+    .json, metrics.jsonl with the train scalars at `train_log_steps` and
+    the validation ones at `val_steps`, TensorBoard events where
+    tensorboard imports, and test_renders/ with one pred_*.png per test
+    view and the best and worst pairs."""
+    missing = [f"{c}.{e}" for c in ckpts for e in ("npz", "json")
+               if not (run / f"{c}.{e}").exists()]
+    rows = [json.loads(ln) for ln in (run / "metrics.jsonl").read_text()
+            .splitlines()]
+    tags = {(r["step"], k) for r in rows for k in r if k not in ("t",
+                                                                 "step")}
+    missing += [f"metrics {t}@{s}" for s in train_log_steps
+                for t in ("train/psnr", "train/time_step_ms",
+                          "train/time_data_ms")
+                if (s, t) not in tags]
+    missing += [f"metrics val/psnr@{s}" for s in val_steps
+                if (s, "val/psnr") not in tags]
+    preds = sorted(p.name for p in (run / "test_renders").glob("pred_*"))
+    if len(preds) != n_test:
+        missing.append(f"{n_test} test preds (found {len(preds)})")
+    for tagname in ("best", "worst"):
+        if not list((run / "test_renders").glob(f"{tagname}_psnr_*")):
+            missing.append(f"{tagname} images")
+    try:
+        import torch.utils.tensorboard  # noqa: F401
+        tb = True
+    except ImportError:
+        tb = False
+    events = list(run.glob("events.out.tfevents*"))
+    if tb and not events:
+        missing.append("tensorboard events")
+    if missing:
+        fail(f"{leg}: missing artifacts {missing}")
+    return dict(checkpoints=ckpts, metrics_lines=len(rows),
+                tensorboard_events=len(events), test_preds=len(preds))
+
+
+def render_leg(leg, ckpt, out_dir, dev, kernels, n_views):
+    """threedgrut_torch.render's entry on a checkpoint (the test split),
+    its launches read around it. Fails unless it rendered every view with
+    the forward kernels, wrote one pred_*.png per view, and no view
+    overflowed."""
+    from threedgrut_torch.ops import cuda_build
+    from threedgrut_torch.render import __main__ as render_entry
+    cuda_build.launches.clear()
+    summary = render_entry.run(["--checkpoint", str(ckpt), "--out-dir",
+                                str(out_dir), "--device", str(dev)])
+    launches = dict(cuda_build.launches)
+    preds = list(out_dir.glob("pred_*.png"))
+    fwd = [k for k in kernels if cuda_build.KERNELS[k][2] == "forward"]
+    if (summary["n_frames"] != n_views or len(preds) != n_views
+            or summary["overflow_views"]
+            or any(launches.get(k, 0) < n_views for k in fwd)
+            or not math.isfinite(summary["psnr"])):
+        fail(f"{leg} render entry: {summary}, {len(preds)} preds, "
+             f"launches {launches}")
+    return summary, launches
+
+
+def step_copy(tr, device):
+    """A strategy-free trainer on `device` with a copy of `tr`'s parameters
+    and Adam state, at its step and capacity, with f32 gradients (as phase
+    4's parity)."""
+    from threedgrut_torch.optimizers import AdamState
+    from threedgrut_torch.trainer import Trainer
+    cfg = copy.deepcopy(tr.cfg)
+    cfg.render.low_precision_grads = False
+    t = Trainer(cfg, tr.dataset, params=copy_gaussians(tr.params, device),
+                device=device)
+    t.opt_state = AdamState(
+        step=tr.opt_state.step,
+        exp_avg={k: v.to(device, copy=True)
+                 for k, v in tr.opt_state.exp_avg.items()},
+        exp_avg_sq={k: v.to(device, copy=True)
+                    for k, v in tr.opt_state.exp_avg_sq.items()})
+    t.global_step, t.isect_capacity = tr.global_step, tr.isect_capacity
+    t.scene_extent = tr.scene_extent
+    return t
+
+
+def entry_step_parity(leg, tr, view, dev, tag):
+    """One train step of the trainer that the entry point built, on the
+    card and on the CPU from the same parameters, Adam state and view
+    (strategy off), within step_agreement's tolerances."""
+    t0 = time.time()
+    tg, tc = step_copy(tr, dev), step_copy(tr, torch.device("cpu"))
+    ag, ac = tg.train_step(view), tc.train_step(view)
+    rep_s = time.time() - t0
+    rep, ok = step_agreement(tg, ag, tc, ac)
+    w, h = view.resolution
+    print(f"{leg}: train step card vs CPU at {w}x{h} "
+          f"({type(view.camera).__name__}, shutter {int(view.shutter)}), "
+          f"{int(tr.params.num_active())} particles ({rep_s:.1f} s): "
+          f"{json.dumps(rep)} {tag}", flush=True)
+    if not ok or bool(ag["overflow"]):
+        fail(f"{leg}: the train step on the card disagrees with the plain "
+             f"path at {w}x{h}")
+    return rep
+
+
+def decode_record(paths, n=8):
+    """Mean ms to decode one frame (the loader's decoder, no prefetch)
+    over the first n of `paths`, and the decoder's name."""
+    from threedgrut_torch.datasets import native_loader
+    from threedgrut_torch.native import build_error
+    loader = native_loader.ImageLoader(n_threads=8)
+    loader.decode(str(paths[0]))
+    t0 = time.perf_counter()
+    for p in paths[:n]:
+        loader.decode(str(p))
+    ms = (time.perf_counter() - t0) * 1e3 / min(n, len(paths))
+    loader.close()
+    return dict(decoder=native_loader.decoder_name(), decode_ms=ms,
+                native_build_error=(build_error() or "")[:200] or None)
+
+
+def h2d_ms(view, dev, iters=20):
+    """Host ms of the trainer's pageable host-to-device copy of one ground-
+    truth frame (torch.as_tensor from numpy), each ended by a
+    synchronize."""
+    torch.as_tensor(view.rgb_gt, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        torch.as_tensor(view.rgb_gt, dtype=torch.float32, device=dev)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def data_entry_points(dev, tag):
+    """Phase 6c: the data, entry-point and eval layer at full width. The
+    scenes are written into a temporary directory from the seeded ground
+    truth scene and the port's own renders. Legs: (a) the
+    nerf_synthetic_3dgut preset through `python -m threedgrut_torch.train`
+    on a lego-shaped NeRF scene (GS on a compressed schedule), the render
+    entry on its test split, and a resume from its step-100 checkpoint
+    that densifies again (C11); (b) colmap_3dgut_mcmc on a Mip-NeRF
+    360-shaped COLMAP scene at images_4 (1237x822, OPENCV distortion), and
+    one of its train steps card vs CPU; (c) nerf_synthetic_3dgrt on (a)'s
+    files and the render entry with the 3DGRT eval overrides; (d) the
+    multi-sensor MCMC acceptance run at 800x800, the render entry
+    rebuilding its scene, and a fisheye rolling-shutter train step card vs
+    CPU. Returns the legs' records."""
+    import tempfile
+    from threedgrut_torch import datasets
+    from threedgrut_torch.ops import cuda_build
+    from threedgrut_torch.render_eval import Renderer
+    t_phase = time.time()
+    recs = []
+    gut, grt = cuda_build.kernels_of("gut"), cuda_build.kernels_of("grt")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
+        tmp = Path(tmp)
+        fields, params = gt_scene(dev)
+        nerf, col, runs = tmp / "nerf", tmp / "colmap", tmp / "runs"
+        write_s = write_nerf_scene(nerf, params, dev)
+        write_s += write_colmap_scene(col, fields, params, dev)
+        del params
+        print(f"phase 6c scenes written in {write_s:.1f} s: {nerf} "
+              f"({NERF_VIEWS} views, {NERF_RES}x{NERF_RES} RGBA), {col} "
+              f"({COLMAP_IMAGES} images at 1/{COLMAP_DOWN} of "
+              f"{COLMAP_SIZE}, {COLMAP_POINTS} points)", flush=True)
+        dec = decode_record(sorted((nerf / "train").glob("r_*.png")))
+        print(f"decode ({NERF_RES}x{NERF_RES} RGBA PNG): {json.dumps(dec)}",
+              flush=True)
+        dev_arg = ["--device", str(dev)]
+
+        # (a) NeRF-synthetic, GS, as a user runs it on lego.
+        sch = nerf_schedule(NERF_ITERS)
+        gs_ov = [f"strategy.densify_start={sch['start']}",
+                 f"strategy.densify_frequency={sch['freq']}",
+                 f"strategy.densify_end={sch['end']}",
+                 f"strategy.reset_density_frequency={sch['reset']}"]
+        leg = "6c(a) nerf_synthetic_3dgut"
+        tr, summ, la, rec = run_leg(leg, dev_arg + [
+            "--config-name", "nerf_synthetic_3dgut", f"path={nerf}",
+            f"out_dir={runs}", "experiment_name=nerf",
+            f"train.iterations={NERF_ITERS}",
+            f"train.val_frequency={sch['val']}",
+            f"train.checkpoint_iterations=[{sch['ckpt']}]"] + gs_ov,
+            NERF_ITERS, gut, tag)
+        rec["alive_before"] = 100_000
+        rec["artifacts"] = check_run_dir(
+            leg, runs / "nerf", [f"ckpt_{sch['ckpt']}", "ckpt_last"],
+            list(range(100, NERF_ITERS + 1, 100)),
+            list(range(sch["val"], NERF_ITERS + 1, sch["val"])),
+            NERF_VIEWS[1])
+        rec["decode"] = dec
+        rec["h2d_ms_per_frame"] = h2d_ms(tr.dataset[0], dev)
+        rec["h2d_share_of_step"] = (rec["h2d_ms_per_frame"]
+                                    / rec["step_ms_median_after_first_epoch"])
+        densify_events = [s for s, e in rec["events"].items() if "clone" in e]
+        if densify_events != list(range(sch["start"], NERF_ITERS,
+                                        sch["freq"])):
+            fail(f"{leg}: densify events at {densify_events}")
+        del tr
+        ev_summary, ev_launches = render_leg(
+            leg, runs / "nerf" / "ckpt_last.npz", tmp / "eval_nerf", dev,
+            gut, NERF_VIEWS[1])
+        rec["eval"], rec["eval_launches"] = ev_summary, ev_launches
+        # The resume (C11): the strategy and its state come back from the
+        # checkpoint, and densification goes on.
+        ckpt = runs / "nerf" / f"ckpt_{sch['ckpt']}.npz"
+        with np.load(ckpt) as data:
+            saved = {k: data[k] for k in data.files
+                     if k.startswith("strategy/")}
+        tr2, _, lr, rec2 = run_leg(leg + " resume", dev_arg + [
+            "--config-name", "nerf_synthetic_3dgut", f"path={nerf}",
+            f"out_dir={runs}", "experiment_name=nerf_resume",
+            f"resume={ckpt}", f"train.iterations={sch['resume']}",
+            "train.val_frequency=0"] + gs_ov, sch["resume"], gut, tag)
+        resumed_events = {s: e for s, e in rec2["events"].items()
+                          if "clone" in e}
+        if (type(tr2.strategy).__name__ != "GSStrategy"
+                or set(saved) != {"strategy/grad_accum",
+                                  "strategy/grad_denom",
+                                  "strategy/rolling_vis"}
+                or not resumed_events):
+            fail(f"{leg} resume: strategy {type(tr2.strategy).__name__}, "
+                 f"saved keys {sorted(saved)}, events {rec2['events']}")
+        rec["resume"] = dict(from_step=sch["ckpt"], steps=sch["resume"],
+                             restored_keys=sorted(saved),
+                             densify_events=resumed_events,
+                             alive_after=rec2["alive_after"],
+                             step_ms=rec2["step_ms_median_after_first_epoch"],
+                             launches=lr)
+        del tr2
+        recs.append(rec)
+        print(f"{leg}: {json.dumps(rec)} {tag}", flush=True)
+
+        # (b) COLMAP, MCMC, at images_4 with OPENCV distortion.
+        leg = "6c(b) colmap_3dgut_mcmc"
+        q = COLMAP_ITERS // 4
+        tr, summ, lb, rec = run_leg(leg, dev_arg + [
+            "--config-name", "colmap_3dgut_mcmc", f"path={col}",
+            f"out_dir={runs}", "experiment_name=colmap",
+            f"dataset.downsample_factor={COLMAP_DOWN}",
+            f"train.iterations={COLMAP_ITERS}",
+            f"train.val_frequency={COLMAP_ITERS}",
+            f"strategy.densify_start={q}", f"strategy.mcmc_add_frequency={q}",
+            f"strategy.densify_end={COLMAP_ITERS}"], COLMAP_ITERS, gut, tag)
+        rec["alive_before"] = COLMAP_POINTS
+        rec["resolution"] = list(tr.dataset[0].resolution)
+        rec["artifacts"] = check_run_dir(
+            leg, runs / "colmap", ["ckpt_last"],
+            list(range(100, COLMAP_ITERS + 1, 100)), [COLMAP_ITERS],
+            len(tr.val_dataset))
+        mcmc_events = sorted(s for s, e in rec["events"].items()
+                             if "relocate" in e)
+        if mcmc_events != list(range(q, COLMAP_ITERS, q)):
+            fail(f"{leg}: MCMC events at {mcmc_events}")
+        rec["parity"] = entry_step_parity(leg, tr, tr.dataset[1], dev, tag)
+        del tr
+        recs.append(rec)
+        print(f"{leg}: {json.dumps(rec)} {tag}", flush=True)
+
+        # (c) 3DGRT on (a)'s files, then its eval overrides.
+        leg = "6c(c) nerf_synthetic_3dgrt"
+        tr, summ, lc, rec = run_leg(leg, dev_arg + [
+            "--config-name", "nerf_synthetic_3dgrt", f"path={nerf}",
+            f"out_dir={runs}", "experiment_name=grt",
+            f"train.iterations={GRT_ENTRY_ITERS}", "train.val_frequency=0"],
+            GRT_ENTRY_ITERS, grt, tag)
+        rec["alive_before"] = 100_000
+        rec["artifacts"] = check_run_dir(leg, runs / "grt", ["ckpt_last"],
+                                         [], [], NERF_VIEWS[1])
+        del tr
+        ckpt = runs / "grt" / "ckpt_last.npz"
+        rcfg = Renderer.from_checkpoint(
+            str(ckpt), datasets.make("nerf", str(nerf), split="test"),
+            device=dev).trainer.cfg.render
+        rec["eval_overrides"] = dict(
+            min_transmittance=rcfg.min_transmittance,
+            density_clamping=rcfg.particle_kernel_density_clamping)
+        if rcfg.min_transmittance != 0.03 \
+                or not rcfg.particle_kernel_density_clamping:
+            fail(f"{leg}: eval overrides {rec['eval_overrides']}")
+        rec["eval"], rec["eval_launches"] = render_leg(
+            leg, ckpt, tmp / "eval_grt", dev, grt, NERF_VIEWS[1])
+        recs.append(rec)
+        print(f"{leg}: {json.dumps(rec)} {tag}", flush=True)
+
+        # (d) the multi-sensor MCMC acceptance run at full width.
+        leg = "6c(d) multi-sensor nerf_synthetic_3dgut_mcmc"
+        tr, summ, ld, rec = run_leg(leg, dev_arg + [
+            "--config-name", "nerf_synthetic_3dgut_mcmc",
+            "dataset.type=synthetic", "dataset.synthetic_multi_sensor=True",
+            f"dataset.synthetic_resolution={MS_RES}",
+            f"dataset.synthetic_views={MS_VIEWS}",
+            f"train.iterations={MS_ITERS}",
+            f"train.val_frequency={MS_ITERS}",
+            f"out_dir={runs}", "experiment_name=multi_sensor"],
+            MS_ITERS, gut, tag)
+        rec["alive_before"] = 100_000
+        rec["artifacts"] = check_run_dir(
+            leg, runs / "multi_sensor", ["ckpt_last"],
+            list(range(100, MS_ITERS + 1, 100)), [MS_ITERS], MS_VIEWS)
+        view = tr.dataset[3]
+        if type(view.camera).__name__ != "FisheyeCamera" \
+                or int(view.shutter) != 1 or view.mask is None:
+            fail(f"{leg}: view 3 is not the fisheye rolling-shutter view")
+        rec["parity"] = entry_step_parity(leg, tr, view, dev, tag)
+        del tr
+        rec["eval"], rec["eval_launches"] = render_leg(
+            leg, runs / "multi_sensor" / "ckpt_last.npz",
+            tmp / "eval_ms", dev, gut, MS_VIEWS)
+        recs.append(rec)
+        print(f"{leg}: {json.dumps(rec)} {tag}", flush=True)
+    print(f"phase 6c (data, entry points and eval) wall "
+          f"{time.time() - t_phase:.1f} s", flush=True)
     return recs
 
 
@@ -2524,7 +3045,7 @@ def main() -> int:
     from threedgrut_torch.render import gut
 
     # ---- 1. device -------------------------------------------------------
-    name = torch.cuda.get_device_name(0)
+    device_kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2533,7 +3054,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     tag = f"[{smi}]"
-    print(f"device: {name} count={count} torch={torch.__version__} "
+    print(f"device: {device_kind} count={count} torch={torch.__version__} "
           f"cuda={torch.version.cuda}", flush=True)
     print(smi, flush=True)
     dev = torch.device("cuda:0")
@@ -2663,6 +3184,9 @@ def main() -> int:
 
     # ---- 6b. densification: the trainer's strategies ----------------------
     densify_recs = densification(dev, tag)
+
+    # ---- 6c. data, entry points and eval ---------------------------------
+    data_recs = data_entry_points(dev, tag)
 
     # ---- 7. 3DGRT main path: bench_grt's configurations ------------------
     grt_launches, (gp, g_o, g_d, g_inp) = grt_main_path(dev, tag)
@@ -2827,6 +3351,37 @@ def main() -> int:
                        else d["launches"].get(base, 0))
             for d in densify_recs
             if r.get("channels") != (16 if "3DGRT" in d["leg"] else 64)}
+    # Phase 6c's launches of each kernel, by leg: the train entry's run
+    # (train steps, validation, the final test renders) and the render
+    # entry's; B1/B2's default legs only; B6 at 16 channels on the 3DGUT
+    # legs and at 64 on the 3DGRT one.
+    for r in records:
+        base, _, option = r["name"].partition("[")
+        entry = {}
+        for d in data_recs:
+            if r.get("channels") == (16 if "3dgrt" in d["leg"] else 64):
+                continue
+            runs = [(d["leg"], d["launches"])]
+            if "eval_launches" in d:
+                runs.append((d["leg"] + " render", d["eval_launches"]))
+            if "resume" in d:
+                runs.append((d["leg"] + " resume",
+                             d["resume"]["launches"]))
+            for run_name, counts in runs:
+                entry[run_name] = (0 if option and not r.get("channels")
+                                   else counts.get(base, 0))
+        r["launches_entry"] = entry
+    for d in data_recs:
+        print(f"{d['leg']}: {d['steps']} steps on {d['views']} views, alive "
+              f"{d.get('alive_before')} -> {d['alive_after']} in "
+              f"{d['capacity']} slots, isect capacity "
+              f"{d['isect_capacity']}, step ms (host, median after the "
+              f"first epoch) {d['step_ms_median_after_first_epoch']:.3f}, "
+              f"data ms first epoch {d['data_ms_first_epoch']:.3f} / later "
+              f"{d['data_ms_later']}, test {json.dumps(d['test'])}, eval "
+              f"{json.dumps(d.get('eval'))}, max_memory_allocated "
+              f"{d['peak_gib']:.3f} GiB, wall {d['wall_s']:.1f} s {tag}",
+              flush=True)
     for d in densify_recs:
         print(f"{d['leg']}: alive {d['alive']}, {d['totals']}, step ms "
               f"before growth {d['step_ms_before']:.3f}, after "
@@ -2857,7 +3412,8 @@ def main() -> int:
     print(f"chip_smoke wall {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": count}}), flush=True)
+        "platform": "gpu", "kind": device_kind, "count": count}}),
+        flush=True)
     return 0
 
 

@@ -7,9 +7,12 @@ files. Importing this package needs only torch and numpy; the CUDA kernels
 under `csrc/` are compiled on first use (`ops/cuda_build.py`), never at
 import time.
 
-Entry points: `api.load_scene`, `api.render` (method "3dgut" or "3dgrt"),
-`api.trace`, `render.gut.render`, `render.grt.trace` and `trainer.Trainer`
-(with `datasets.dataset_synthetic.SyntheticDataset`). They
-run on the card (`device="cuda"`) unless the caller asks for
-`device="cpu"`, where each kernel is replaced by its plain PyTorch version.
+Entry points: `python -m threedgrut_torch.train` and `python -m
+threedgrut_torch.render` (train a scene from disk, render and score a
+checkpoint); `api.load_scene`, `api.render` (method "3dgut" or "3dgrt"),
+`api.trace`, `render.gut.render`, `render.grt.trace`, `trainer.Trainer`
+(with `datasets.make`: NeRF-synthetic, COLMAP, ScanNet++ or the synthetic
+scene) and `render_eval.Renderer`. They run on the card (`device="cuda"`)
+unless the caller asks for `device="cpu"`, where each kernel is replaced by
+its plain PyTorch version.
 """

@@ -1,9 +1,14 @@
-"""Procedural in-memory dataset (no files needed), port of the pinhole,
-global-shutter leg of threedgrut_tpu/datasets/dataset_synthetic.py: a
-ground-truth scene of random Gaussians on an orbit of views, with ground
-truth rendered by the port's fast renderer on `device`. Training against it
-must recover the scene (PSNR rises). The multi-sensor rig (fisheye, rolling
-shutter, vignette masks) comes with the data slice."""
+"""Procedural in-memory dataset (no files needed), port of
+threedgrut_tpu/datasets/dataset_synthetic.py: a ground-truth scene of random
+Gaussians on an orbit of views, with ground truth rendered by the port's
+fast renderer on `device` under each view's own camera, pose pair and
+shutter. Training against it must recover the scene (PSNR rises).
+
+`multi_sensor=True` builds the acceptance rig: alternating pinhole and
+fisheye sensors, a top-to-bottom rolling shutter with a real end pose
+(advanced along the orbit) on views i % 4 >= 2, and circular vignette masks
+on the fisheye views.
+"""
 from __future__ import annotations
 
 from typing import List, Tuple
@@ -11,7 +16,9 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from threedgrut_torch.cameras import PinholeCamera, look_at, pose_from_matrix
+from threedgrut_torch.cameras import (FisheyeCamera, PinholeCamera,
+                                      SensorPose, ShutterType, look_at,
+                                      pose_from_matrix)
 from threedgrut_torch.datasets.protocols import View, camera_bbox_extent
 from threedgrut_torch.device import resolve
 
@@ -49,7 +56,8 @@ class SyntheticDataset:
     def __init__(self, num_views: int = 12,
                  resolution: Tuple[int, int] = (64, 64),
                  num_gt_gaussians: int = 96, seed: int = 0,
-                 sh_degree: int = 3, device="cuda"):
+                 sh_degree: int = 3, multi_sensor: bool = False,
+                 device="cuda"):
         from threedgrut_torch.render import gut
         dev = resolve(device)
         self.resolution = resolution
@@ -62,24 +70,58 @@ class SyntheticDataset:
             radial=np.zeros(6, np.float32),
             tangential=np.zeros(2, np.float32),
             thin_prism=np.zeros(4, np.float32))
+        fisheye = FisheyeCamera(
+            focal=np.array([0.55 * w, 0.55 * w], np.float32),
+            principal=np.array([w / 2.0, h / 2.0], np.float32),
+            radial=np.array([0.03, 0.005, 0.0, 0.0], np.float32),
+            max_angle=np.float32(1.2))
         self._poses = orbit_poses(num_views)
+        # Rolling-shutter end poses: the camera goes on along the orbit
+        # during the exposure (15% of the step between views).
+        ang = 2.0 * np.pi * 0.15 / num_views
+        rot = np.array([[np.cos(ang), -np.sin(ang), 0.0],
+                        [np.sin(ang), np.cos(ang), 0.0],
+                        [0.0, 0.0, 1.0]], np.float32)
+        poses_end = []
+        for T in self._poses:
+            Te = T.copy()
+            Te[:3, 3] = rot @ T[:3, 3]
+            Te[:3, :3] = rot @ T[:3, :3]
+            poses_end.append(Te)
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        vignette = ((xx - w / 2.0) ** 2 + (yy - h / 2.0) ** 2
+                    <= (0.62 * min(w, h)) ** 2).astype(np.float32)[..., None]
+
         gt_cap = max(1 << 16, min(1 << 22, 64 * num_gt_gaussians))
         gt_cap = -(-gt_cap // 256) * 256
         scene = [torch.as_tensor(x, device=dev) for x in self.scene]
         self._views = []
-        for T in self._poses:
+        for i, T in enumerate(self._poses):
+            cam, shutter, pose_end, mask = (self.camera, ShutterType.GLOBAL,
+                                            None, None)
+            if multi_sensor:
+                if i % 2 == 1:
+                    cam, mask = fisheye, vignette
+                if i % 4 >= 2:
+                    shutter = ShutterType.ROLLING_TOP_TO_BOTTOM
+                    pose_end = poses_end[i]
+            p0 = pose_from_matrix(torch.as_tensor(T, device=dev))
+            p1 = (p0 if pose_end is None else
+                  pose_from_matrix(torch.as_tensor(pose_end, device=dev)))
+            pose = SensorPose(q_start=p0.q_start, t_start=p0.t_start,
+                              q_end=p1.q_start, t_end=p1.t_start)
             with torch.no_grad():
-                out, ovf = gut.render(
-                    *scene, self.camera,
-                    pose_from_matrix(torch.as_tensor(T, device=dev)),
-                    resolution, gt_cap, sh_degree=sh_degree, device=dev)
+                out, ovf = gut.render(*scene, cam, pose, resolution, gt_cap,
+                                      shutter=shutter, sh_degree=sh_degree,
+                                      device=dev)
             if bool(ovf):
                 raise RuntimeError("synthetic ground truth overflowed its "
                                    f"capacity {gt_cap}")
             rgb = np.clip(out.rgb.cpu().numpy(), 0.0, 1.0)
-            self._views.append(View(T_to_world=T, camera=self.camera,
+            self._views.append(View(T_to_world=T, camera=cam,
                                     resolution=resolution,
-                                    rgb_gt=rgb.astype(np.float32)))
+                                    rgb_gt=rgb.astype(np.float32), mask=mask,
+                                    shutter=shutter, pose_end=pose_end))
         self._extent = camera_bbox_extent(
             np.stack([T[:3, 3] for T in self._poses]))
 

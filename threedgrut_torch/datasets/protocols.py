@@ -1,10 +1,10 @@
-"""The per-view batch and the view-order stream, port of
-threedgrut_tpu/datasets/protocols.py (the part the train step needs: View,
-camera_bbox_extent, epoch_indices, iterate_epochs)."""
+"""The per-view batch, the multi-view dataset interface, the shutter
+metadata and the view-order stream, port of
+threedgrut_tpu/datasets/protocols.py."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, Optional, Protocol, Tuple
 
 import numpy as np
 
@@ -21,6 +21,60 @@ class View:
     mask: Optional[np.ndarray] = None   # [H, W, 1] float32
     shutter: ShutterType = ShutterType.GLOBAL
     pose_end: Optional[np.ndarray] = None  # [4, 4] for rolling shutter
+
+
+class MultiViewDataset(Protocol):
+    def __len__(self) -> int: ...
+    def __getitem__(self, idx: int) -> View: ...
+    @property
+    def scene_extent(self) -> float: ...
+    @property
+    def observer_points(self) -> np.ndarray: ...
+
+
+def parse_shutter(name) -> ShutterType:
+    """Config string -> ShutterType ('global', 'rolling_top_to_bottom',
+    ...); datasets stamp it onto every View."""
+    if isinstance(name, ShutterType):
+        return name
+    return ShutterType[str(name).strip().upper()]
+
+
+def parse_shutter_spec(spec):
+    """Shutter config -> ShutterType OR {camera_id: ShutterType}: one name
+    for every sensor ('rolling_top_to_bottom'), a mapping ({1: 'global',
+    2: 'rolling_top_to_bottom'}) or the dotted-override string form
+    '1:global,2:rolling_top_to_bottom'."""
+    if isinstance(spec, dict):
+        return {int(k): parse_shutter(v) for k, v in spec.items()}
+    s = str(spec)
+    if ":" in s:
+        out = {}
+        for part in s.split(","):
+            cid, name = part.split(":")
+            out[int(cid.strip())] = parse_shutter(name)
+        return out
+    return parse_shutter(s)
+
+
+def shutter_for_camera(spec, camera_id: int) -> ShutterType:
+    """A parse_shutter_spec result for one sensor (GLOBAL for camera ids
+    the mapping does not name)."""
+    if isinstance(spec, dict):
+        return spec.get(int(camera_id), ShutterType.GLOBAL)
+    return spec
+
+
+def apply_shutter(view: View, shutter: ShutterType) -> View:
+    """Stamp a shutter model on a view. COLMAP and NeRF formats carry no
+    pose timestamps, so the end pose is the start pose; a dataset with real
+    end poses sets `pose_end` itself."""
+    if shutter == ShutterType.GLOBAL:
+        return view
+    view.shutter = shutter
+    if view.pose_end is None:
+        view.pose_end = view.T_to_world
+    return view
 
 
 def camera_bbox_extent(camera_centers: np.ndarray,

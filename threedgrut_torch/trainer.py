@@ -3,8 +3,9 @@
 SelectiveAdam) and the eval step, each through the 3DGUT rasterizer or,
 with render.method = 3dgrt, the 3DGRT trace; progressive SH, capacity
 growth on overflow, densification through a strategy's hooks
-(strategy/gs.py, strategy/mcmc.py), and checkpoints in the JAX package's
-.npz format.
+(strategy/gs.py, strategy/mcmc.py), checkpoints in the JAX package's .npz
+format (loadable without a dataset, for evaluation), and the metrics of a
+run: a writer's scalars and validation panels and per-stage host timers.
 
 PyTorch runs eagerly, so a step is a sequence of calls rather than one
 compiled program; each phase runs under a `torch.profiler.record_function`
@@ -16,6 +17,7 @@ JAX package's numbers.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import os
@@ -174,17 +176,22 @@ class Trainer:
     strategy/mcmc.MCMCStrategy or None) densifies the scene after each
     step, as the JAX package's Trainer does: post_backward, then
     post_optimizer_step, after the overflow handling. Its state must live
-    on the trainer's device."""
+    on the trainer's device. `writer` (utils/writer.MetricsWriter or None)
+    receives run()'s scalars and validation panels. `dataset` may be None
+    for a trainer that only evaluates (load_checkpoint(dataset=None)); its
+    scene extent then comes from the checkpoint."""
 
     def __init__(self, cfg: Config, dataset, val_dataset=None,
                  params: Optional[Gaussians] = None, strategy=None,
-                 device="cuda"):
+                 device="cuda", writer=None):
         self.cfg = cfg
         self.device = resolve(device)
         self.dataset = dataset
         self.val_dataset = val_dataset
         self.strategy = strategy
-        self.scene_extent = float(dataset.scene_extent)
+        self.writer = writer
+        self.scene_extent = (float(dataset.scene_extent)
+                             if dataset is not None else None)
         self.global_step = 0
         self.params = params
         self.opt_state = (optimizers.init(params) if params is not None
@@ -198,6 +205,17 @@ class Trainer:
         self._pending_overflow = None
         self._mask_cache: Dict[tuple, torch.Tensor] = {}
         self.history: list = []
+        # The stage timers of run(), per step for the last 1000 steps: dicts
+        # of step, data_ms (fetching the view, decoding it on first
+        # access), step_ms (train_step, its strategy hooks included),
+        # strategy_ms (the hooks) and, on a step whose strategy event ran,
+        # its counts ("events"). step_ms ("train/time_step_ms") is host time
+        # around an asynchronous step: it returns with launches still
+        # running on the card, so it counts this step's launches and
+        # whatever earlier work its host reads (the previous step's
+        # overflow flag, the walked-window count) wait for.
+        self.step_times: collections.deque = collections.deque(maxlen=1000)
+        self._strategy_s = 0.0     # the last train_step's hooks
 
     # ---- progressive SH ----
     def active_sh_degree(self) -> int:
@@ -251,9 +269,11 @@ class Trainer:
             # The step just run also used the old capacity; its flag
             # reports the shortage already answered.
             self._pending_overflow = None
+        t_s = time.perf_counter()
         if self.strategy is not None:
             self.strategy.post_backward(self, view, aux)
             self.strategy.post_optimizer_step(self, view, aux)
+        self._strategy_s = time.perf_counter() - t_s
         return aux
 
     def eval_view(self, view) -> Dict[str, Any]:
@@ -290,33 +310,102 @@ class Trainer:
 
     def run(self, iterations: Optional[int] = None, log_every: int = 100,
             out_dir: Optional[str] = None):
+        """Train for `iterations` (default cfg.train.iterations) steps over
+        the dataset's shuffled epochs. Every `log_every` steps: a console
+        line, a history entry and, with a writer, the loss terms, PSNR,
+        particle count, it/s and each stage's host ms per step since the
+        last log point ("train/time_<stage>_ms", from step_times).
+        Checkpoints at cfg.train.checkpoint_iterations, validation (and its
+        panels) every cfg.train.val_frequency steps, ckpt_last at the
+        end."""
         from threedgrut_torch.datasets.protocols import iterate_epochs
         iters = iterations or self.cfg.train.iterations
         stream = iterate_epochs(len(self.dataset), self.cfg.train.seed)
         t0 = time.time()
         for _ in range(iters):
-            aux = self.train_step(self.dataset[next(stream)])
+            t_d = time.perf_counter()
+            view = self.dataset[next(stream)]
+            t_s = time.perf_counter()
+            aux = self.train_step(view)
+            t_e = time.perf_counter()
+            entry = dict(step=self.global_step, data_ms=1e3 * (t_s - t_d),
+                         step_ms=1e3 * (t_e - t_s),
+                         strategy_ms=1e3 * self._strategy_s)
+            # A step whose strategy event ran: its counts (one host read
+            # per event).
+            counts = getattr(self.strategy, "counts", None)
+            if counts:
+                entry["events"] = {k: int(v) for k, v in counts.items()}
+            self.step_times.append(entry)
             if log_every and self.global_step % log_every == 0:
                 loss = float(aux["terms"]["total"])
                 psnr = float(aux["psnr"])
                 rate = self.global_step / (time.time() - t0)
                 print(f"step {self.global_step:6d} loss {loss:.4f} "
                       f"psnr {psnr:.2f} it/s {rate:.1f}", flush=True)
+                alive = int(self.params.num_active())
                 self.history.append(dict(
                     step=self.global_step, loss=loss, psnr=psnr,
-                    particles=int(self.params.num_active()), it_s=rate))
+                    particles=alive, it_s=rate))
                 del self.history[:-500]
+                if self.writer is not None:
+                    self.writer.scalars(aux["terms"], self.global_step,
+                                        prefix="train/loss_")
+                    self.writer.scalar("train/psnr", psnr, self.global_step)
+                    self.writer.scalar("train/num_particles", alive,
+                                       self.global_step)
+                    self.writer.scalar("train/it_per_s", rate,
+                                       self.global_step)
+                    recent = list(self.step_times)[-log_every:]
+                    for k in ("data", "step", "strategy"):
+                        self.writer.scalar(
+                            f"train/time_{k}_ms",
+                            sum(e[f"{k}_ms"] for e in recent) / len(recent),
+                            self.global_step)
             ckpts = self.cfg.train.checkpoint_iterations
             if out_dir and self.global_step in ckpts:
                 self.save_checkpoint(out_dir)
             if (self.cfg.train.val_frequency
                     and self.global_step % self.cfg.train.val_frequency == 0
                     and self.val_dataset is not None):
-                print(f"val @ {self.global_step}: {self.validate()}",
-                      flush=True)
+                metrics = self.validate()
+                print(f"val @ {self.global_step}: {metrics}", flush=True)
+                if self.writer is not None:
+                    self.writer.scalars(metrics, self.global_step,
+                                        prefix="val/")
+                    self.log_val_images()
         if out_dir:
             self.save_checkpoint(out_dir, name="ckpt_last")
         return self
+
+    # Validation panels: pred, gt, hit-count and inverse-depth jet maps and
+    # opacity at these view ids of the validation set.
+    _VAL_VIEW_IDS = (0, 13, 27, 43, 78)
+
+    def log_val_images(self) -> None:
+        from threedgrut_torch.utils.writer import jet_colormap
+        ds = self.val_dataset or self.dataset
+        for vid in self._VAL_VIEW_IDS:
+            if vid >= len(ds):
+                continue
+            view = ds[vid]
+            aux = self.eval_view(view)
+            pred, hits, depth, opacity = (
+                aux[k].detach().cpu().numpy()
+                for k in ("pred", "hit_count", "depth", "opacity"))
+            tagp = f"val_{vid}"
+            step = self.global_step
+            self.writer.image(f"{tagp}/pred", pred, step)
+            self.writer.image(f"{tagp}/gt", np.asarray(view.rgb_gt), step)
+            self.writer.image(
+                f"{tagp}/hits_jet",
+                jet_colormap(hits / max(1.0, float(hits.max()))), step)
+            inv = np.where(depth > 1e-6, 1.0 / np.maximum(depth, 1e-6), 0.0)
+            inv = inv / max(1e-6, float(inv.max()))
+            self.writer.image(f"{tagp}/inv_depth_jet", jet_colormap(inv),
+                              step)
+            self.writer.image(f"{tagp}/opacity",
+                              np.repeat(opacity[..., None], 3, -1), step)
 
     # ---- checkpoints: the JAX package's .npz keys and .json config ----
     def save_checkpoint(self, out_dir: str, name: Optional[str] = None):
@@ -348,10 +437,12 @@ class Trainer:
         return path
 
     @classmethod
-    def load_checkpoint(cls, path: str, dataset, val_dataset=None,
+    def load_checkpoint(cls, path: str, dataset=None, val_dataset=None,
                         device="cuda", strategy=None) -> "Trainer":
         """Resume from a checkpoint written by this class or by the JAX
-        package's Trainer (same keys; its .json config beside it). The
+        package's Trainer (same keys; its .json config beside it). With no
+        dataset the trainer can evaluate views (render_eval.Renderer); its
+        scene extent is the checkpoint's, as it is for a resumed run. The
         `strategy/<field>` keys, where present, restore `strategy`'s state
         on the device its state already lives on."""
         with open(path.replace(".npz", ".json")) as fh:
