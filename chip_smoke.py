@@ -36,6 +36,24 @@ Phases, each of which fails the run on a miss:
   5. forward main path: api.render at full width (1M Gaussians of the
      benchmark scene, SH degree 3, 800x800), 5 orbit frames plus one
      hit-visibility frame, with the launch counts read around it;
+  5b. inference and export at full width on phase 5's scene
+     (threedgrut_torch/render/infer.py, export/): (a)
+     tools/bench_infer_orbit.py's orbit (32 frames at 0.5 degrees, a
+     refresh every 8) in exact mode (api.render), compact mode (refresh,
+     then render_compact) at census thresholds 0 and 1/255 and frozen mode
+     (capture_binning at each refresh, then render_frozen at 16 passes):
+     the probe's visible count, n_compact and compact capacity, ms a frame
+     per mode, PSNR against the exact frames, every overflow flag, and the
+     gate: at each refresh camera the compact frame (threshold 0) within
+     golden.compare of the exact one; (b) bench.py's BENCH_INFER=compact
+     frame (n_compact 143,360, capacity 585,472, threshold 1/255) with a
+     bench.py-shaped JSON line; (c) card vs CPU at phase 4's scene: the
+     refresh (id sets up to census flips on 0.1% of the visible count),
+     capture_binning exactly, render_compact and render_frozen on a stale
+     binning within golden.compare; (d) .ply, .ingp (single, half) and
+     .usdz of the 1M scene written and read back (api.load_scene bit-equal,
+     its frame bit for bit; fp16 values equal to numpy's rounding), bytes
+     and host seconds of each; the phase's peak memory;
   6. train main path: Trainer.train_step at full width (bench.py's scene,
      camera and Config defaults), 6 steps, the last with
      walk_compact_fraction=0 (the dense branch, B5); losses, step ms,
@@ -78,7 +96,10 @@ Phases, each of which fails the run on a miss:
      card vs CPU. Per leg: the artifacts, alive particles, step and data
      ms (first epoch and later), decode ms and the decoder, validation and
      test PSNR/SSIM, mean_render_s, peak memory and launches (every kernel
-     of the renderer at least once a train step);
+     of the renderer at least once a train step); each train run's final
+     export (export_last.ply, .ingp, .usdz), and (a)'s export_last.ply read
+     back through api.load_scene and rendered within golden.compare of
+     the trainer's frame;
   7. 3DGRT main path: api.trace at tools/bench_grt.py's inference
      configuration (100k Gaussians, 512x512 rays, 16 re-sort passes), 6
      traces, then at its 1M capacities, 3 traces; overflow, launch counts,
@@ -127,7 +148,8 @@ Phases, each of which fails the run on a miss:
      both with per-pixel origins (the train inputs' ray origins nudged
      one by one, so the kernels take the pair's per-pixel form) against
      their plain versions, timed beside the shared-origin form;
-  10. profile: one full-width frame, one full-width train step (default
+  10. profile: one full-width frame, one compact frame (5b(b)'s), one
+     full-width train step (default
      and sorted), one 100k trace, one 100k fwd+bwd and one 1M trace on the
      flat cull (its "3dgrt.cull" span split into its stages) under
      torch.profiler, for the device's busy share and the time per stage.
@@ -1472,6 +1494,450 @@ def b8_record(data, inp, b7_runs, launches, walk, ptxas, tag):
     return rec8, rec6
 
 
+# ---- phase 5b: inference and export --------------------------------------
+
+# (a) tools/bench_infer_orbit.py's orbit: 32 frames at 0.5 degrees a frame
+# around (0, 0, 0) at radius 4 and height 1, a refresh every 8 frames, the
+# frozen frames at 16 re-sort passes; its probe's 1.2x headroom on the
+# visible count (in 4096s) and on the compacted scene's intersections (in
+# 256s), both at frame 0.
+ORBIT_FRAMES = 32
+ORBIT_DEG = 0.5
+ORBIT_REFRESH = 8
+ORBIT_PASSES = 16
+ORBIT_THRESHOLDS = (0.0, 1.0 / 255.0)
+# (b) bench.py's BENCH_INFER=compact defaults: n_compact, compact capacity,
+# census threshold and timed frames (after one warm frame).
+BENCH_NC = 143_360
+BENCH_CAPC = 585_472
+BENCH_VIS_T = 1.0 / 255.0
+BENCH_ITERS = 10
+# (c) card vs CPU: the refresh's compacted id sets may differ by census
+# flips (a weight at the threshold on one side only, golden.compare's
+# class) on at most this share of the visible count (at least one).
+INFER_FLIP_SHARE = 1e-3
+# (c) the frozen frame's camera: frame 4 of the orbit (2 degrees from the
+# refresh camera), so that the binning it reuses is stale.
+INFER_STALE_FRAME = 4
+
+
+def orbit_deg_T(i: int) -> np.ndarray:
+    """Camera-to-world of frame i of bench_infer_orbit's orbit."""
+    from threedgrut_torch.cameras import look_at
+    a = math.radians(ORBIT_DEG) * i
+    eye = np.array([4.0 * math.sin(a), -4.0 * math.cos(a), 1.0], np.float32)
+    return look_at(eye, np.zeros(3, np.float32),
+                   np.array([0.0, 0.0, 1.0], np.float32))
+
+
+def pose_of(T, dev):
+    from threedgrut_torch.cameras import pose_from_matrix
+    return pose_from_matrix(torch.as_tensor(T, device=dev))
+
+
+def frame_of(out) -> dict:
+    """A frame's fields for golden.compare with an empty visibility mask:
+    for frames over different particle sets, or a frozen frame (which
+    runs no census)."""
+    d = {k: getattr(out, k) for k in ("rgb", "opacity", "depth",
+                                      "transmittance", "hit_count")}
+    d["visibility"] = np.zeros(0, bool)
+    return d
+
+
+def psnr_of(a, b) -> torch.Tensor:
+    """PSNR of frame a against frame b, both clipped to [0, 1] (bench.py's
+    and bench_infer_orbit's), as a tensor: no wait for the device."""
+    mse = ((a.clamp(0.0, 1.0) - b.clamp(0.0, 1.0)) ** 2).mean()
+    return -10.0 * torch.log10(torch.clamp(mse, min=1e-12))
+
+
+def compact_sizes(acts, cam, pose, cap, threshold, dev):
+    """bench_infer_orbit's probe at one camera: the visible count,
+    n_compact = ceil(1.2 x visible / 4096) x 4096 and the compact capacity
+    = ceil(1.2 x the compacted scene's intersections / 256) x 256."""
+    from threedgrut_torch.render import gut, infer
+    n = acts[0].shape[0]
+    out, _ = gut.render(*acts, cam, pose, MAIN_RES, cap, hit_visibility=True,
+                        aux_gradients=False, visibility_threshold=threshold,
+                        device=dev)
+    nvis = int(out.visibility.sum())
+    n_c = min(n, -(-int(nvis * 1.2) // 4096) * 4096)
+    _, _, scene = infer.refresh(*acts, cam, pose, MAIN_RES, cap, n_c,
+                                visibility_threshold=threshold, device=dev)
+    _, binning, _, _ = gut.prepare_packed(*scene[:5], cam, pose, MAIN_RES,
+                                          cap, sh_degree=0)
+    nisect = int(binning.num_intersections)
+    return dict(visible=nvis, n_compact=n_c, isect_compact=nisect,
+                cap_compact=-(-int(nisect * 1.2) // 256) * 256,
+                scene_overflow=bool(scene.overflow))
+
+
+def orbit_mode(mode, params, cam, cap, sizes, threshold, exact, dev):
+    """One pass of the orbit in `mode` ("exact", "compact", "frozen"), each
+    frame timed by the host clock between two synchronizes. Refresh frames
+    (every ORBIT_REFRESH-th) run infer.refresh (and, frozen,
+    capture_binning); the frames between render_compact or render_frozen.
+    Returns the frames' rgb, ms, overflow flags, PSNR against `exact` and
+    the launch counts: "default" for every frame but the frozen ones
+    between refreshes, "sorted16" for those (B1's sorted leg)."""
+    from threedgrut_torch import api, golden
+    from threedgrut_torch.ops import cuda_build
+    from threedgrut_torch.render import infer
+    acts = (params.get_positions(), params.get_rotation(), params.get_scale(),
+            params.get_density(), params.get_features())
+    rgbs, ms, flags, psnr, gate = [], [], [], [], []
+    counts = {"default": {}, "sorted16": {}}
+    scene = frozen = None
+    for i in range(ORBIT_FRAMES):
+        T = orbit_deg_T(i)
+        pose = pose_of(T, dev)
+        refresh = i % ORBIT_REFRESH == 0
+        kind = "sorted16" if mode == "frozen" and not refresh else "default"
+        cuda_build.launches.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "exact":
+            out, cap = render_retry(api, params, cam, T, MAIN_RES, cap, dev,
+                                    aux_gradients=False, aux_outputs=False)
+            f = {}
+        elif refresh:
+            out, ovf, scene = infer.refresh(
+                *acts, cam, pose, MAIN_RES, cap, sizes["n_compact"],
+                visibility_threshold=threshold, device=dev)
+            f = {"isect": ovf, "scene": scene.overflow}
+            if mode == "frozen":
+                frozen = infer.capture_binning(scene, cam, pose, MAIN_RES,
+                                               sizes["cap_compact"],
+                                               device=dev)
+                f["frozen_binning"] = frozen.overflow
+        elif mode == "compact":
+            out, ovf = infer.render_compact(scene, cam, pose, MAIN_RES,
+                                            sizes["cap_compact"], device=dev)
+            f = {"isect": ovf}
+        else:
+            out = infer.render_frozen(scene, frozen, cam, pose, MAIN_RES,
+                                      sorted_passes=ORBIT_PASSES, device=dev)
+            f = {}
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        for k, v in cuda_build.launches.items():
+            counts[kind][k] = counts[kind].get(k, 0) + v
+        rgbs.append(out.rgb)
+        flags.append(f)
+        if exact is not None:
+            psnr.append(psnr_of(out.rgb, exact[i]))
+        if mode == "compact" and refresh and threshold == 0.0:
+            # The gate: at the refresh camera, the compacted scene's frame
+            # equals the exact one (refresh's own output, aux included).
+            comp, covf = infer.render_compact(scene, cam, pose, MAIN_RES,
+                                              sizes["cap_compact"],
+                                              aux_outputs=True, device=dev)
+            rep, ok = golden.compare(frame_of(comp),
+                                     frame_of(out))
+            rep["rgb_vs_exact_frame"] = float((comp.rgb - exact[i]).abs()
+                                              .max())
+            gate.append((i, rep, ok and not bool(covf)
+                         and not any(bool(x) for x in f.values())))
+    flags = [{k: bool(v) for k, v in f.items()} for f in flags]
+    return dict(rgb=rgbs, ms=ms, flags=flags, gate=gate, launches=counts,
+                psnr=[float(p) for p in psnr], cap=cap)
+
+
+def orbit(params, cam, cap, dev, tag):
+    """Phase 5b (a): the orbit in exact mode, compact mode at each
+    threshold of ORBIT_THRESHOLDS and frozen mode (threshold 0); fails
+    unless every frame is finite, no refresh overflows, each mode launched
+    B3, B4 and B1 (frozen: B1's sorted leg between refreshes) and the
+    gate holds at every refresh camera."""
+    from threedgrut_torch.ops import cuda_build
+    acts = (params.get_positions(), params.get_rotation(), params.get_scale(),
+            params.get_density(), params.get_features())
+    pose0 = pose_of(orbit_deg_T(0), dev)
+    sizes = {t: compact_sizes(acts, cam, pose0, cap, t, dev)
+             for t in ORBIT_THRESHOLDS}
+    for t, s in sizes.items():
+        print(f"5b(a) probe at threshold {t:.6f}: visible {s['visible']} of "
+              f"{MAIN_N} -> n_compact {s['n_compact']}; compact "
+              f"intersections {s['isect_compact']} -> capacity "
+              f"{s['cap_compact']} (full capacity {cap}); scene overflow "
+              f"{s['scene_overflow']}", flush=True)
+    ex = orbit_mode("exact", params, cam, cap, None, 0.0, None, dev)
+    runs = {"exact": ex}
+    for t in ORBIT_THRESHOLDS:
+        runs[f"compact t={t:.6f}"] = orbit_mode(
+            "compact", params, cam, ex["cap"], sizes[t], t, ex["rgb"], dev)
+    runs["frozen t=0.000000"] = orbit_mode(
+        "frozen", params, cam, ex["cap"], sizes[0.0], 0.0, ex["rgb"], dev)
+    fwd = cuda_build.kernels_of("gut", ("forward",))
+    recs = {}
+    for name, r in runs.items():
+        for i, rgb in enumerate(r["rgb"]):
+            if not bool(torch.isfinite(rgb).all()):
+                fail(f"5b(a) {name} frame {i}: rgb not finite")
+        bad = [(i, f) for i, f in enumerate(r["flags"])
+               if i % ORBIT_REFRESH == 0 and any(f.values())]
+        if bad:
+            fail(f"5b(a) {name}: a refresh overflowed: {bad}")
+        missing = [k for k in fwd if r["launches"]["default"].get(k, 0) <= 0]
+        if name.startswith("frozen") and r["launches"]["sorted16"].get(
+                "tile_raster_fwd", 0) != ORBIT_FRAMES - ORBIT_FRAMES // \
+                ORBIT_REFRESH:
+            missing.append("tile_raster_fwd[sorted16] once a frozen frame")
+        if missing:
+            fail(f"5b(a) {name}: not launched: {missing} "
+                 f"({r['launches']})")
+        for i, rep, ok in r["gate"]:
+            print(f"5b(a) gate, {name}, refresh camera {i}: compact frame "
+                  f"vs exact {json.dumps(rep)}", flush=True)
+            if not ok:
+                fail(f"5b(a) {name}: the compact frame at refresh camera "
+                     f"{i} is outside golden.compare of the exact frame")
+        refresh_ms = [m for i, m in enumerate(r["ms"])
+                      if i % ORBIT_REFRESH == 0]
+        between_ms = [m for i, m in enumerate(r["ms"])
+                      if i % ORBIT_REFRESH != 0]
+        rec = dict(ms_per_frame_median=float(np.median(r["ms"])),
+                   ms_per_frame_mean=float(np.mean(r["ms"])),
+                   refresh_ms_median=float(np.median(refresh_ms)),
+                   between_ms_median=float(np.median(between_ms)),
+                   overflow_frames=[i for i, f in enumerate(r["flags"])
+                                    if any(f.values())],
+                   launches=r["launches"])
+        if r["psnr"]:
+            approx = [p for i, p in enumerate(r["psnr"])
+                      if i % ORBIT_REFRESH != 0]
+            rec.update(psnr_min=float(min(approx)),
+                       psnr_mean=float(np.mean(approx)),
+                       psnr_refresh_min=float(min(
+                           p for i, p in enumerate(r["psnr"])
+                           if i % ORBIT_REFRESH == 0)))
+        recs[name] = rec
+        print(f"5b(a) orbit {name}: {json.dumps(rec)} {tag}", flush=True)
+    del runs
+    return recs, sizes
+
+
+def bench_compact(params, cam, cap, dev, tag):
+    """Phase 5b (b): bench.py's BENCH_INFER=compact at its camera: one
+    refresh at threshold 1/255 into BENCH_NC rows, then BENCH_ITERS
+    compact frames at BENCH_CAPC after a warm one, the loop ended by one
+    synchronize; a bench.py-shaped JSON line. Returns the compacted scene
+    and its camera (phase 10 profiles a frame of it) and the launches."""
+    from threedgrut_torch.ops import cuda_build
+    from threedgrut_torch.render import infer
+    acts = (params.get_positions(), params.get_rotation(), params.get_scale(),
+            params.get_density(), params.get_features())
+    pose = pose_of(orbit_deg_T(0), dev)
+    cuda_build.launches.clear()
+    out, ovf, scene = infer.refresh(*acts, cam, pose, MAIN_RES, cap, BENCH_NC,
+                                    visibility_threshold=BENCH_VIS_T,
+                                    device=dev)
+    if bool(scene.overflow) or bool(ovf):
+        fail(f"5b(b): the refresh overflowed (visible {int(scene.count)} "
+             f"of n_compact {BENCH_NC}, isect overflow {bool(ovf)})")
+    infer.render_compact(scene, cam, pose, MAIN_RES, BENCH_CAPC, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flags = []
+    for _ in range(BENCH_ITERS):
+        o, covf = infer.render_compact(scene, cam, pose, MAIN_RES,
+                                       BENCH_CAPC, device=dev)
+        flags.append(covf)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(cuda_build.launches)
+    psnr = float(psnr_of(o.rgb, out.rgb))
+    overflow = bool(ovf) or any(bool(f) for f in flags)
+    rec = {"metric": "rays_per_s_infer_compact_1M_gaussians",
+           "value": MAIN_RES[0] * MAIN_RES[1] * BENCH_ITERS / dt,
+           "unit": "rays/s/chip", "fps": BENCH_ITERS / dt,
+           "frame_ms": 1e3 * dt / BENCH_ITERS, "psnr_vs_exact": psnr,
+           "visible": int(scene.count), "n_compact": BENCH_NC,
+           "cap_compact": BENCH_CAPC, "vis_threshold": BENCH_VIS_T,
+           "isect_overflow": overflow, "backend": "cuda",
+           "device": torch.cuda.get_device_name(0), "n_gaussians": MAIN_N,
+           "resolution": list(MAIN_RES), "iters": BENCH_ITERS}
+    print(json.dumps(rec), flush=True)
+    if overflow or not bool(torch.isfinite(o.rgb).all()) or psnr < 30.0:
+        fail(f"5b(b): overflow {overflow}, PSNR {psnr}")
+    for k in cuda_build.kernels_of("gut", ("forward",)):
+        if launches.get(k, 0) < BENCH_ITERS + 1:
+            fail(f"5b(b): {k} launched {launches.get(k, 0)} times")
+    return (scene, pose), launches
+
+
+def infer_card_vs_cpu(fields, res, cap, dev, T0, T1):
+    """Phase 5b (c) on one scene (raw fields) at `res`: infer.refresh at T0
+    on the card against the CPU (the frames within golden.compare, the
+    compacted id sets equal up to census flips on INFER_FLIP_SHARE of the
+    visible count); capture_binning of the CPU's CompactScene copied to
+    the card, every field exactly equal; render_compact of that scene at
+    T0 and render_frozen on the binning captured at T0 but at the camera T1
+    (B1's sorted leg on a stale binning), both within golden.compare.
+    Returns (report, ok)."""
+    from threedgrut_torch import golden
+    from threedgrut_torch.cameras import example_camera
+    from threedgrut_torch.model.gaussians import from_numpy
+    from threedgrut_torch.render import infer
+    cpu = torch.device("cpu")
+    side = {}
+    for d in (dev, cpu):
+        p = from_numpy(fields, device=d)
+        side[d] = ((p.get_positions(), p.get_rotation(), p.get_scale(),
+                    p.get_density(), p.get_features()),
+                   example_camera(res, d))
+    acts, cam = side[dev]
+    out, _ = infer.refresh(*acts, cam, pose_of(T0, dev), res, cap,
+                           acts[0].shape[0], device=dev)[:2]
+    nvis = int(out.visibility.sum())
+    n_c = min(acts[0].shape[0], -(-int(nvis * 1.2) // 4096) * 4096)
+    got = {}
+    for d in (dev, cpu):
+        a, c = side[d]
+        got[d] = infer.refresh(*a, c, pose_of(T0, d), res, cap, n_c,
+                               device=d)
+    rep, ok = {}, True
+    (og, fg, sg), (oc, fc, sc) = got[dev], got[cpu]
+    rep["refresh"], ok_r = golden.compare(og, oc)
+    ids = [set(s.src_idx[:int(s.count)].cpu().tolist()) for s in (sg, sc)]
+    flips = len(ids[0] ^ ids[1])
+    rep.update(visible=int(sc.count), n_compact=n_c, id_flips=flips,
+               overflow=[bool(x) for x in (fg, fc, sg.overflow,
+                                           sc.overflow)])
+    ok &= ok_r and flips <= max(1, math.floor(INFER_FLIP_SHARE
+                                              * int(sc.count)))
+    ok &= not any(rep["overflow"])
+    binning = {}
+    for d in (dev, cpu):
+        binning[d] = infer.capture_binning(sc.to(d), side[d][1],
+                                           pose_of(T0, d), res, cap,
+                                           device=d)
+    unequal = [k for k, x, y in zip(infer.FrozenBinning._fields,
+                                    binning[dev], binning[cpu])
+               if not torch.equal(x.cpu(), y)]
+    rep["capture_unequal_fields"] = unequal
+    ok &= not unequal and not bool(binning[cpu].overflow)
+    comp = {d: infer.render_compact(sc.to(d), side[d][1], pose_of(T0, d),
+                                    res, cap, aux_outputs=True, device=d)
+            for d in (dev, cpu)}
+    rep["compact"], ok_c = golden.compare(comp[dev][0], comp[cpu][0])
+    froz = {d: infer.render_frozen(sc.to(d), binning[d], side[d][1],
+                                   pose_of(T1, d), res, device=d)
+            for d in (dev, cpu)}
+    rep["frozen"], ok_f = golden.compare(frame_of(froz[dev]),
+                                         frame_of(froz[cpu]))
+    ok &= ok_c and ok_f and froz[dev].visibility is None
+    return rep, bool(ok)
+
+
+def export_roundtrip(params, cam, cap, dev, tag):
+    """Phase 5b (d) on the 1M scene: .ply, .ingp (single and half) and
+    .usdz written into a temporary directory, host seconds and bytes of
+    each; .ply and single .ingp read back through api.load_scene, their
+    alive rows and mask bit-equal to the scene's and their frame bit for
+    bit; the half .ingp's and the .usdz's values equal to numpy's fp16
+    rounding of the alive rows."""
+    import gzip
+    import tempfile
+    import zipfile
+    from threedgrut_torch import api, golden
+    from threedgrut_torch.export import _msgpack, alive_rows
+    from threedgrut_torch.export.ingp import export_ingp
+    from threedgrut_torch.export.ply import export_ply
+    from threedgrut_torch.export.usdz import export_usdz
+    rows = alive_rows(params)
+    half = {k: v.astype(np.float16).astype(np.float32)
+            for k, v in rows.items()}
+    writers = {"ply": ("s.ply", export_ply),
+               "ingp": ("s.ingp", export_ingp),
+               "ingp_half": ("h.ingp", lambda p, f: export_ingp(
+                   p, f, force_half=True)),
+               "usdz": ("s.usdz", export_usdz)}
+    rec = {}
+    T = orbit_deg_T(0)
+    with torch.no_grad():
+        want, _ = render_retry(api, params, cam, T, MAIN_RES, cap, dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as tmp:
+        for name, (fname, write) in writers.items():
+            path = Path(tmp) / fname
+            t0 = time.perf_counter()
+            write(params, str(path))
+            rec[name] = dict(write_s=time.perf_counter() - t0,
+                             bytes=path.stat().st_size)
+        for name in ("ply", "ingp", "ingp_half"):
+            path = Path(tmp) / writers[name][0]
+            t0 = time.perf_counter()
+            back = api.load_scene(str(path), device=dev)
+            torch.cuda.synchronize()
+            rec[name]["read_s"] = time.perf_counter() - t0
+            got = alive_rows(back)
+            ref = half if name == "ingp_half" else rows
+            bad = [k for k in ref if not np.array_equal(got[k], ref[k])]
+            if not torch.equal(back.alive, params.alive):
+                bad.append("alive")
+            if name != "ingp_half":
+                with torch.no_grad():
+                    out, _ = render_retry(api, back, cam, T, MAIN_RES, cap,
+                                          dev)
+                bad += [f"frame {k}" for k in golden.OUTPUTS
+                        if not torch.equal(getattr(out, k),
+                                           getattr(want, k))]
+            rec[name]["unequal"] = bad
+            del back
+        t0 = time.perf_counter()
+        with zipfile.ZipFile(Path(tmp) / "s.usdz") as z:
+            names = z.namelist()
+            blob = _msgpack.unpackb(gzip.decompress(z.read("s.nurec")))
+        rec["usdz"]["read_s"] = time.perf_counter() - t0
+        sd = blob["nre_data"]["state_dict"]
+        pos = np.frombuffer(sd[".gaussians_nodes.gaussians.positions"],
+                            np.float16).astype(np.float32).reshape(-1, 3)
+        rec["usdz"]["members"] = names
+        rec["usdz"]["unequal"] = ([] if np.array_equal(pos, half["positions"])
+                                  else ["positions"])
+    print(f"5b(d) export of {rows['positions'].shape[0]} particles: "
+          f"{json.dumps(rec)} {tag}", flush=True)
+    bad = {k: r["unequal"] for k, r in rec.items() if r["unequal"]}
+    if bad or rec["usdz"]["members"] != ["s.usda", "s_gauss.usda",
+                                         "s.nurec"]:
+        fail(f"5b(d): the round trips differ: {bad}, usdz members "
+             f"{rec['usdz']['members']}")
+    return rec
+
+
+def inference_export(params, cam, cap, dev, tag):
+    """Phase 5b: frame-coherent inference and export at full width on phase
+    5's scene (bench.py's 1M with specular 0.1: the census and the
+    intersections do not depend on colour). (a) the orbit, (b) bench.py's
+    steady compacted frame, (c) card vs CPU at phase 4's scene, (d) the
+    exporters' round trips. Returns (records, the launches of (a) and (b)
+    by run, and (b)'s compacted scene and pose for phase 10)."""
+    from threedgrut_torch.model.gaussians import bench_scene
+    t_phase = time.time()
+    base = phase_start()
+    with torch.no_grad():
+        orbit_recs, sizes = orbit(params, cam, cap, dev, tag)
+        steady, bench_launches = bench_compact(params, cam, cap, dev, tag)
+        t0 = time.time()
+        rep, ok = infer_card_vs_cpu(
+            bench_scene(PARITY_N, seed=0, specular_std=0.1), PARITY_RES,
+            PARITY_CAP, dev, orbit_deg_T(0), orbit_deg_T(INFER_STALE_FRAME))
+        print(f"5b(c) inference card vs CPU, {PARITY_N} Gaussians "
+              f"{PARITY_RES} ({time.time() - t0:.1f} s): {json.dumps(rep)}",
+              flush=True)
+        if not ok:
+            fail("5b(c): inference on the card disagrees with the CPU")
+        export = export_roundtrip(params, cam, cap, dev, tag)
+    peak = phase_peak_gib(base)
+    print(f"phase 5b (inference and export) wall {time.time() - t_phase:.1f}"
+          f" s, max_memory_allocated {peak:.3f} GiB {tag}", flush=True)
+    launches = {name: r["launches"] for name, r in orbit_recs.items()}
+    launches["bench compact"] = {"default": bench_launches, "sorted16": {}}
+    return dict(orbit=orbit_recs, sizes=sizes, card_vs_cpu=rep,
+                export=export, peak_gib=peak), launches, steady
+
+
 # ---- phase 6b: densification ---------------------------------------------
 
 COUNT_NAMES = {"gs": ("clone", "split", "prune"),
@@ -2070,10 +2536,13 @@ def check_run_dir(leg, run, ckpts, train_log_steps, val_steps, n_test):
     """The train entry's artifacts in `run`: each checkpoint's .npz and
     .json, metrics.jsonl with the train scalars at `train_log_steps` and
     the validation ones at `val_steps`, TensorBoard events where
-    tensorboard imports, and test_renders/ with one pred_*.png per test
-    view and the best and worst pairs."""
+    tensorboard imports, the final export (export_last.ply, .ingp, .usdz),
+    and test_renders/ with one pred_*.png per test view and the best and
+    worst pairs."""
     missing = [f"{c}.{e}" for c in ckpts for e in ("npz", "json")
                if not (run / f"{c}.{e}").exists()]
+    missing += [f"export_last.{e}" for e in ("ply", "ingp", "usdz")
+                if not (run / f"export_last.{e}").exists()]
     rows = [json.loads(ln) for ln in (run / "metrics.jsonl").read_text()
             .splitlines()]
     tags = {(r["step"], k) for r in rows for k in r if k not in ("t",
@@ -2101,7 +2570,39 @@ def check_run_dir(leg, run, ckpts, train_log_steps, val_steps, n_test):
     if missing:
         fail(f"{leg}: missing artifacts {missing}")
     return dict(checkpoints=ckpts, metrics_lines=len(rows),
-                tensorboard_events=len(events), test_preds=len(preds))
+                tensorboard_events=len(events), test_preds=len(preds),
+                export_bytes={e: (run / f"export_last.{e}").stat().st_size
+                              for e in ("ply", "ingp", "usdz")})
+
+
+def exported_frame(leg, tr, run, dev):
+    """The train entry's export_last.ply read back through api.load_scene
+    onto the card: its alive rows equal the trainer's, and its frame of the
+    first test view is within golden.compare of the trainer's parameters'
+    frame (the same particles without the dead slots; visibility, over
+    other slots, is not compared)."""
+    from threedgrut_torch import api, golden
+    from threedgrut_torch.export import alive_rows
+    t0 = time.perf_counter()
+    back = api.load_scene(str(run / "export_last.ply"), device=dev)
+    read_s = time.perf_counter() - t0
+    want, got = alive_rows(tr.params), alive_rows(back)
+    unequal = [k for k in want if not np.array_equal(want[k], got[k])]
+    view = tr.val_dataset[0]
+    frames = []
+    for p in (tr.params, back):
+        with torch.no_grad():
+            out, _ = render_retry(api, p, view.camera, view.T_to_world,
+                                  view.resolution, tr.isect_capacity, dev)
+        frames.append(frame_of(out))
+    rep, ok = golden.compare(frames[1], frames[0])
+    rec = dict(read_s=read_s, alive=int(back.num_active()),
+               capacity=back.capacity, unequal=unequal, frame=rep,
+               frame_bit_equal=all(torch.equal(frames[0][k], frames[1][k])
+                                   for k in golden.FLIP_BOUND))
+    if unequal or not ok:
+        fail(f"{leg}: export_last.ply read back differs: {json.dumps(rec)}")
+    return rec
 
 
 def render_leg(leg, ckpt, out_dir, dev, kernels, n_views):
@@ -2253,6 +2754,7 @@ def data_entry_points(dev, tag):
             list(range(100, NERF_ITERS + 1, 100)),
             list(range(sch["val"], NERF_ITERS + 1, sch["val"])),
             NERF_VIEWS[1])
+        rec["export"] = exported_frame(leg, tr, runs / "nerf", dev)
         rec["decode"] = dec
         rec["h2d_ms_per_frame"] = h2d_ms(tr.dataset[0], dev)
         rec["h2d_share_of_step"] = (rec["h2d_ms_per_frame"]
@@ -3170,6 +3672,10 @@ def main() -> int:
               f"coverage {cover:.4f} visible {nvis} "
               f"rgb mean {float(out.rgb.mean()):.5f} {tag}", flush=True)
 
+    # ---- 5b. inference and export at full width ---------------------------
+    infer_rec, infer_launches, (infer_scene, infer_pose) = inference_export(
+        params, cam, cap, dev, tag)
+
     # ---- 6. train main path at full width --------------------------------
     tr, view, train_launches, train_rec = train_main_path(dev, tag)
     rowterm_cfg = Config()
@@ -3302,6 +3808,13 @@ def main() -> int:
 
     breakdown = profile_run(frame, ("3dgut.",))
     print(f"profiled frame: {json.dumps(breakdown)} {tag}", flush=True)
+    from threedgrut_torch.render import infer
+    ibreak = profile_run(lambda: infer.render_compact(
+        infer_scene, cam, infer_pose, MAIN_RES, BENCH_CAPC, device=dev),
+        ("infer.", "3dgut."))
+    print(f"profiled compact frame (bench.py's BENCH_INFER=compact): "
+          f"{json.dumps(ibreak)} {tag}", flush=True)
+    del infer_scene
     tbreak = profile_run(lambda: tr.train_step(view), ("train.", "3dgut."))
     print(f"profiled train step: {json.dumps(tbreak)} {tag}", flush=True)
     tr_s, view_s = option_runs["sorted16"][:2]
@@ -3336,7 +3849,8 @@ def main() -> int:
     flbreak = profile_run(flat_trace, ("3dgrt.",))
     print(f"profiled 3DGRT trace (1M, flat cull): {json.dumps(flbreak)} "
           f"{tag}", flush=True)
-    if min(breakdown["device_busy_ms"], tbreak["device_busy_ms"],
+    if min(breakdown["device_busy_ms"], ibreak["device_busy_ms"],
+           tbreak["device_busy_ms"],
            sbreak["device_busy_ms"], gbreak["device_busy_ms"],
            fbbreak["device_busy_ms"], flbreak["device_busy_ms"]) <= 0.0:
         fail("the profiler recorded no device time")
@@ -3371,6 +3885,15 @@ def main() -> int:
                 entry[run_name] = (0 if option and not r.get("channels")
                                    else counts.get(base, 0))
         r["launches_entry"] = entry
+    # Phase 5b's launches of each kernel, by run: B1's default leg in every
+    # frame but the frozen ones between refreshes, which run its sorted leg
+    # (the "[sorted16]" record); B3 and B4 in every refresh, exact and
+    # compact frame and capture_binning.
+    for r in records:
+        base, _, option = r["name"].partition("[")
+        leg = option.rstrip("]") or "default"
+        r["launches_infer"] = {run: counts.get(leg, {}).get(base, 0)
+                               for run, counts in infer_launches.items()}
     for d in data_recs:
         print(f"{d['leg']}: {d['steps']} steps on {d['views']} views, alive "
               f"{d.get('alive_before')} -> {d['alive_after']} in "
@@ -3409,6 +3932,17 @@ def main() -> int:
               f"{r['step_ms']:.3f}; rays/s {r['rays_per_s']:.4e}; "
               f"max_memory_allocated {r['peak_gib']:.3f} GiB {tag}",
               flush=True)
+    for name, r in infer_rec["orbit"].items():
+        print(f"inference orbit {name}: ms a frame median "
+              f"{r['ms_per_frame_median']:.3f} (mean "
+              f"{r['ms_per_frame_mean']:.3f}; refresh "
+              f"{r['refresh_ms_median']:.3f}, between "
+              f"{r['between_ms_median']:.3f}), PSNR min / mean "
+              f"{r.get('psnr_min')} / {r.get('psnr_mean')}, overflow frames "
+              f"{r['overflow_frames']} {tag}", flush=True)
+    print(f"export at 1M: {json.dumps(infer_rec['export'])}; phase 5b "
+          f"max_memory_allocated {infer_rec['peak_gib']:.3f} GiB {tag}",
+          flush=True)
     print(f"chip_smoke wall {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -33,6 +33,7 @@ from threedgrut_tpu.config import to_dict as jto_dict
 from threedgrut_tpu.model import gaussians as jg
 from threedgrut_tpu.model import losses as jlosses
 from threedgrut_tpu.utils import writer as jwriter
+from threedgrut_torch import api as tapi
 from threedgrut_torch import datasets as tdatasets
 from threedgrut_torch import render_eval as trender_eval
 from threedgrut_torch import train as ttrain
@@ -258,9 +259,11 @@ def test_log_val_images_matches_jax(nerf_dir):
 
 def test_train_and_render_entry_points(nerf_dir, tmp_path):
     """python -m threedgrut_torch.train / .render with --device cpu on the
-    NeRF scene: checkpoints, metrics, the final test renders, then the
-    render entry on the last checkpoint. Without a card, the default
-    device raises; the unported options are refused."""
+    NeRF scene: checkpoints, metrics, the final export (export_last.ply,
+    .ingp and .usdz; the PLY loads back through api.load_scene as the last
+    checkpoint's alive rows), the final test renders, then the render
+    entry on the last checkpoint. Without a card, the default device
+    raises; the unported options are refused."""
     out = str(tmp_path)
     args = ["--device", "cpu", "--config-name", "nerf_synthetic_3dgut",
             f"path={nerf_dir}", f"out_dir={out}", "experiment_name=t",
@@ -270,8 +273,18 @@ def test_train_and_render_entry_points(nerf_dir, tmp_path):
     assert ttrain.main(args) == 0
     run = os.path.join(out, "t")
     for f in ("ckpt_2.npz", "ckpt_2.json", "ckpt_last.npz",
+              "export_last.ply", "export_last.ingp", "export_last.usdz",
               "test_renders/pred_0000.png", "test_renders/pred_0001.png"):
         assert os.path.exists(os.path.join(run, f)), f
+    back = tapi.load_scene(os.path.join(run, "export_last.ply"),
+                           device="cpu")
+    with np.load(os.path.join(run, "ckpt_last.npz")) as last:
+        alive = last["params/alive"]
+        n = int(alive.sum())
+        assert int(back.num_active()) == n
+        for f in tg.FIELDS[:-1]:
+            assert np.array_equal(getattr(back, f).detach().numpy()[:n],
+                                  last[f"params/{f}"][alive]), f
     with open(os.path.join(run, "metrics.jsonl")) as fh:
         rows = [json.loads(ln) for ln in fh]
     tags = {(r["step"], k) for r in rows for k in r if k not in ("t",

@@ -1,6 +1,7 @@
-"""Guards of the PyTorch port: it never imports JAX or the JAX package,
-importing it builds nothing, and its entry points refuse to fall back to
-the CPU when a card was asked for and none is present."""
+"""Guards of the PyTorch port: it never imports JAX, the JAX package or
+msgpack (the exporters carry their own coder), importing it builds
+nothing, and its entry points refuse to fall back to the CPU when a card
+was asked for and none is present."""
 import ast
 import subprocess
 import sys
@@ -13,6 +14,7 @@ import torch
 from threedgrut_torch import api
 from threedgrut_torch.cameras import example_camera, pose_from_matrix
 from threedgrut_torch.model import gaussians
+from threedgrut_torch.render import infer
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "threedgrut_torch").rglob("*.py")) + [
@@ -32,7 +34,8 @@ def test_no_jax_imports(path):
             continue
         for name in names:
             root = name.split(".")[0]
-            assert root not in ("jax", "jaxlib", "threedgrut_tpu"), (
+            assert root not in ("jax", "jaxlib", "threedgrut_tpu",
+                                "msgpack"), (
                 f"{path.name}:{node.lineno} imports {name}")
 
 
@@ -90,8 +93,26 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         api.trace(params, np.zeros((256, 3), np.float32),
                   np.ones((256, 3), np.float32))
+    for ext in ("npz", "ply", "ingp"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            api.load_scene(str(ROOT / f"missing.{ext}"))
+    acts = (params.get_positions(), params.get_rotation(),
+            params.get_scale(), params.get_density(), params.get_features())
+    cam = example_camera((32, 32), "cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        api.load_scene(str(ROOT / "missing.npz"))
+        infer.refresh(*acts, cam, pose, (32, 32), 1024, 16)
+    scene = infer.compact_visible(*acts, torch.ones(16, dtype=torch.bool),
+                                  16, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        infer.compact_visible(*acts, torch.ones(16, dtype=torch.bool), 16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        infer.render_compact(scene, cam, pose, (32, 32), 1024)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        infer.capture_binning(scene, cam, pose, (32, 32), 1024)
+    frozen = infer.capture_binning(scene, cam, pose, (32, 32), 1024,
+                                   device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        infer.render_frozen(scene, frozen, cam, pose, (32, 32))
 
 
 def test_strategies_refuse_a_missing_card(monkeypatch):

@@ -34,7 +34,11 @@ window, B2 on it bit-equal to B2 given none, and both legs with per-pixel
 origins (no tile's rays share one) at the default legs' tolerances. B9 exact
 (a copy; also against its plain three-pass mirror on edge cases) and
 bit-identical across launches; the flat cull's legs card vs
-CPU within golden.lists_agree at TRACE_FLIP_SHARE (cone-margin flips)."""
+CPU within golden.lists_agree at TRACE_FLIP_SHARE (cone-margin flips).
+Inference card vs CPU (chip_smoke.infer_card_vs_cpu): frames within
+golden.compare, compacted ids up to census flips on 0.1% of the visible
+count, frozen binnings exactly equal; a scene exported and read back
+onto the card bit-equal, its frame bit for bit."""
 import os
 import shutil
 
@@ -1237,6 +1241,7 @@ def test_trainer_densifies_on_the_card(dev, method):
     from threedgrut_torch.datasets.protocols import View
     from threedgrut_torch.model.gaussians import FIELDS, padded_fields
     from threedgrut_torch.strategy import gs
+    from threedgrut_torch.train import make_strategy
     from threedgrut_torch.trainer import Trainer
     n, cap, res = 20_000, 24_576, (256, 192)
     f = bench_scene(n, seed=2)
@@ -1253,7 +1258,7 @@ def test_trainer_densifies_on_the_card(dev, method):
     tr = Trainer(cfg, chip_smoke.OneView(view, 4.0),
                  params=from_numpy(fields, device=dev), device=dev)
     dead = chip_smoke.kill_share(tr.params, n)
-    tr.strategy = chip_smoke.make_strategy(tr.cfg, cap, dev)
+    tr.strategy = make_strategy(tr.cfg, cap, dev)
 
     def set_threshold(k, tr):
         if k == 0 and method == "gs":
@@ -1273,3 +1278,48 @@ def test_trainer_densifies_on_the_card(dev, method):
     else:
         assert rows[1]["relocate"] == dead
         assert alive[1] == int(1.05 * n) and alive[-1] > alive[1]
+
+
+@pytest.mark.parametrize("seed", [2, 7])
+def test_inference_card_matches_cpu(dev, seed):
+    """chip_smoke phase 5b (c) at 20,000 particles, 256x192: infer.refresh
+    on the card against the CPU (compacted id sets equal up to census flips
+    on 0.1% of the visible count), capture_binning of one compacted scene
+    exactly equal on both, render_compact and render_frozen (B1's sorted
+    leg on a binning captured two orbit frames earlier) within
+    golden.compare; the frozen frame's visibility is None."""
+    import chip_smoke
+    fields = bench_scene(20_000, seed=seed, specular_std=0.1)
+    fields["scale"] = fields["scale"] + np.float32(np.log(4.0))
+    rep, ok = chip_smoke.infer_card_vs_cpu(
+        fields, (256, 192), 1 << 18, dev, chip_smoke.orbit_deg_T(0),
+        chip_smoke.orbit_deg_T(chip_smoke.INFER_STALE_FRAME))
+    assert ok, rep
+    assert rep["visible"] > 1000 and not rep["capture_unequal_fields"]
+
+
+def test_export_round_trip_on_the_card(dev, tmp_path):
+    """A scene on the card written as .ply and .ingp and read back through
+    api.load_scene onto the card: the alive rows and mask bit-equal, and
+    the frame bit for bit (the kernels are deterministic; dead slots carry
+    opacity 0 whatever their other values)."""
+    from threedgrut_torch.export import alive_rows
+    from threedgrut_torch.export.ingp import export_ingp
+    from threedgrut_torch.export.ply import export_ply
+    p, cam, pose = scene(20_000, (256, 192), dev)
+    with torch.no_grad():
+        want, _ = api.render(p, cam, pose, (256, 192),
+                             isect_capacity=1 << 18, device=dev)
+    for name, write in (("s.ply", export_ply), ("s.ingp", export_ingp)):
+        write(p, str(tmp_path / name))
+        back = api.load_scene(str(tmp_path / name), device=dev)
+        assert back.positions.device.type == "cuda"
+        assert torch.equal(back.alive, p.alive)
+        want_rows, got_rows = alive_rows(p), alive_rows(back)
+        for f, x in want_rows.items():
+            assert np.array_equal(got_rows[f], x), (name, f)
+        with torch.no_grad():
+            got, _ = api.render(back, cam, pose, (256, 192),
+                                isect_capacity=1 << 18, device=dev)
+        for f in golden.OUTPUTS:
+            assert torch.equal(getattr(got, f), getattr(want, f)), (name, f)

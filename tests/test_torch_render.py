@@ -159,8 +159,8 @@ def test_load_scene_reads_the_jax_checkpoint_format(tmp_path):
     for k in FIELDS:
         assert np.array_equal(np.asarray(getattr(j, k)),
                               getattr(t, k).detach().numpy()), k
-    with pytest.raises(NotImplementedError):
-        tapi.load_scene(str(tmp_path / "scene.ply"), device="cpu")
+    with pytest.raises(ValueError, match="unsupported scene format"):
+        tapi.load_scene(str(tmp_path / "scene.obj"), device="cpu")
 
 
 @pytest.mark.parametrize("kw,match", [

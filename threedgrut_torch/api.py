@@ -15,17 +15,23 @@ from threedgrut_torch.device import resolve
 from threedgrut_torch.model.gaussians import FIELDS, Gaussians, from_numpy
 
 
-def load_scene(path: str, device="cuda") -> Gaussians:
-    """Load a scene onto `device`. The JAX package's .npz checkpoints (keys
-    `params/<field>`) are read; .ply and .ingp are not ported yet."""
+def load_scene(path: str, capacity: Optional[int] = None,
+               device="cuda") -> Gaussians:
+    """Load a scene onto `device`: a 3DGS .ply, an .ingp (both padded to
+    `capacity`, default round_capacity of their row count) or the JAX
+    package's .npz checkpoint (keys `params/<field>`, at its own
+    capacity)."""
     dev = resolve(device)
     ext = os.path.splitext(path)[1].lower()
+    if ext == ".ply":
+        from threedgrut_torch.export.ply import import_ply
+        return import_ply(path, capacity=capacity, device=dev)
+    if ext == ".ingp":
+        from threedgrut_torch.export.ingp import import_ingp
+        return import_ingp(path, capacity=capacity, device=dev)
     if ext == ".npz":
         with np.load(path) as data:
             return from_numpy({f: data[f"params/{f}"] for f in FIELDS}, dev)
-    if ext in (".ply", ".ingp"):
-        raise NotImplementedError(
-            f"{ext} import is not ported yet (ROADMAP queue A, export slice)")
     raise ValueError(f"unsupported scene format {ext!r}")
 
 

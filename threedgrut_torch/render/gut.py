@@ -259,13 +259,16 @@ def render(positions, quats, scales, opacities, features, cam: Camera,
     img = tile_unpack(out, tile_grid)[:h, :w]
     # Visibility: projected to a renderable splat this frame; with
     # hit_visibility, also contributed at some pixel (a particle's slots are
-    # reduced with one scatter of their binarized flags).
+    # reduced with one scatter of their binarized flags; slots that did not
+    # contribute, and tail slots, write row n, which is dropped: no boolean
+    # mask index, so no wait for the device).
     visibility = proj.valid & (proj.n_tiles > 0)
     if hit_visibility:
         n = positions.shape[0]
         hit = torch.zeros(n + 1, dtype=torch.bool, device=dev)
-        contributed = flags_slot > visibility_threshold
-        hit[binning.sorted_particle_idx[contributed].long()] = True
+        ids = torch.where(flags_slot > visibility_threshold,
+                          binning.sorted_particle_idx, n)
+        hit[ids.long()] = True
         visibility = visibility & hit[:n]
     outputs = RenderOutputs(
         rgb=img[..., 0:3], opacity=img[..., 3], depth=img[..., 4],

@@ -15,8 +15,10 @@ from strategy.method (gs, mcmc, none) before the checkpoint loads, so a
 resumed run restores the strategy's state and goes on densifying (the root
 train.py resumes without one, ROADMAP C11). Metrics go to
 <out_dir>/<experiment_name> (metrics.jsonl, TensorBoard events where
-tensorboard imports) beside the checkpoints; the test split is rendered and
-scored at the end (test_renders/).
+tensorboard imports) beside the checkpoints; at the end the scene is
+exported (export_last.ply, .ingp and .usdz, the USDZ normalized by the
+training cameras' poses where the dataset has them) and the test split is
+rendered and scored (test_renders/).
 
 Runs on the card (`--device cuda`, the default; an error without one) or,
 with `--device cpu`, on the CPU through the kernels' plain versions.
@@ -94,6 +96,9 @@ def run(argv=None) -> Tuple[object, Optional[dict]]:
     from threedgrut_torch import config as config_mod
     from threedgrut_torch import datasets
     from threedgrut_torch.device import resolve
+    from threedgrut_torch.export.ingp import export_ingp
+    from threedgrut_torch.export.ply import export_ply
+    from threedgrut_torch.export.usdz import export_usdz
     from threedgrut_torch.model import gaussians
     from threedgrut_torch.render_eval import Renderer
     from threedgrut_torch.trainer import Trainer
@@ -179,8 +184,14 @@ def run(argv=None) -> Tuple[object, Optional[dict]]:
           f"method={run_cfg.render.method}, "
           f"strategy={run_cfg.strategy.method}, device={dev}", flush=True)
     trainer.run(out_dir=out_dir)
-    print("export (ply, ingp, usdz) is not ported yet (ROADMAP queue A "
-          "item 5): no export_last.* written", flush=True)
+    # The final export (reference trainer.on_training_end): a failed export
+    # fails the run.
+    export_ply(trainer.params, os.path.join(out_dir, "export_last.ply"))
+    export_ingp(trainer.params, os.path.join(out_dir, "export_last.ingp"))
+    export_usdz(trainer.params, os.path.join(out_dir, "export_last.usdz"),
+                dataset_poses=getattr(dataset, "_poses", None))
+    print(f"exported export_last.ply, .ingp and .usdz to {out_dir}",
+          flush=True)
     summary = None
     if val_dataset is not None:
         summary = Renderer(trainer, val_dataset).render_all(
