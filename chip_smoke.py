@@ -8,10 +8,10 @@ threedgrut_torch/csrc/ into build/ on first use). Imports nothing of JAX.
 Phases, each of which fails the run on a miss:
 
   1. device: name, count, power limit; TF32 off for matmuls and cuDNN;
-  2. build: the eight sources (B3 cull_masks, B4 expand_keys, B1
+  2. build: the nine sources (B3 cull_masks, B4 expand_keys, B1
      tile_raster_fwd, B2 tile_raster_bwd, B5/B6 segment_sum, B7
-     bundle_trace_fwd, B8 bundle_trace_bwd, B9 stream_compact) in
-     parallel, with nvcc's register/smem/spill report;
+     bundle_trace_fwd, B8 bundle_trace_bwd, B9 stream_compact, M1
+     mesh_intersect) in parallel, with nvcc's register/smem/spill report;
   3. golden: the card's render of the golden scene (also with 16 re-sort
      passes and with row termination) and its 3DGRT trace (on the dense
      and on the flat cull) against the JAX reference's stored outputs
@@ -54,6 +54,33 @@ Phases, each of which fails the run on a miss:
      .usdz of the 1M scene written and read back (api.load_scene bit-equal,
      its frame bit for bit; fp16 values equal to numpy's rounding), bytes
      and host seconds of each; the phase's peak memory;
+  5c. (run after 8b, so that the phases before keep their order) the
+     playground at full width on phase 5's scene
+     (threedgrut_torch/playground/, gui.py): a mirror floor, a glass
+     icosphere (1,280 faces) and a textured, normal-mapped .glb card
+     written at the start, an equirect envmap from numpy, the viewer at
+     bench.py's camera; (a) WebViewer frames in trace mode (3 bounces,
+     spp 1; then spp 4 with depth of field and the a-trous denoiser
+     over the centre 200x200), hybrid mode and raster mode along a
+     16-frame orbit: per mode the
+     first frame's capacity growth (each growth an overflow flag), ms a
+     frame, launches a frame (B7 per trace call, M1 per bounce, B3, B4, B1
+     per hybrid or raster frame) and the phase's peak memory; (b)
+     Engine.render and render_hybrid card vs CPU at phase 4's scene
+     through the centre 128x128 of the full-width camera (primary mesh
+     faces equal off the edges; frames within golden.compare's value rule
+     at TRACE_FLIP_SHARE); (c) M1 against its plain version at (a)'s
+     640,000 primary rays (bit-equal expected), timed beside its bound;
+     (d) the HTTP surface on a loopback port over the centre 160x160
+     (every mode and
+     channel, the edits, a 2-keyframe video) and TrainingGUI on a
+     full-width trainer taking 3 steps while another thread requests
+     frames; (e) `python -m threedgrut_torch.playground --gs_object <the
+     1M scene as .ply> --no-serve`; then, outside the phase's wall, (f)
+     phase 6's train steps run again right after it and again after
+     torch.cuda.empty_cache(), each with the allocator's counters, the
+     live threads, the card's SM clock and temperature, and one step
+     profiled (device busy time and idle share);
   6. train main path: Trainer.train_step at full width (bench.py's scene,
      camera and Config defaults), 6 steps, the last with
      walk_compact_fraction=0 (the dense branch, B5); losses, step ms,
@@ -148,7 +175,8 @@ Phases, each of which fails the run on a miss:
      both with per-pixel origins (the train inputs' ray origins nudged
      one by one, so the kernels take the pair's per-pixel form) against
      their plain versions, timed beside the shared-origin form;
-  10. profile: one full-width frame, one compact frame (5b(b)'s), one
+  10. profile: one full-width frame, one compact frame (5b(b)'s), a
+     playground hybrid and trace frame (5c's scene at 400x400), one
      full-width train step (default
      and sorted), one 100k trace, one 100k fwd+bwd and one 1M trace on the
      flat cull (its "3dgrt.cull" span split into its stages) under
@@ -159,7 +187,8 @@ phase began less what earlier phases still held then (phase_start).
 
 Each path checks the kernels of its own renderer and pass
 (cuda_build.kernels_of; B6 is in both renderers' backward; B9 runs only
-on the flat cull's compact_kernel leg, phase 8b).
+on the flat cull's compact_kernel leg, phase 8b; M1 only on phase 5c's
+playground paths).
 
 The line before the last holds the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. A failed phase prints FAIL and exits 1.
@@ -1938,6 +1967,679 @@ def inference_export(params, cam, cap, dev, tag):
                 export=export, peak_gib=peak), launches, steady
 
 
+# ---- phase 5c: the playground ---------------------------------------------
+
+# The viewer's camera at full width: example_camera's focal (0.9 x width)
+# as a field of view, and bench.py's eye (0, -4, 1) as an orbit about the
+# origin (yaw, pitch, radius).
+PG_FOV_DEG = math.degrees(2.0 * math.atan(0.5 / 0.9))
+
+
+def pg_fov(res) -> float:
+    """The field of view that makes a viewer frame of `res` the centre
+    crop of the full-width camera (its focal, 0.9 x 800 px): a 16x16 tile
+    then spans the full-width frame's angle, and its cone the same
+    candidates (the spp 4 sample at 400x400 over the whole view, with
+    depth of field, outgrew 32768 candidates in a camera tile, and the
+    capacity grew to its ceiling)."""
+    return math.degrees(2.0 * math.atan(0.5 * res[0] / (0.9 * MAIN_RES[0])))
+PG_EYE = (-0.5 * math.pi, math.asin(1.0 / math.sqrt(17.0)), math.sqrt(17.0))
+PG_STEP = math.radians(0.5)       # orbit step between frames
+PG_BOUNCES = 3                    # playground.py's --max_bounces default
+# The engine's first candidate capacity: a full-width frame of the 1M scene
+# needs more than EngineConfig's 2048 (each growth costs a whole frame);
+# from here the first frame still grows it (to engine.SPLIT_COUNT, 32768,
+# on the H100).
+PG_START_CAPACITY = 16384
+PG_TRACE_FRAMES = 1               # timed frames after the first
+PG_SPP = 4
+PG_SPP_FRAMES = 0                 # its first frame is the sample
+PG_HYBRID_FRAMES = 1
+PG_RASTER_FRAMES = 16
+PG_VIDEO_FRAMES = 2
+PG_GUI_STEPS = 3
+# Phase 10's profiled playground frames at this resolution over the whole
+# view: a full-width trace or hybrid frame takes seconds.
+PG_SMALL_RES = (400, 400)
+# The spp 4 sample with depth of field and the denoiser at this
+# resolution, the centre crop of the full-width view (pg_fov): the glass
+# ball's refractions, the costliest rays of the scene (over the centre
+# 400x400 the sample took 57.8 s on the H100).
+PG_SPP_RES = (200, 200)
+# (d)'s HTTP surface and video at this resolution (a centre crop).
+PG_HTTP_RES = (160, 160)
+# (b) card vs CPU: phase 4's scene seen through the centre 128x128 of the
+# full-width camera (its focal), 2 bounces, a candidate capacity that fits
+# both devices' frames. Mesh faces may differ only on rays within
+# PG_EDGE_EPS (barycentric) of an edge, on at most PG_FACE_FLIP_SHARE of
+# the rays; frames within golden.compare's value rule at the trace's flip
+# share (golden.TRACE_FLIP_SHARE: the cone test admits a margin particle
+# on one device only).
+PG_PARITY_SIDE = 128
+PG_PARITY_BOUNCES = 2
+PG_PARITY_CAP = 8192
+PG_EDGE_EPS = 1e-5
+PG_FACE_FLIP_SHARE = 1e-3
+# M1 (csrc/mesh_intersect.cu): operations per ray x face pair, read off the
+# source (s = o - p0: 3; h: 9; a: 5; |a| test and select: 2; the
+# reciprocal: 2; u: 6; q: 9; w: 6; t: 6; the four bounds and u + w: 6; the
+# running minimum: 2), and the bytes a ray and a face need (rays in 24 B,
+# out 16 B; a face's p0, e1, e2 36 B). Kernel and plain version compute
+# the same f32 expressions, each rounded (--fmad=false): equal bits
+# expected; the tolerances cover nothing else.
+FLOP_MESH_PAIR = 56
+M1_T_RTOL = 1e-6
+M1_UW_ATOL = 1e-6
+M1_ITERS = 10
+
+
+def png_bytes(img: np.ndarray) -> bytes:
+    import io
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def write_glb(path, seed=5) -> None:
+    """A textured, normal-mapped quad as a .glb (JSON and BIN chunks, as
+    tests/test_playground.py's test_glb_roundtrip writes one): PBR factors,
+    an embedded PNG base colour texture (a checker) and normal map (tilted
+    normals), UVs."""
+    import struct
+    rng = np.random.default_rng(seed)
+    pos = np.array([[-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0]],
+                   np.float32)
+    uv = np.array([[0, 0], [2, 0], [2, 2], [0, 2]], np.float32)
+    idx = np.array([0, 1, 2, 0, 2, 3], np.uint32)
+    checker = ((np.indices((16, 16)).sum(0) // 4) % 2).astype(np.uint8)
+    tex = np.stack([checker * 200 + 40, 60 + checker * 0,
+                    240 - checker * 180], -1).astype(np.uint8)
+    nrm = np.clip(np.stack([128 + rng.integers(-40, 40, (8, 8)),
+                            128 + rng.integers(-40, 40, (8, 8)),
+                            np.full((8, 8), 230)], -1), 0, 255).astype(
+        np.uint8)
+    blobs, views = [pos.tobytes(), uv.tobytes(), idx.tobytes()], []
+    off = 0
+    for b in blobs:
+        views.append({"buffer": 0, "byteOffset": off, "byteLength": len(b)})
+        off += len(b)
+    for img in (tex, nrm):
+        data = png_bytes(img)
+        data += b"\0" * ((4 - len(data) % 4) % 4)
+        views.append({"buffer": 0, "byteOffset": off,
+                      "byteLength": len(data)})
+        blobs.append(data)
+        off += len(data)
+    binb = b"".join(blobs)
+    gltf = {
+        "asset": {"version": "2.0"}, "scene": 0, "scenes": [{"nodes": [0]}],
+        "nodes": [{"mesh": 0}],
+        "meshes": [{"primitives": [{
+            "attributes": {"POSITION": 0, "TEXCOORD_0": 1}, "indices": 2,
+            "material": 0}]}],
+        "materials": [{"pbrMetallicRoughness": {
+            "baseColorFactor": [1.0, 1.0, 1.0, 1.0], "metallicFactor": 0.2,
+            "roughnessFactor": 0.4, "baseColorTexture": {"index": 0}},
+            "normalTexture": {"index": 1}}],
+        "accessors": [
+            {"bufferView": 0, "componentType": 5126, "count": 4,
+             "type": "VEC3"},
+            {"bufferView": 1, "componentType": 5126, "count": 4,
+             "type": "VEC2"},
+            {"bufferView": 2, "componentType": 5125, "count": 6,
+             "type": "SCALAR"}],
+        "bufferViews": views, "buffers": [{"byteLength": len(binb)}],
+        "images": [{"bufferView": 3, "mimeType": "image/png"},
+                   {"bufferView": 4, "mimeType": "image/png"}],
+        "textures": [{"source": 0}, {"source": 1}]}
+    js = json.dumps(gltf).encode()
+    js += b" " * ((4 - len(js) % 4) % 4)
+    total = 12 + 8 + len(js) + 8 + len(binb)
+    Path(path).write_bytes(struct.pack("<III", 0x46546C67, 2, total)
+                           + struct.pack("<II", len(js), 0x4E4F534A) + js
+                           + struct.pack("<II", len(binb), 0x004E4942)
+                           + binb)
+
+
+def sky_envmap(h=64, w=128) -> np.ndarray:
+    """An equirect sky [h, w, 3] from numpy: blue above the horizon, brown
+    below, a sun of radiance ~4 (polar angle from +z, as
+    playground/envmap.py samples it)."""
+    theta = (np.arange(h) + 0.5) / h * np.pi
+    phi = ((np.arange(w) + 0.5) / w - 0.5) * 2 * np.pi
+    th, ph = np.meshgrid(theta, phi, indexing="ij")
+    up = np.clip(np.cos(th), 0, 1)[..., None]
+    sky = (1 - up) * np.array([0.8, 0.85, 0.9]) + up * np.array(
+        [0.25, 0.45, 0.9])
+    ground = np.array([0.35, 0.28, 0.2])
+    env = np.where((th < np.pi / 2)[..., None], sky, ground)
+    sun = np.exp(-((th - 0.6) ** 2 + (ph - 1.0) ** 2) / 0.01)[..., None]
+    return (env + 4.0 * sun).astype(np.float32)
+
+
+def playground_scene(dev, glb_path):
+    """Phase 5c's scene graph: playground.py's material table (mirror
+    0.95, glass of IOR 1.33), a mirror floor quad below the scene, a glass
+    icosphere (subdivision 3: 1,280 faces) on the line from bench.py's
+    camera to the scene's centre (it fills the centre ~25 degrees of the
+    view, so (b)'s centre crop is all glass), and the textured,
+    normal-mapped .glb card (its PBR material appended)."""
+    from threedgrut_torch.playground import materials as mat_mod
+    from threedgrut_torch.playground import mesh as mesh_mod
+    from threedgrut_torch.playground.gltf import load_glb_scene
+    from threedgrut_torch.playground.scene import SceneGraph
+    sg = SceneGraph(material_specs=[
+        dict(kind=mat_mod.MaterialKind.MIRROR, base_color=(0.95,) * 3),
+        dict(kind=mat_mod.MaterialKind.GLASS, ior=1.33)], device=dev)
+    sg.add("floor", mesh_mod.make_quad([0, 0, -2.2], [4, 0, 0], [0, 4, 0],
+                                       device=dev), material_id=0)
+    sg.add("ball", mesh_mod.make_icosphere([0.0, -2.2, 0.55], 0.45,
+                                           subdivisions=3, device=dev),
+           material_id=1)
+    card, specs = load_glb_scene(str(glb_path), device=dev)
+    off = len(sg.material_specs)
+    for s in specs:
+        sg.add_material(s)
+    card.material_id = card.material_id + off
+    sg.add("card", card, translation=(-1.0, -1.8, 0.2),
+           rotation_euler=(0.5 * math.pi, 0.0, 0.3), scale=0.35)
+    return sg
+
+
+def pg_camera(k: int):
+    """(yaw, pitch, radius) of orbit frame k about bench.py's eye."""
+    return (PG_EYE[0] + PG_STEP * k, PG_EYE[1], PG_EYE[2])
+
+
+def pg_mode(viewer, mode, frames, tag, res=MAIN_RES, **cfg):
+    """One viewer mode at resolution `res`, the centre crop of the
+    full-width view (pg_fov): its first frame (the capacities grow there:
+    each growth is an overflow flag the engine or the raster path
+    raised), then `frames` timed frames along the orbit, each with its
+    launches (with 0, the first frame is the sample, and must grow
+    nothing). Returns the mode's record."""
+    from threedgrut_torch.ops import cuda_build
+    viewer.mode = mode
+    viewer.resolution = res
+    viewer.fov_deg = pg_fov(res)
+    for k, v in cfg.items():
+        setattr(viewer.engine.cfg, k, v)
+    viewer.grown = []
+
+    def frame(k):
+        cuda_build.launches.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = viewer.render_outputs(*pg_camera(k))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        for f in ("rgb", "opacity", "depth"):
+            x = out[f]
+            if tuple(x.shape[:2]) != (res[1], res[0]) or not bool(
+                    torch.isfinite(x).all()):
+                fail(f"5c(a) {mode} frame {k}: {f} {tuple(x.shape)} not "
+                     f"finite or not the resolution's")
+        return out, ms, dict(cuda_build.launches), bool(
+            out.get("overflow", False))
+
+    out, first_ms, first_launches, first_flag = frame(0)
+    ms, launches, flags = [], [], []
+    for k in range(1, frames + 1):
+        out, m, n, flag = frame(k)
+        ms.append(m)
+        launches.append(n)
+        flags.append(flag)
+    if not frames:
+        # The first frame is the sample (the mode grew nothing).
+        if viewer.grown:
+            fail(f"5c(a) {mode}: its only frame grew {viewer.grown}")
+        ms, launches, flags = [first_ms], [first_launches], [first_flag]
+    cover = float((out["opacity"] > 0.01).float().mean())
+    rec = dict(mode=mode, config=dict(cfg), resolution=list(res),
+               first_frame_ms=first_ms,
+               ms=ms, ms_median=float(np.median(ms)),
+               grown=[list(g) for g in viewer.grown],
+               overflow_after_growth=flags,
+               candidate_capacity=viewer.engine.cfg.candidate_capacity,
+               raster_caps=viewer._raster_caps, launches=launches,
+               coverage=cover, rgb_mean=float(out["rgb"].mean()))
+    print(f"5c(a) {mode} {cfg} {res[0]}x{res[1]}: first frame "
+          f"{first_ms:.1f} ms (grew "
+          f"{rec['grown']}), ms a frame median {rec['ms_median']:.3f} of "
+          f"{len(ms)}, overflow after growth {flags}, candidate capacity "
+          f"{rec['candidate_capacity']}, raster caps {rec['raster_caps']}, "
+          f"launches a frame {launches[-1]}, coverage {cover:.4f} {tag}",
+          flush=True)
+    return rec
+
+
+PG_REQUIRED = {"trace": ("bundle_trace_fwd", "mesh_intersect"),
+               "hybrid": ("cull_masks", "expand_keys", "tile_raster_fwd",
+                          "bundle_trace_fwd", "mesh_intersect"),
+               "raster": ("cull_masks", "expand_keys", "tile_raster_fwd")}
+
+
+def pg_primary_rays(cam, T, res):
+    """The hybrid's primary rays (tile order, padded grid)."""
+    from threedgrut_torch import constants as C
+    from threedgrut_torch.cameras import pose_from_matrix
+    from threedgrut_torch.render import gut
+    wp, hp = gut.pad_to_tiles(res)
+    rays = gut.packed_world_rays(cam, pose_from_matrix(T),
+                                 (wp // C.TILE_X, hp // C.TILE_Y), T)
+    return (rays[:, 0:3, :].transpose(1, 2).reshape(-1, 3).contiguous(),
+            rays[:, 3:6, :].transpose(1, 2).reshape(-1, 3).contiguous())
+
+
+def m1_record(viewer, launches, tag, ptxas):
+    """(c) M1 against its plain version on the card at (a)'s primary rays
+    and faces: faces equal but where both give the same t (a tie, on at
+    most PG_FACE_FLIP_SHARE of the rays), t within M1_T_RTOL, u and w
+    within M1_UW_ATOL; CUDA-event times beside the bound."""
+    from threedgrut_torch.ops import mesh_intersect as mi
+    cam = viewer._camera()
+    T = viewer._pose(*pg_camera(0))
+    o, d = pg_primary_rays(cam, T, viewer.resolution)
+    mesh = viewer.engine.mesh
+    tri = mi.triangles(mesh.vertices, mesh.faces)
+    k = mi.closest_hits(o, d, tri)
+    p = mi.closest_hits_plain(o, d, tri)
+    torch.cuda.synchronize()
+    face_diff = k[1] != p[1]
+    ties = face_diff & (k[0] == p[0])
+    dt = torch.where(torch.isfinite(p[0]), (k[0] - p[0]).abs(),
+                     torch.zeros_like(p[0]))
+    finite_equal = bool((torch.isfinite(k[0]) == torch.isfinite(p[0])).all())
+    err = dict(face_diffs=int(face_diff.sum()), ties=int(ties.sum()),
+               t=float(dt.max()), u=float((k[2] - p[2]).abs().max()),
+               w=float((k[3] - p[3]).abs().max()),
+               bit_equal=all(torch.equal(a, b) for a, b in zip(k, p)),
+               hits=int(torch.isfinite(k[0]).sum()))
+    r, nf = o.shape[0], tri.shape[0]
+    t_tol = M1_T_RTOL * torch.nan_to_num(p[0].abs(), posinf=0.0)
+    ok = (finite_equal and err["face_diffs"] == err["ties"]
+          and err["ties"] <= PG_FACE_FLIP_SHARE * r
+          and bool((dt <= t_tol).all())
+          and err["u"] <= M1_UW_ATOL and err["w"] <= M1_UW_ATOL)
+    print(f"5c(c) M1 vs plain on the card, {r} rays x {nf} faces: "
+          f"{json.dumps(err)}", flush=True)
+    if not ok:
+        fail("5c(c): M1 disagrees with its plain version")
+    ms = cuda_ms(lambda: mi.closest_hits(o, d, tri), M1_ITERS)
+    plain_ms = cuda_ms(lambda: mi.closest_hits_plain(o, d, tri), 1)
+    bound = bound_ms(r * (24 + 16) + nf * 36, r * nf * FLOP_MESH_PAIR)
+    print(f"kernel mesh_intersect (M1): {ms:.4f} ms, plain {plain_ms:.3f} "
+          f"ms, bound {bound[0]:.4f} ms ({bound[1]}), {r * nf} pairs "
+          f"{tag}", flush=True)
+    rep = next((v for kk, v in ptxas.items() if "mesh_intersect" in kk),
+               None)
+    return dict(
+        name="mesh_intersect", route="cuda",
+        source="threedgrut_torch/csrc/mesh_intersect.cu",
+        replaces="none: threedgrut_tpu/playground/mesh.py:186 intersect "
+                 "(XLA, no TPU kernel)",
+        launches=sum(launches.values()), launches_playground=launches,
+        max_abs_err=max(err["t"], err["u"], err["w"]), ms=ms,
+        plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+        library_ms=None, pairs=r * nf, ptxas=rep)
+
+
+def frames_agree(got, want, share):
+    """golden.compare's value rule on a frame's rgb, opacity and depth:
+    within 2e-4 + 1e-4 |want| on all but `share` of the values (at least
+    one)."""
+    rep, ok = {}, True
+    for f in ("rgb", "opacity", "depth"):
+        a = got[f].detach().cpu().double()
+        b = want[f].detach().cpu().double()
+        diff = (a - b).abs()
+        loose = int((diff > 2e-4 + 1e-4 * b.abs()).sum())
+        rep[f] = float(diff.max())
+        rep[f + "_loose"] = loose
+        ok &= loose <= max(1, math.floor(share * diff.numel()))
+    return rep, bool(ok)
+
+
+def playground_card_vs_cpu(fields, side, dev, glb_path):
+    """(b) Engine.render and render_hybrid on the card against the CPU:
+    `fields` (raw) through the centre side x side of the full-width camera
+    with phase 5c's meshes, materials and envmap, PG_PARITY_BOUNCES
+    bounces; the primary mesh hits' faces, then both frames. Returns
+    (report, ok)."""
+    from threedgrut_torch.cameras import PinholeCamera
+    from threedgrut_torch.model.gaussians import from_numpy
+    from threedgrut_torch.playground import engine as eng_mod
+    from threedgrut_torch.playground import mesh as mesh_mod
+    from threedgrut_torch import golden
+    cpu = torch.device("cpu")
+    res = (side, side)
+    out, hits = {}, {}
+    for d in (dev, cpu):
+        p = from_numpy(fields, device=d)
+        sg = playground_scene(d, glb_path)
+        eng = eng_mod.Engine(
+            p.get_positions(), p.get_rotation(), p.get_scale(),
+            p.get_density(), p.get_features(), mesh=sg.mesh(),
+            materials=sg.materials(), envmap=sky_envmap(),
+            config=eng_mod.EngineConfig(max_bounces=PG_PARITY_BOUNCES,
+                                        candidate_capacity=PG_PARITY_CAP),
+            device=d)
+        f = 0.9 * MAIN_RES[0]
+        z = [0.0]
+        cam = PinholeCamera(*(torch.tensor(x, dtype=torch.float32, device=d)
+                              for x in ([f, f], [side / 2, side / 2], z * 6,
+                                        z * 2, z * 4)))
+        T = torch.as_tensor(orbit_T(0), device=d)
+        o, dd = pg_primary_rays(cam, T, res)
+        hits[d] = mesh_mod.intersect(eng.mesh, o, dd)
+        out[d] = (eng.render(cam, T, res), eng.render_hybrid(cam, T, res))
+    hc, hg = hits[cpu], hits[dev]
+    u, w = hc.bary[:, 0], hc.bary[:, 1]
+    edge = torch.minimum(torch.minimum(u, w), 1 - u - w) < PG_EDGE_EPS
+    diff = hg.face.cpu() != hc.face
+    rep = dict(hits=int(torch.isfinite(hc.t).sum()),
+               face_diffs=int(diff.sum()),
+               face_diffs_off_edge=int((diff & ~edge).sum()))
+    ok = (rep["face_diffs_off_edge"] == 0 and rep["face_diffs"]
+          <= PG_FACE_FLIP_SHARE * diff.numel())
+    for name, i in (("render", 0), ("hybrid", 1)):
+        g, c = out[dev][i], out[cpu][i]
+        rep[name], ok_f = frames_agree(g, c, golden.TRACE_FLIP_SHARE)
+        rep[name]["overflow"] = [bool(g["overflow"]), bool(c["overflow"])]
+        ok &= ok_f and not any(rep[name]["overflow"])
+    return rep, bool(ok)
+
+
+def pg_http(viewer, dev, tag, tmp):
+    """(d) The viewer's HTTP surface on a loopback port at PG_HTTP_RES (the
+    centre crop of the full-width view):
+    GET /render in every mode and channel, POST /config, /preset,
+    /material, /primitive, /traj (a 2-keyframe video rendered), /state."""
+    import io
+    import urllib.request
+    from PIL import Image
+    server = viewer.serve(port=0, blocking=False, host="127.0.0.1")
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def get(path):
+        return urllib.request.urlopen(url + path, timeout=300).read()
+
+    def post(path, body):
+        req = urllib.request.Request(url + path,
+                                     data=json.dumps(body).encode(),
+                                     method="POST")
+        return json.loads(urllib.request.urlopen(req, timeout=300).read())
+
+    viewer.traj_path = str(tmp / "traj.json")
+    viewer.video_path = str(tmp / "traj.mp4")
+    viewer.resolution = PG_HTTP_RES
+    viewer.fov_deg = pg_fov(PG_HTTP_RES)
+    rec = {"render_ms": {}, "resolution": list(PG_HTTP_RES)}
+    try:
+        q = "/render?yaw={}&pitch={}&radius={}".format(*pg_camera(0))
+        for mode in ("trace", "hybrid", "raster"):
+            for channel in ("color", "density", "depth"):
+                post("/config", {"mode": mode, "channel": channel})
+                t0 = time.perf_counter()
+                img = np.asarray(Image.open(io.BytesIO(get(q))))
+                rec["render_ms"][f"{mode}/{channel}"] = (
+                    time.perf_counter() - t0) * 1e3
+                if img.shape != (PG_HTTP_RES[1], PG_HTTP_RES[0], 3):
+                    fail(f"5c(d): /render {mode}/{channel} gave "
+                         f"{img.shape}")
+        st = post("/config", {"mode": "trace", "channel": "color",
+                              "gamma": 2.2})
+        st = post("/preset", {"name": "fast"})
+        st = post("/material", {"id": 1, "ior": 1.5})
+        st = post("/primitive", {"name": "ball",
+                                 "translation": [0.1, -2.2, 0.5]})
+        for k in range(2):
+            st = post("/traj", dict(zip(("yaw", "pitch", "radius"),
+                                        pg_camera(20 * k)), op="add"))
+        post("/traj", {"op": "render", "frames": PG_VIDEO_FRAMES})
+        t0 = time.time()
+        while time.time() - t0 < 300:
+            st = json.loads(get("/state"))
+            if not st["video_status"].startswith("rendering"):
+                break
+            time.sleep(0.2)
+        rec["video_status"] = st["video_status"]
+        rec["video_s"] = time.time() - t0
+        ok = (st["config"]["gamma"] == 2.2 and st["config"]["spp"] == 1
+              and st["scene"]["materials"][1]["ior"] == 1.5
+              and st["scene"]["primitives"]["ball"]["translation"][2] == 0.5
+              and len(st["trajectory"]) == 2
+              and st["video_status"].startswith("wrote "))
+    finally:
+        server.shutdown()
+        server.server_close()
+    print(f"5c(d) HTTP surface: {json.dumps(rec)} {tag}", flush=True)
+    if not ok:
+        fail(f"5c(d): the HTTP edits or the video went wrong: {st}")
+    return rec
+
+
+def pg_training_gui(dev, tag):
+    """(d) TrainingGUI on a full-width Trainer (bench.py's scene, camera
+    and Config()) taking PG_GUI_STEPS steps while another thread requests
+    frames: every frame finite, /train_status reports the steps."""
+    import io
+    import threading
+    import urllib.request
+    from PIL import Image
+    from threedgrut_torch.gui import TrainingGUI
+    from threedgrut_torch.model.gaussians import bench_scene
+    gt = np.zeros((MAIN_RES[1], MAIN_RES[0], 3), np.float32)
+    tr, view = train_setup(bench_scene(MAIN_N, seed=0), MAIN_RES, MAIN_CAP,
+                           gt, dev)
+    gui = TrainingGUI(tr, port=0, resolution=MAIN_RES, host="127.0.0.1")
+    url = f"http://127.0.0.1:{gui.server.server_address[1]}"
+    frames, errors, stop = [], [], threading.Event()
+
+    def requester():
+        k = 0
+        while not stop.is_set():
+            try:
+                img = urllib.request.urlopen(
+                    url + "/render?yaw={}&pitch={}&radius={}".format(
+                        *pg_camera(k)), timeout=300).read()
+                frames.append(np.asarray(Image.open(io.BytesIO(img))))
+            except OSError as e:
+                errors.append(repr(e))
+                return
+            k += 1
+
+    worker = threading.Thread(target=requester, daemon=True)
+    try:
+        worker.start()
+        t0 = time.perf_counter()
+        for _ in range(PG_GUI_STEPS):
+            tr.train_step(view)
+        torch.cuda.synchronize()
+        steps_s = time.perf_counter() - t0
+        time.sleep(0.5)
+        stop.set()
+        worker.join(timeout=300)
+        st = json.loads(urllib.request.urlopen(url + "/train_status",
+                                               timeout=60).read())
+    finally:
+        stop.set()
+        gui.close()
+    rec = dict(steps=st["step"], frames=len(frames), errors=errors,
+               steps_s=steps_s, isect_capacity=gui.proxy.isect_capacity)
+    print(f"5c(d) TrainingGUI on a full-width trainer: {json.dumps(rec)} "
+          f"{tag}", flush=True)
+    if (worker.is_alive() or errors or not frames or st["step"]
+            != PG_GUI_STEPS or not all(np.isfinite(f).all() and f.shape
+                                       == (MAIN_RES[1], MAIN_RES[0], 3)
+                                       for f in frames)):
+        fail(f"5c(d): the live viewer failed: {rec}")
+    del tr, view
+    return rec
+
+
+def pg_entry(params, tag, tmp):
+    """(e) `python -m threedgrut_torch.playground --gs_object <the 1M
+    scene as a .ply> --no-serve` on the card."""
+    from threedgrut_torch.export.ply import export_ply
+    ply = tmp / "scene.ply"
+    export_ply(params, str(ply))
+    t0 = time.time()
+    r = subprocess.run([sys.executable, "-m", "threedgrut_torch.playground",
+                        "--gs_object", str(ply), "--no-serve"], cwd=ROOT,
+                       capture_output=True, text=True, timeout=600)
+    rec = dict(rc=r.returncode, wall_s=time.time() - t0,
+               stdout=r.stdout.strip().splitlines()[-1:])
+    print(f"5c(e) the playground entry: {json.dumps(rec)} {tag}",
+          flush=True)
+    if r.returncode != 0 or "rendered (400, 400, 3)" not in r.stdout:
+        fail(f"5c(e): the playground entry failed: {r.stderr[-2000:]}")
+    return rec
+
+
+def playground(params, dev, tag, ptxas):
+    """Phase 5c: the playground at full width on phase 5's scene. (a) the
+    viewer's modes (trace at 3 bounces, spp 4 with depth of field and the
+    a-trous denoiser, hybrid, raster along an orbit of 16 frames), (b)
+    card vs CPU at phase 4's scene, (c) M1 against its plain version, (d)
+    the HTTP surface and the live training viewer, (e) the entry. Returns
+    (records, launches per mode, M1's kernel record, the viewer)."""
+    import tempfile
+    from threedgrut_torch.model.gaussians import bench_scene
+    from threedgrut_torch.ops import cuda_build
+    from threedgrut_torch.playground import engine as eng_mod
+    from threedgrut_torch.playground.web_viewer import WebViewer
+    t_phase = time.time()
+    base = phase_start()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_pg_"))
+    glb = tmp / "card.glb"
+    write_glb(glb)
+    sg = playground_scene(dev, glb)
+    with torch.no_grad():
+        acts = (params.get_positions(), params.get_rotation(),
+                params.get_scale(), params.get_density(),
+                params.get_features())
+    engine = eng_mod.Engine(
+        *acts, mesh=sg.mesh(), materials=sg.materials(),
+        envmap=sky_envmap(),
+        config=eng_mod.EngineConfig(max_bounces=PG_BOUNCES,
+                                    candidate_capacity=PG_START_CAPACITY),
+        device=dev)
+    viewer = WebViewer(engine, resolution=MAIN_RES, fov_deg=PG_FOV_DEG,
+                       scene=sg)
+    print(f"5c scene: {engine.mesh.num_faces} faces, "
+          f"{len(sg.material_specs)} materials, envmap "
+          f"{tuple(engine.envmap.shape)}, viewer fov {PG_FOV_DEG:.3f} deg",
+          flush=True)
+    recs = {}
+    with torch.no_grad():
+        recs["trace"] = pg_mode(viewer, "trace", PG_TRACE_FRAMES, tag)
+        recs["trace_spp4_dof_atrous"] = pg_mode(
+            viewer, "trace", PG_SPP_FRAMES, tag, res=PG_SPP_RES,
+            spp=PG_SPP, use_dof=True, aperture=0.02, focus_z=4.0,
+            denoise=True, denoiser="atrous")
+        engine.cfg.spp, engine.cfg.use_dof, engine.cfg.denoise = 1, False, \
+            False
+        recs["hybrid"] = pg_mode(viewer, "hybrid", PG_HYBRID_FRAMES, tag)
+        recs["raster"] = pg_mode(viewer, "raster", PG_RASTER_FRAMES, tag)
+    launches = {}
+    for name, r in recs.items():
+        mode = r["mode"]
+        total = {}
+        for counts in r["launches"]:
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+        launches[name] = total
+        for kname in PG_REQUIRED[mode]:
+            if total.get(kname, 0) <= 0:
+                fail(f"5c(a): kernel {kname} was not launched in {name}")
+    peak_a = phase_peak_gib(base)
+    t0 = time.time()
+    rep, ok = playground_card_vs_cpu(
+        bench_scene(PARITY_N, seed=0, specular_std=0.1), PG_PARITY_SIDE,
+        dev, glb)
+    print(f"5c(b) playground card vs CPU, {PARITY_N} Gaussians "
+          f"{PG_PARITY_SIDE}x{PG_PARITY_SIDE} ({time.time() - t0:.1f} s): "
+          f"{json.dumps(rep)}", flush=True)
+    if not ok:
+        fail("5c(b): the playground on the card disagrees with the CPU")
+    m1 = m1_record(viewer, {n: c.get("mesh_intersect", 0)
+                            for n, c in launches.items()}, tag, ptxas)
+    with torch.no_grad():
+        http = pg_http(viewer, dev, tag, tmp)
+    gui = pg_training_gui(dev, tag)
+    entry = pg_entry(params, tag, tmp)
+    peak = phase_peak_gib(base)
+    wall = time.time() - t_phase
+    print(f"phase 5c (playground) wall {wall:.1f} s, max_memory_allocated "
+          f"{peak:.3f} GiB ((a) {peak_a:.3f}) {tag}", flush=True)
+    return (dict(modes=recs, card_vs_cpu=rep, http=http, gui=gui,
+                 entry=entry, peak_gib=peak, peak_gib_a=peak_a,
+                 wall_s=wall), launches, m1, viewer)
+
+
+# (f) the allocator's counters read around each run (torch.cuda.memory_stats
+# keys): segments held, cudaMalloc and cudaFree calls, retries after a
+# failed cudaMalloc (each frees the cache and synchronizes), bytes reserved.
+ALLOC_KEYS = ("segment.all.current", "num_device_alloc", "num_device_free",
+              "num_alloc_retries", "reserved_bytes.all.current",
+              "inactive_split_bytes.all.current")
+
+
+def alloc_state() -> dict:
+    s = torch.cuda.memory_stats()
+    return {k: int(s.get(k, 0)) for k in ALLOC_KEYS}
+
+
+def card_state() -> dict:
+    """The card's SM clock (MHz), temperature (C) and power draw (W), as
+    nvidia-smi reads them."""
+    row = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,temperature.gpu,power.draw",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    return dict(zip(("sm_mhz", "temp_c", "power_w"),
+                    (float(x) for x in row.split(","))))
+
+
+def train_after_playground(dev, tag, phase6_ms):
+    """5c(f): whether the playground leaves the process slower to train.
+    train_main_path's run (phase 6's default trainer) right after phase
+    5c, then again after gc and torch.cuda.empty_cache(); for each, the
+    allocator's counters over the run and over two more steps (one warm,
+    one profiled: device busy time and idle share), the live threads, and
+    the card's SM clock and temperature before and after. Returns the
+    record."""
+    import gc
+    import threading
+    t0 = time.time()
+    rec = dict(phase6_step_ms=phase6_ms)
+    for name in ("after_playground", "after_empty_cache"):
+        if name == "after_empty_cache":
+            gc.collect()
+            torch.cuda.empty_cache()
+        a0, c0 = alloc_state(), card_state()
+        threads = sorted(t.name for t in threading.enumerate())
+        tr, view, _, r = train_main_path(dev, tag, mode=name)
+        a1 = alloc_state()
+        prof = profile_run(lambda: tr.train_step(view), ("train.",))
+        a2 = alloc_state()
+        rec[name] = dict(
+            step_ms=r["step_ms"], alloc_before=a0, threads=threads,
+            alloc_over_run={k: a1[k] - a0[k] for k in ALLOC_KEYS},
+            alloc_over_two_steps={k: a2[k] - a1[k] for k in ALLOC_KEYS},
+            profiled_step={k: prof[k] for k in (
+                "wall_ms", "device_busy_ms", "device_idle_share",
+                "kernel_launches")},
+            card_before=c0, card_after=card_state())
+        del tr, view
+    rec["wall_s"] = time.time() - t0
+    print(f"5c(f) train steps after the playground: {json.dumps(rec)} "
+          f"{tag}", flush=True)
+    return rec
+
+
 # ---- phase 6b: densification ---------------------------------------------
 
 COUNT_NAMES = {"gs": ("clone", "split", "prune"),
@@ -3710,6 +4412,14 @@ def main() -> int:
     # ---- 8b. the flat cull's legs: B9's main path ------------------------
     b9_launches, b9_args, leg_ms = grt_cull_legs(dev, tag)
 
+    # ---- 5c. the playground at full width (after 8b: the phases before
+    # keep the order, and the state, their timings were taken in) ---------
+    ptxas = ptxas_report(reports)
+    pg_rec, pg_launches, m1_rec, pg_viewer = playground(params, dev, tag,
+                                                        ptxas)
+    pg_rec["train_after"] = train_after_playground(dev, tag,
+                                                   train_rec["step_ms"])
+
     # ---- 9. kernels vs plain versions at the main paths' shapes ----------
     pose = pose_from_matrix(torch.as_tensor(orbit_T(0), device=dev))
     with torch.no_grad():
@@ -3726,7 +4436,6 @@ def main() -> int:
           f"scene)", flush=True)
     if bool(binning.overflow):
         fail("main path overflowed")
-    ptxas = ptxas_report(reports)
     records = binning_records(proj, binning, grid, cap,
                               (train_launches, fwd_launches), ptxas, tag)
 
@@ -3800,6 +4509,7 @@ def main() -> int:
     del g_inp, g_data, b7_runs
     records.append(b9_record(b9_args, b9_launches, leg_ms, tag, ptxas))
     del b9_args
+    records.append(m1_rec)
 
     # ---- 10. where a frame's, a train step's and a trace's time goes -----
     def frame():
@@ -3849,7 +4559,21 @@ def main() -> int:
     flbreak = profile_run(flat_trace, ("3dgrt.",))
     print(f"profiled 3DGRT trace (1M, flat cull): {json.dumps(flbreak)} "
           f"{tag}", flush=True)
+    pg_break = {}
+    pg_viewer.resolution = PG_SMALL_RES
+    pg_viewer.fov_deg = PG_FOV_DEG
+    for mode in ("hybrid", "trace"):
+        pg_viewer.mode = mode
+        pg_break[mode] = profile_run(
+            lambda: pg_viewer.render_outputs(*pg_camera(1)),
+            ("playground.", "3dgrt.", "3dgut."))
+        print(f"profiled playground frame ({mode}, 1M, {PG_SMALL_RES}): "
+              f"{json.dumps(pg_break[mode])} {tag}", flush=True)
+    pg_rec["profile"] = pg_break
+    del pg_viewer
     if min(breakdown["device_busy_ms"], ibreak["device_busy_ms"],
+           pg_break["hybrid"]["device_busy_ms"],
+           pg_break["trace"]["device_busy_ms"],
            tbreak["device_busy_ms"],
            sbreak["device_busy_ms"], gbreak["device_busy_ms"],
            fbbreak["device_busy_ms"], flbreak["device_busy_ms"]) <= 0.0:
@@ -3894,6 +4618,13 @@ def main() -> int:
         leg = option.rstrip("]") or "default"
         r["launches_infer"] = {run: counts.get(leg, {}).get(base, 0)
                                for run, counts in infer_launches.items()}
+    # Phase 5c's launches of each kernel, by mode (every frame of a mode
+    # after its first): B1's default leg only.
+    for r in records:
+        base, _, option = r["name"].partition("[")
+        r["launches_playground"] = {
+            name: 0 if option else counts.get(base, 0)
+            for name, counts in pg_launches.items()}
     for d in data_recs:
         print(f"{d['leg']}: {d['steps']} steps on {d['views']} views, alive "
               f"{d.get('alive_before')} -> {d['alive_after']} in "
@@ -3940,6 +4671,15 @@ def main() -> int:
               f"{r['between_ms_median']:.3f}), PSNR min / mean "
               f"{r.get('psnr_min')} / {r.get('psnr_mean')}, overflow frames "
               f"{r['overflow_frames']} {tag}", flush=True)
+    for name, r in pg_rec["modes"].items():
+        print(f"playground {name}: ms a frame median {r['ms_median']:.3f} "
+              f"(first frame {r['first_frame_ms']:.1f}, grew {r['grown']}), "
+              f"candidate capacity {r['candidate_capacity']}, launches a "
+              f"frame {r['launches'][-1]} {tag}", flush=True)
+    print(f"playground: phase 5c wall {pg_rec['wall_s']:.1f} s, "
+          f"max_memory_allocated {pg_rec['peak_gib']:.3f} GiB; idle share "
+          f"hybrid {pg_break['hybrid']['device_idle_share']:.3f}, trace "
+          f"{pg_break['trace']['device_idle_share']:.3f} {tag}", flush=True)
     print(f"export at 1M: {json.dumps(infer_rec['export'])}; phase 5b "
           f"max_memory_allocated {infer_rec['peak_gib']:.3f} GiB {tag}",
           flush=True)

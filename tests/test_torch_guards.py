@@ -115,6 +115,18 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
         infer.render_frozen(scene, frozen, cam, pose, (32, 32))
 
 
+def test_playground_entry_refuses_a_missing_card(monkeypatch):
+    """`python -m threedgrut_torch.playground --device cuda` (the default)
+    raises without a card instead of rendering on the CPU."""
+    from threedgrut_torch.playground import __main__ as playground_cli
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in (["--gs_object", str(ROOT / "missing.ply")],
+                 ["--gs_object", str(ROOT / "missing.ply"), "--device",
+                  "cuda", "--no-serve"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            playground_cli.main(argv)
+
+
 def test_strategies_refuse_a_missing_card(monkeypatch):
     """The densification strategies keep their state on the card by
     default; with none present they raise instead of using the CPU."""

@@ -38,7 +38,9 @@ CPU within golden.lists_agree at TRACE_FLIP_SHARE (cone-margin flips).
 Inference card vs CPU (chip_smoke.infer_card_vs_cpu): frames within
 golden.compare, compacted ids up to census flips on 0.1% of the visible
 count, frozen binnings exactly equal; a scene exported and read back
-onto the card bit-equal, its frame bit for bit."""
+onto the card bit-equal, its frame bit for bit. M1 (the playground's mesh
+closest-hit) bit-equal to its plain version; the playground's frames card
+vs CPU within golden.compare's value rule at TRACE_FLIP_SHARE."""
 import os
 import shutil
 
@@ -1323,3 +1325,61 @@ def test_export_round_trip_on_the_card(dev, tmp_path):
                                 isect_capacity=1 << 18, device=dev)
         for f in golden.OUTPUTS:
             assert torch.equal(getattr(got, f), getattr(want, f)), (name, f)
+
+
+def test_mesh_intersect_kernel_matches_plain(dev, tmp_path):
+    """M1 against its plain version on the card, bit for bit (the same f32
+    expressions, each rounded: --fmad=false): phase 5c's meshes (mirror
+    floor, glass icosphere of 1,280 faces, the .glb card) under a 256x192
+    grid of the full-width camera and 4,096 random rays; rays through the
+    shared diagonal of a quad with integer corners and a duplicated face
+    (exact ties: the lowest face wins); a mesh of no face."""
+    import chip_smoke
+    from threedgrut_torch.ops import mesh_intersect as mi
+    chip_smoke.write_glb(tmp_path / "card.glb")
+    mesh = chip_smoke.playground_scene(dev, tmp_path / "card.glb").mesh()
+    tri = mi.triangles(mesh.vertices, mesh.faces)
+    f = 0.9 * 800
+    cam = example_camera((256, 192), dev)._replace(
+        focal=torch.tensor([f, f], device=dev))
+    T = torch.as_tensor(chip_smoke.orbit_T(0), device=dev)
+    o, d = chip_smoke.pg_primary_rays(cam, T, (256, 192))
+    rng = np.random.default_rng(0)
+    ro = torch.tensor(rng.normal(0, 2, (4096, 3)), dtype=torch.float32,
+                      device=dev)
+    rd = torch.nn.functional.normalize(torch.tensor(
+        rng.normal(size=(4096, 3)), dtype=torch.float32, device=dev), dim=-1)
+    v = torch.tensor([[-1, -1, 2], [1, -1, 2], [1, 1, 2], [-1, 1, 2]],
+                     dtype=torch.float32, device=dev)
+    faces = torch.tensor([[0, 1, 2], [0, 2, 3], [3, 2, 0], [0, 1, 2]],
+                         dtype=torch.int32, device=dev)
+    xs = torch.tensor([-0.5, -0.25, 0.0, 0.25, 0.5, 0.75], device=dev)
+    to = torch.stack([xs, xs, torch.zeros_like(xs)], -1)
+    td = torch.tensor([[0.0, 0.0, 1.0]], device=dev).expand(6, 3)
+    cases = [(o, d, tri), (ro, rd, tri),
+             (to, td.contiguous(), mi.triangles(v, faces)),
+             (ro, rd, tri[:0].contiguous())]
+    n0 = cuda_build.launches["mesh_intersect"]
+    for i, (a, b, t) in enumerate(cases):
+        got = mi.closest_hits(a, b, t)
+        want = mi.closest_hits_plain(a, b, t)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y), i
+    assert cuda_build.launches["mesh_intersect"] == n0 + len(cases)
+    assert torch.isfinite(got[0]).sum() == 0
+    assert torch.isfinite(mi.closest_hits(o, d, tri)[0]).sum() > 1000
+    assert mi.closest_hits(*cases[2])[1].tolist() == [0] * 6
+
+
+def test_playground_frames_card_match_cpu(dev, tmp_path):
+    """chip_smoke phase 5c (b) at 20,000 particles on a 64x64 grid:
+    Engine.render and render_hybrid on the card against the CPU (primary
+    mesh faces equal off the edges; frames within golden.compare's value
+    rule at the trace's flip share)."""
+    import chip_smoke
+    chip_smoke.write_glb(tmp_path / "card.glb")
+    fields = bench_scene(20_000, seed=2, specular_std=0.1)
+    rep, ok = chip_smoke.playground_card_vs_cpu(fields, 64, dev,
+                                                tmp_path / "card.glb")
+    assert ok, rep
+    assert rep["hits"] > 100

@@ -41,11 +41,13 @@ SOURCES: Dict[str, tuple] = {
     "bundle_trace_fwd": ("--fmad=false",),
     "bundle_trace_bwd": ("--fmad=false",),
     "stream_compact": ("--fmad=false",),
+    "mesh_intersect": ("--fmad=false",),
 }
 # kernel (its C entry and launch counter) -> (source stem, the renderers
 # whose paths launch it: "gut" the tile rasterizer, "grt" the tracer; the
 # pass: "forward" in every render, "backward" only in a train step, "cull"
-# only in the flat 3DGRT cull's compact_kernel leg)
+# only in the flat 3DGRT cull's compact_kernel leg). M1 is the playground's
+# mesh test ("mesh"), which replaces no TPU kernel.
 KERNELS: Dict[str, Tuple[str, Tuple[str, ...], str]] = {
     "cull_masks": ("cull_masks", ("gut",), "forward"),              # B3
     "expand_keys": ("expand_keys", ("gut",), "forward"),            # B4
@@ -57,6 +59,7 @@ KERNELS: Dict[str, Tuple[str, Tuple[str, ...], str]] = {
     "bundle_trace_fwd": ("bundle_trace_fwd", ("grt",), "forward"),  # B7
     "bundle_trace_bwd": ("bundle_trace_bwd", ("grt",), "backward"),  # B8
     "compact_streams": ("stream_compact", ("grt",), "cull"),        # B9
+    "mesh_intersect": ("mesh_intersect", ("mesh",), "forward"),     # M1
 }
 
 

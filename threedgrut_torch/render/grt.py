@@ -58,6 +58,8 @@ class TraceResult(NamedTuple):
     overflow: torch.Tensor       # [] bool: a capacity was exceeded
     visibility: torch.Tensor     # [N] bool: entered some candidate list
     normal: Optional[torch.Tensor] = None  # [R, 3] weighted surface normal
+    # [nb] int32: each bundle's candidates, clamped to candidate_capacity
+    counts: Optional[torch.Tensor] = None
 
 
 def bounding_radius(scales, opacities, kernel_degree: int,
@@ -91,6 +93,12 @@ class Bundles(NamedTuple):
     base_radius: torch.Tensor  # [nb] max |o_r - o_b|
     tan_spread: torch.Tensor   # [nb] max tangent of ray-to-axis angle
     coherent: torch.Tensor     # [nb] bool: the cone test is meaningful
+    # [nb] with `spread_origins`: how far behind the mean origin, along
+    # the axis, a ray may start. The cone test keeps particles that far
+    # behind it. Without (None: the JAX package's test), rays of different
+    # origins (a mirror's, a glass ball's) lose the particles that lie in
+    # front of a ray's origin but behind the bundle's mean (ROADMAP C17).
+    back: Optional[torch.Tensor] = None
 
 
 def _unit(x, dim=-1):
@@ -98,7 +106,8 @@ def _unit(x, dim=-1):
                            min=1e-12)
 
 
-def make_bundles(rays_o, rays_d, bundle_size: int) -> Bundles:
+def make_bundles(rays_o, rays_d, bundle_size: int,
+                 spread_origins: bool = False) -> Bundles:
     nb = rays_o.shape[0] // bundle_size
     o = rays_o.reshape(nb, bundle_size, 3)
     d = rays_d.reshape(nb, bundle_size, 3)
@@ -111,7 +120,11 @@ def make_bundles(rays_o, rays_d, bundle_size: int) -> Bundles:
     cosang = torch.clamp(cosang, _MIN_BUNDLE_COS, 1.0)
     sinang = torch.sqrt(torch.clamp(1.0 - cosang * cosang, 0.0, 1.0))
     tan = (sinang / cosang).amax(1)
-    return Bundles(ob, db, base, tan, coherent)
+    back = None
+    if spread_origins:
+        back = torch.clamp(-torch.einsum("nbi,ni->nb", o - ob[:, None],
+                                         db).amin(1), min=0.0)
+    return Bundles(ob, db, base, tan, coherent, back)
 
 
 def _cone_hit(positions, radius, valid, bundles: Bundles):
@@ -122,7 +135,10 @@ def _cone_hit(positions, radius, valid, bundles: Bundles):
                                   min=0.0))
     limit = (radius[None, :] + bundles.base_radius[:, None]
              + torch.clamp(t_ax, min=0.0) * bundles.tan_spread[:, None])
-    cone_ok = (d_ax <= limit) & (t_ax >= -radius[None, :])
+    rear = radius[None, :]
+    if bundles.back is not None:
+        rear = rear + bundles.back[:, None]
+    cone_ok = (d_ax <= limit) & (t_ax >= -rear)
     hit = valid[None, :] & (cone_ok | ~bundles.coherent[:, None])
     return hit, t_ax
 
@@ -198,6 +214,11 @@ def make_super_bundles(member: Bundles, perm, super_mult: int) -> Bundles:
     os_ = o.mean(1)
     ds = _unit(d.mean(1))
     base_s = (torch.linalg.norm(o - os_[:, None], dim=-1) + base).amax(1)
+    back_s = None
+    if member.back is not None:
+        # A member ray starts within `base` of its member's mean origin.
+        back_s = torch.clamp((base - torch.einsum(
+            "nmi,ni->nm", o - os_[:, None], ds)).amax(1), min=0.0)
     dot = torch.einsum("nmi,ni->nm", d, ds)
     cosphi = torch.clamp(dot, _MIN_BUNDLE_COS, 1.0)
     tanphi = torch.sqrt(torch.clamp(1.0 - cosphi * cosphi, 0.0, 1.0)) / cosphi
@@ -206,26 +227,29 @@ def make_super_bundles(member: Bundles, perm, super_mult: int) -> Bundles:
     tan_s = torch.where(ok, (tan + tanphi) / torch.clamp(denom, min=0.2),
                         torch.zeros_like(tan)).amax(1)
     coherent = (coh & ok).all(1)
-    return Bundles(os_, ds, base_s, tan_s, coherent)
+    return Bundles(os_, ds, base_s, tan_s, coherent, back_s)
 
 
 def _members(bundles: Bundles, perm, super_mult: int):
     """Each super's member bundles in the permuted order: origin and
-    direction [ns, m, 3], base radius, spread and coherence [ns, m]."""
+    direction [ns, m, 3], base radius, spread, coherence and back (or
+    None) [ns, m]."""
     pl = perm.long()
     ns = pl.shape[0] // super_mult
-    return tuple(x[pl].reshape(ns, super_mult, *x.shape[1:])
+    return tuple(None if x is None else x[pl].reshape(ns, super_mult,
+                                                      *x.shape[1:])
                  for x in (bundles.origin, bundles.direction,
                            bundles.base_radius, bundles.tan_spread,
-                           bundles.coherent))
+                           bundles.coherent, bundles.back))
 
 
-def _member_hits(p_s, r_s, ob, db, base, tan, coh):
+def _member_hits(p_s, r_s, ob, db, base, tan, coh, back):
     """Level 2 of the two-level culls: G groups of K listed particles
     (positions p_s [G, K, 3], radii r_s [G, K]: a super's dense list, or
     one 128-slot window of the flat lists) against the group's m member
-    bundles (ob, db [G, m, 3], base, tan, coh [G, m]). Returns (hit [G, m,
-    K] bool, before any slot mask; t_ax [G, m, K] member-axis depth). The
+    bundles (ob, db [G, m, 3], base, tan, coh, back or None [G, m]).
+    Returns (hit [G, m, K] bool, before any slot mask; t_ax [G, m, K]
+    member-axis depth). The
     cone test expands |p - o|^2 into dot products (the JAX form), so hits
     at the cone margin are decided by the same arithmetic in every leg."""
     t_ax = (torch.einsum("nsc,nmc->nms", p_s, db)
@@ -239,7 +263,9 @@ def _member_hits(p_s, r_s, ob, db, base, tan, coh):
     del d_sq
     limit = (r_s[:, None, :] + base[..., None]
              + torch.clamp(t_ax, min=0.0) * tan[..., None])
-    cone_ok = (d_ax <= limit) & (t_ax >= -r_s[:, None, :])
+    rear = r_s[:, None, :] if back is None else (r_s[:, None, :]
+                                                 + back[..., None])
+    cone_ok = (d_ax <= limit) & (t_ax >= -rear)
     del d_ax, limit
     return cone_ok | ~coh[..., None], t_ax
 
@@ -255,7 +281,8 @@ def _inverse(perm):
 def bundle_candidates_twolevel(positions, radius, valid, rays_o, rays_d,
                                bundle_size: int, capacity: int,
                                super_mult: int = SUPER_MULT,
-                               super_capacity: int = 8192):
+                               super_capacity: int = 8192,
+                               spread_origins: bool = False):
     """Two-level cull: super bundles of `super_mult` Morton-adjacent
     bundles compact the particles to `super_capacity` candidates each
     (nearest by super-axis depth), then each member bundle tests its
@@ -273,7 +300,7 @@ def bundle_candidates_twolevel(positions, radius, valid, rays_o, rays_d,
     if ns * super_mult != nb:
         raise ValueError(f"{nb} bundles are not a multiple of {super_mult}")
     s_cap = min(super_capacity, n)
-    bundles = make_bundles(rays_o, rays_d, bundle_size)
+    bundles = make_bundles(rays_o, rays_d, bundle_size, spread_origins)
     perm = bundle_morton_order(bundles)
     sup = make_super_bundles(bundles, perm, super_mult)
     hit1, t_ax1 = _cone_hit(positions, radius, valid, sup)        # [ns, N]
@@ -550,7 +577,8 @@ def bundle_candidates_twolevel_flat(
         ws = win_sup.long()
         hit2, t_ax = _member_hits(
             pr[:, :3].reshape(nws, CHUNK, 3), pr[:, 3].reshape(nws, CHUNK),
-            *(x[ws] for x in _members(bundles, perm, m)))
+            *(None if x is None else x[ws]
+              for x in _members(bundles, perm, m)))
         del pr
         hit2 &= valid_s.reshape(nws, 1, CHUNK)                  # [nws, m, 128]
         # Each super's hits per member: its windows' counts (windows past
@@ -631,17 +659,20 @@ def _two_level(n: int, nb: int, super_capacity: int,
 def candidate_lists(positions, radius, valid, rays_o, rays_d,
                     bundle_size: int, candidate_capacity: int,
                     super_capacity: int = 8192,
-                    two_level_above: Optional[int] = None):
+                    two_level_above: Optional[int] = None,
+                    spread_origins: bool = False):
     """Per-bundle candidate lists (bundle_candidates' outputs): the two-level
     cull when it pays (`_two_level`), else the single-level one."""
     nb = rays_o.shape[0] // bundle_size
     if _two_level(positions.shape[0], nb, super_capacity, two_level_above):
         return bundle_candidates_twolevel(
             positions, radius, valid, rays_o, rays_d, bundle_size,
-            candidate_capacity, super_capacity=super_capacity)
-    return bundle_candidates(positions, radius, valid,
-                             make_bundles(rays_o, rays_d, bundle_size),
-                             candidate_capacity)
+            candidate_capacity, super_capacity=super_capacity,
+            spread_origins=spread_origins)
+    return bundle_candidates(
+        positions, radius, valid,
+        make_bundles(rays_o, rays_d, bundle_size, spread_origins),
+        candidate_capacity)
 
 
 def _cull_inputs(positions, scales, opacities, rays_dn, active,
@@ -657,7 +688,7 @@ def _cull_inputs(positions, scales, opacities, rays_dn, active,
 
 def _cull(positions, scales, opacities, rays_o, rays_dn, active,
           kernel_degree, bundle_size, candidate_capacity, super_capacity,
-          density_clamping, two_level_above=None):
+          density_clamping, two_level_above=None, spread_origins=False):
     """`candidate_lists` of the particles' bounding radii, without
     autograd."""
     with torch.no_grad(), record_function("3dgrt.cull"):
@@ -666,7 +697,8 @@ def _cull(positions, scales, opacities, rays_o, rays_dn, active,
             density_clamping)
         return candidate_lists(p, radius, valid, rays_o, d_safe,
                                bundle_size, candidate_capacity,
-                               super_capacity, two_level_above)
+                               super_capacity, two_level_above,
+                               spread_origins)
 
 
 def prepare(positions, quats, scales, opacities, features, rays_o, rays_d,
@@ -677,13 +709,18 @@ def prepare(positions, quats, scales, opacities, features, rays_o, rays_d,
             flat_capacity: Optional[int] = None,
             two_level_above: Optional[int] = None,
             flat_cull: bool = False,
-            super_flat_capacity: Optional[int] = None) -> BundleInputs:
+            super_flat_capacity: Optional[int] = None,
+            spread_origins: bool = False) -> BundleInputs:
     """Everything of the bundle route before the row gather (256-ray
     bundles): cull, flat layout, packed rows and rays. With `flat_cull`
     and the two-level condition the flat cull
     (bundle_candidates_twolevel_flat, `super_flat_capacity` rows of super
-    lists) gives the flat layout directly. Differentiable in the five
-    parameter tensors through the packed rows."""
+    lists) gives the flat layout directly; it does not take
+    `spread_origins` (ValueError). Differentiable in the five parameter
+    tensors through the packed rows."""
+    if flat_cull and spread_origins:
+        raise ValueError("flat_cull does not take spread_origins: its cone "
+                         "tests keep JAX's rear bound (ROADMAP C17)")
     r_total = rays_o.shape[0]
     nb = r_total // 256
     dev = rays_o.device
@@ -705,7 +742,7 @@ def prepare(positions, quats, scales, opacities, features, rays_o, rays_d,
         cand_idx, counts, overflow, visibility = _cull(
             positions, scales, opacities, rays_o, rays_dn, active,
             kernel_degree, 256, candidate_capacity, super_capacity,
-            density_clamping, two_level_above)
+            density_clamping, two_level_above, spread_origins)
         if flat_capacity is None:
             flat_capacity = nb * (-(-cand_idx.shape[1] // CHUNK) * CHUNK)
         with torch.no_grad(), record_function("3dgrt.flatten"):
@@ -759,7 +796,8 @@ def trace(positions, quats, scales, opacities, features, rays_o, rays_d,
           flat_cull: bool = False,
           super_flat_capacity: Optional[int] = None,
           walk_capacity: Optional[int] = None,
-          two_level_above: Optional[int] = None) -> TraceResult:
+          two_level_above: Optional[int] = None,
+          spread_origins: bool = False) -> TraceResult:
     """Trace arbitrary rays through the particles, on the device of the
     inputs (post-activation tensors).
 
@@ -781,6 +819,11 @@ def trace(positions, quats, scales, opacities, features, rays_o, rays_d,
     `candidate_capacity` or of a super list's `super_capacity` is reported
     in `overflow`: grow and trace again. `visibility` is the cone-level bit
     (the particle entered some candidate list), a superset of the hits.
+    `spread_origins` (rays of many origins, such as secondary rays) makes
+    the cone tests keep the particles that lie behind a bundle's mean
+    origin but in front of one of its rays' (the JAX package's drop them,
+    ROADMAP C17); the bundle route's flat cull does not take it
+    (ValueError).
     The two-level cull runs above `two_level_above` particles (None:
     above super_capacity, the JAX package's rule). With `flat_cull` the
     bundle route's two-level cull is the flat one
@@ -808,7 +851,7 @@ def trace(positions, quats, scales, opacities, features, rays_o, rays_d,
                       rays_d, kernel_degree, candidate_capacity,
                       initial_transmittance, t_max, density_clamping,
                       super_capacity, flat_capacity, two_level_above,
-                      flat_cull, super_flat_capacity)
+                      flat_cull, super_flat_capacity, spread_origins)
         fused = (walk_capacity is not None
                  and 0 < walk_capacity < inp.flat_idx.shape[0])
         if fused:
@@ -833,12 +876,12 @@ def trace(positions, quats, scales, opacities, features, rays_o, rays_d,
             rgb=out[:, 0:3, :].transpose(1, 2).reshape(r_total, 3),
             opacity=unrow(3), depth=unrow(4), transmittance=unrow(5),
             hit_count=unrow(6), overflow=inp.overflow,
-            visibility=inp.visibility)
+            visibility=inp.visibility, counts=inp.counts)
     rays_dn, active = _rays_unit(rays_d)
     cand_idx, counts, overflow, visibility = _cull(
         positions, scales, opacities, rays_o, rays_dn, active, kernel_degree,
         bundle_size, candidate_capacity, super_capacity, density_clamping,
-        two_level_above)
+        two_level_above, spread_origins)
     return _trace_ray_order(
         positions, quats, scales, opacities, features, rays_o, rays_dn,
         active, cand_idx, counts, overflow, visibility, sh_degree,
@@ -910,7 +953,8 @@ def _trace_ray_order(positions, quats, scales, opacities, features, rays_o,
     return TraceResult(rgb=rgb, opacity=opa, depth=dep, transmittance=trans,
                        hit_count=hits, overflow=overflow,
                        visibility=visibility,
-                       normal=normal if return_normals else None)
+                       normal=normal if return_normals else None,
+                       counts=counts)
 
 
 def trace_naive(positions, quats, scales, opacities, features, rays_o,

@@ -18,7 +18,9 @@ train.py resumes without one, ROADMAP C11). Metrics go to
 tensorboard imports) beside the checkpoints; at the end the scene is
 exported (export_last.ply, .ingp and .usdz, the USDZ normalized by the
 training cameras' poses where the dataset has them) and the test split is
-rendered and scored (test_renders/).
+rendered and scored (test_renders/). With --with-gui the live viewer
+(threedgrut_torch/gui.py) serves frames of the training scene on
+--gui-port while the run trains.
 
 Runs on the card (`--device cuda`, the default; an error without one) or,
 with `--device cpu`, on the CPU through the kernels' plain versions.
@@ -43,8 +45,10 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda (default) or cpu")
     ap.add_argument("--with-gui", action="store_true",
-                    help="not ported: the live viewer is ROADMAP queue A "
-                         "item 7 (playground)")
+                    help="serve the live training viewer "
+                         "(threedgrut_torch.gui.TrainingGUI) while training")
+    ap.add_argument("--gui-port", type=int, default=8080,
+                    help="the live viewer's port")
     ap.add_argument("--multichip", metavar="D,T,M", default=None,
                     help="not ported: multi-device training is ROADMAP "
                          "queue A item 8")
@@ -52,9 +56,6 @@ def parse_args(argv=None):
                     help="dotted config overrides key=value; special keys: "
                          + ", ".join(SPECIAL_KEYS))
     args = ap.parse_args(argv)
-    if args.with_gui:
-        ap.error("--with-gui is not ported yet (ROADMAP queue A item 7, "
-                 "the playground)")
     if args.multichip:
         ap.error("--multichip is not ported yet (ROADMAP queue A item 8, "
                  "multi-device)")
@@ -183,7 +184,15 @@ def run(argv=None) -> Tuple[object, Optional[dict]]:
           f"{trainer.params.capacity} slots, "
           f"method={run_cfg.render.method}, "
           f"strategy={run_cfg.strategy.method}, device={dev}", flush=True)
-    trainer.run(out_dir=out_dir)
+    gui = None
+    if args.with_gui:
+        from threedgrut_torch.gui import TrainingGUI
+        gui = TrainingGUI(trainer, port=args.gui_port)
+    try:
+        trainer.run(out_dir=out_dir)
+    finally:
+        if gui is not None:
+            gui.close()
     # The final export (reference trainer.on_training_end): a failed export
     # fails the run.
     export_ply(trainer.params, os.path.join(out_dir, "export_last.ply"))

@@ -21,6 +21,7 @@ import collections
 import dataclasses
 import json
 import os
+import threading
 import time
 from typing import Any, Dict, Optional
 
@@ -216,6 +217,10 @@ class Trainer:
         # overflow flag, the walked-window count) wait for.
         self.step_times: collections.deque = collections.deque(maxlen=1000)
         self._strategy_s = 0.0     # the last train_step's hooks
+        # Held by train_step (Adam updates the parameters in place, the
+        # strategies swap them): a reader on another thread (gui.py) takes
+        # it to copy a consistent snapshot.
+        self.lock = threading.RLock()
 
     # ---- progressive SH ----
     def active_sh_degree(self) -> int:
@@ -246,6 +251,10 @@ class Trainer:
                 mask, int(getattr(view, "shutter", 0)), T_end)
 
     def train_step(self, view) -> Dict[str, Any]:
+        with self.lock:
+            return self._train_step(view)
+
+    def _train_step(self, view) -> Dict[str, Any]:
         T, cam, gt, mask, shutter, T_end = self._view_tensors(view)
         self.opt_state, aux = step_fn(
             self.params, self.opt_state, T, cam, gt, mask, self.scene_extent,
