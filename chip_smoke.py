@@ -69,8 +69,12 @@ Phases, each of which fails the run on a miss:
      Engine.render and render_hybrid card vs CPU at phase 4's scene
      through the centre 128x128 of the full-width camera (primary mesh
      faces equal off the edges; frames within golden.compare's value rule
-     at TRACE_FLIP_SHARE); (c) M1 against its plain version at (a)'s
-     640,000 primary rays (bit-equal expected), timed beside its bound;
+     at TRACE_FLIP_SHARE); (c) M1 against its plain version, bit for
+     bit, at (a)'s 640,000 primary rays, the bounce-2 rays of (a)'s last
+     trace frame and its last hybrid frame's secondary rays, its cull's
+     masks (the diagnostic entry) equal to block_face_masks_plain's, timed
+     beside its bound (the cull's operations as it runs them and the live
+     rays' surviving pairs) and the brute force's;
      (d) the HTTP surface on a loopback port over the centre 160x160
      (every mode and
      channel, the edits, a 2-keyframe video) and TrainingGUI on a
@@ -2020,16 +2024,23 @@ PG_PARITY_BOUNCES = 2
 PG_PARITY_CAP = 8192
 PG_EDGE_EPS = 1e-5
 PG_FACE_FLIP_SHARE = 1e-3
-# M1 (csrc/mesh_intersect.cu): operations per ray x face pair, read off the
-# source (s = o - p0: 3; h: 9; a: 5; |a| test and select: 2; the
-# reciprocal: 2; u: 6; q: 9; w: 6; t: 6; the four bounds and u + w: 6; the
-# running minimum: 2), and the bytes a ray and a face need (rays in 24 B,
-# out 16 B; a face's p0, e1, e2 36 B). Kernel and plain version compute
-# the same f32 expressions, each rounded (--fmad=false): equal bits
-# expected; the tolerances cover nothing else.
+# M1 (csrc/mesh_intersect.cu) culls, per block of 256 rays, the faces no
+# ray of the block can hit, then runs the exact test over the survivors.
+# Operations, read off the source: the exact test per ray x surviving face
+# pair (s = o - p0: 3; h: 9; a: 5; |a| test and select: 2; the reciprocal:
+# 2; u: 6; q: 9; w: 6; t: 6; the four bounds and u + w: 6; the running
+# minimum: 2), and the cull as face_survives runs it (an interval product
+# by a constant 4, of two intervals 10, a sum 2): per face of a block that
+# culls (a live ray, none non-finite) up to the a tests (h: 30, a: 16, the
+# a tests: 4), and past them where a keeps one sign (1/a: 4, s: 6, u: 44,
+# q: 30, w: 44, t: 26, the four rules: 5); block_cull_plain counts both.
+# Blocks with no live ray or a live non-finite one cull nothing. Bytes: a
+# ray 24 B in and 16 B out, a face's p0, e1, e2 36 B. Kernel and plain
+# versions compute the same f32 expressions, each rounded (--fmad=false):
+# outputs and masks must be equal bits.
 FLOP_MESH_PAIR = 56
-M1_T_RTOL = 1e-6
-M1_UW_ATOL = 1e-6
+FLOP_MESH_CULL_A = 50
+FLOP_MESH_CULL_REST = 159
 M1_ITERS = 10
 
 
@@ -2232,46 +2243,130 @@ def pg_primary_rays(cam, T, res):
             rays[:, 3:6, :].transpose(1, 2).reshape(-1, 3).contiguous())
 
 
-def m1_record(viewer, launches, tag, ptxas):
-    """(c) M1 against its plain version on the card at (a)'s primary rays
-    and faces: faces equal but where both give the same t (a tie, on at
-    most PG_FACE_FLIP_SHARE of the rays), t within M1_T_RTOL, u and w
-    within M1_UW_ATOL; CUDA-event times beside the bound."""
+class mesh_rays_recorded:
+    """Inside `with`, every call of the playground's mesh intersection
+    (playground/mesh.py intersect, M1's caller) keeps its rays (o, d) in
+    `calls`, the last `keep` calls. It keeps the tensors themselves, not
+    copies, so that the frames it watches do no extra device work: the
+    engine makes each call's rays anew and never writes into them, and
+    intersect makes them contiguous anyway."""
+
+    def __init__(self, keep: int):
+        self.keep, self.calls = keep, []
+
+    def __enter__(self):
+        from threedgrut_torch.playground import mesh as mesh_mod
+        self.inner = mesh_mod.intersect
+
+        def recorded(mesh, rays_o, rays_d, *args, **kwargs):
+            rays_o, rays_d = rays_o.contiguous(), rays_d.contiguous()
+            self.calls.append((rays_o, rays_d))
+            del self.calls[:-self.keep]
+            return self.inner(mesh, rays_o, rays_d, *args, **kwargs)
+        mesh_mod.intersect = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from threedgrut_torch.playground import mesh as mesh_mod
+        mesh_mod.intersect = self.inner
+        return False
+
+
+def m1_work(o, d, tri, cull):
+    """M1's work at rays (o, d) and faces tri, given block_cull_plain's
+    (masks, culled, full) there: the live blocks (those with a ray of
+    nonzero direction), the surviving pairs the kernel tests (each ray of
+    a live block against the faces the block keeps), the live pairs (the
+    live rays' alone) and the bound on the cull's operations as it runs
+    them and the live pairs'."""
+    from threedgrut_torch.ops import mesh_intersect as mi
+    masks, culled, full = cull
+    r, nf = o.shape[0], tri.shape[0]
+    nb = masks.shape[0]
+    rays = (r - mi.BLOCK * torch.arange(nb, device=o.device)).clamp(
+        max=mi.BLOCK)
+    act = torch.nn.functional.pad((d != 0).any(-1), (0, nb * mi.BLOCK - r))
+    act = act.reshape(nb, mi.BLOCK)
+    live = act.any(1)
+    kept = masks.sum(1)
+    pairs = int((kept * rays)[live].sum())
+    live_pairs = int((kept * act.sum(1)).sum())
+    bound = bound_ms(r * (24 + 16) + nf * 36,
+                     int(culled.sum()) * nf * FLOP_MESH_CULL_A
+                     + int(full.sum()) * FLOP_MESH_CULL_REST
+                     + live_pairs * FLOP_MESH_PAIR)
+    return int(live.sum()), pairs, live_pairs, bound
+
+
+def m1_check(name, o, d, tri, tag):
+    """M1 against its plain version at one set of rays, bit for bit, and
+    its cull's masks (the diagnostic entry) against block_face_masks_plain,
+    exactly; CUDA-event time, surviving pairs and bounds. Fails on any
+    difference. Returns the set's record."""
+    from threedgrut_torch.ops import cuda_build
+    from threedgrut_torch.ops import mesh_intersect as mi
+    k = mi.closest_hits(o, d, tri)
+    p = mi.closest_hits_plain(o, d, tri)
+    n0 = cuda_build.launches["mesh_intersect_masks"]
+    km = mi.block_face_masks(o, d, tri)
+    cull = mi.block_cull_plain(o, d, tri)
+    pm = cull[0]
+    torch.cuda.synchronize()
+    r, nf = o.shape[0], tri.shape[0]
+    live, pairs, live_pairs, bound = m1_work(o, d, tri, cull)
+    rec = dict(
+        rays=r, faces=nf,
+        active_rays=int((d != 0).any(-1).sum()),
+        hits=int(torch.isfinite(k[0]).sum()),
+        bit_equal=all(torch.equal(a, b) for a, b in zip(k, p)),
+        face_diffs=int((k[1] != p[1]).sum()),
+        masks_equal=torch.equal(km, pm),
+        masks_launches=cuda_build.launches["mesh_intersect_masks"] - n0,
+        blocks=int(pm.shape[0]), live_blocks=live,
+        faces_kept_mean=float(pm.sum(1).float().mean()),
+        faces_kept_max=int(pm.sum(1).max()),
+        max_abs_err=max(float((a.float() - b.float()).nan_to_num(
+            posinf=0.0, neginf=0.0).abs().max()) for a, b in zip(k, p)),
+        pairs_brute=r * nf, surviving_pairs=pairs, live_pairs=live_pairs,
+        culled_blocks=int(cull[1].sum()),
+        faces_past_a_tests=int(cull[2].sum()),
+        bound_ms=bound[0], bound_by=bound[1],
+        bound_ms_brute=bound_ms(r * (24 + 16) + nf * 36,
+                                r * nf * FLOP_MESH_PAIR)[0])
+    print(f"5c(c) M1 vs plain on the card, {name}: {json.dumps(rec)} {tag}",
+          flush=True)
+    if not (rec["bit_equal"] and rec["masks_equal"]
+            and rec["masks_launches"] == 1):
+        fail(f"5c(c): M1 or its cull disagrees with its plain version at "
+             f"the {name} rays")
+    rec["ms"] = cuda_ms(lambda: mi.closest_hits(o, d, tri), M1_ITERS)
+    print(f"kernel mesh_intersect (M1) at the {name} rays: {rec['ms']:.4f} "
+          f"ms, bound {bound[0]:.4f} ms ({bound[1]}: {rec['culled_blocks']} "
+          f"blocks x {nf} faces culled, {rec['faces_past_a_tests']} past "
+          f"the a tests, {live_pairs} live pairs; {pairs} pairs tested of "
+          f"{r * nf}), brute force's bound {rec['bound_ms_brute']:.4f} ms "
+          f"{tag}",
+          flush=True)
+    return rec
+
+
+def m1_record(viewer, launches, tag, ptxas, bounce2, secondary):
+    """(c) M1 at (a)'s primary rays and faces, at `bounce2`, the rays of
+    the second bounce of (a)'s last trace frame (the trace keeps a stopped
+    ray's direction), and at `secondary`, the last hybrid frame's
+    secondary rays (zero directions where a ray stops); m1_check at each:
+    bit-equal to the plain version, masks equal. The kernel's record with
+    its primary-ray time, the plain version's and the bound."""
     from threedgrut_torch.ops import mesh_intersect as mi
     cam = viewer._camera()
     T = viewer._pose(*pg_camera(0))
     o, d = pg_primary_rays(cam, T, viewer.resolution)
     mesh = viewer.engine.mesh
     tri = mi.triangles(mesh.vertices, mesh.faces)
-    k = mi.closest_hits(o, d, tri)
-    p = mi.closest_hits_plain(o, d, tri)
-    torch.cuda.synchronize()
-    face_diff = k[1] != p[1]
-    ties = face_diff & (k[0] == p[0])
-    dt = torch.where(torch.isfinite(p[0]), (k[0] - p[0]).abs(),
-                     torch.zeros_like(p[0]))
-    finite_equal = bool((torch.isfinite(k[0]) == torch.isfinite(p[0])).all())
-    err = dict(face_diffs=int(face_diff.sum()), ties=int(ties.sum()),
-               t=float(dt.max()), u=float((k[2] - p[2]).abs().max()),
-               w=float((k[3] - p[3]).abs().max()),
-               bit_equal=all(torch.equal(a, b) for a, b in zip(k, p)),
-               hits=int(torch.isfinite(k[0]).sum()))
-    r, nf = o.shape[0], tri.shape[0]
-    t_tol = M1_T_RTOL * torch.nan_to_num(p[0].abs(), posinf=0.0)
-    ok = (finite_equal and err["face_diffs"] == err["ties"]
-          and err["ties"] <= PG_FACE_FLIP_SHARE * r
-          and bool((dt <= t_tol).all())
-          and err["u"] <= M1_UW_ATOL and err["w"] <= M1_UW_ATOL)
-    print(f"5c(c) M1 vs plain on the card, {r} rays x {nf} faces: "
-          f"{json.dumps(err)}", flush=True)
-    if not ok:
-        fail("5c(c): M1 disagrees with its plain version")
-    ms = cuda_ms(lambda: mi.closest_hits(o, d, tri), M1_ITERS)
+    prim = m1_check("primary", o, d, tri, tag)
+    sec = m1_check("bounce-2", *bounce2, tri, tag)
+    hyb = m1_check("hybrid secondary", *secondary, tri, tag)
     plain_ms = cuda_ms(lambda: mi.closest_hits_plain(o, d, tri), 1)
-    bound = bound_ms(r * (24 + 16) + nf * 36, r * nf * FLOP_MESH_PAIR)
-    print(f"kernel mesh_intersect (M1): {ms:.4f} ms, plain {plain_ms:.3f} "
-          f"ms, bound {bound[0]:.4f} ms ({bound[1]}), {r * nf} pairs "
-          f"{tag}", flush=True)
     rep = next((v for kk, v in ptxas.items() if "mesh_intersect" in kk),
                None)
     return dict(
@@ -2280,9 +2375,12 @@ def m1_record(viewer, launches, tag, ptxas):
         replaces="none: threedgrut_tpu/playground/mesh.py:186 intersect "
                  "(XLA, no TPU kernel)",
         launches=sum(launches.values()), launches_playground=launches,
-        max_abs_err=max(err["t"], err["u"], err["w"]), ms=ms,
-        plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
-        library_ms=None, pairs=r * nf, ptxas=rep)
+        max_abs_err=max(x["max_abs_err"] for x in (prim, sec, hyb)),
+        ms=prim["ms"], plain_ms=plain_ms, bound_ms=prim["bound_ms"],
+        bound_by=prim["bound_by"], library_ms=None,
+        pairs=prim["pairs_brute"], surviving_pairs=prim["surviving_pairs"],
+        bound_ms_brute=prim["bound_ms_brute"], primary=prim, bounce2=sec,
+        hybrid_secondary=hyb, ptxas=rep)
 
 
 def frames_agree(got, want, share):
@@ -2534,14 +2632,19 @@ def playground(params, dev, tag, ptxas):
           flush=True)
     recs = {}
     with torch.no_grad():
-        recs["trace"] = pg_mode(viewer, "trace", PG_TRACE_FRAMES, tag)
+        # The last trace frame's rays at each bounce, for (c).
+        with mesh_rays_recorded(PG_BOUNCES) as rays:
+            recs["trace"] = pg_mode(viewer, "trace", PG_TRACE_FRAMES, tag)
         recs["trace_spp4_dof_atrous"] = pg_mode(
             viewer, "trace", PG_SPP_FRAMES, tag, res=PG_SPP_RES,
             spp=PG_SPP, use_dof=True, aperture=0.02, focus_z=4.0,
             denoise=True, denoiser="atrous")
         engine.cfg.spp, engine.cfg.use_dof, engine.cfg.denoise = 1, False, \
             False
-        recs["hybrid"] = pg_mode(viewer, "hybrid", PG_HYBRID_FRAMES, tag)
+        # The last hybrid frame's primary and secondary rays, for (c).
+        with mesh_rays_recorded(PG_BOUNCES + 1) as hybrid_rays:
+            recs["hybrid"] = pg_mode(viewer, "hybrid", PG_HYBRID_FRAMES,
+                                     tag)
         recs["raster"] = pg_mode(viewer, "raster", PG_RASTER_FRAMES, tag)
     launches = {}
     for name, r in recs.items():
@@ -2565,7 +2668,9 @@ def playground(params, dev, tag, ptxas):
     if not ok:
         fail("5c(b): the playground on the card disagrees with the CPU")
     m1 = m1_record(viewer, {n: c.get("mesh_intersect", 0)
-                            for n, c in launches.items()}, tag, ptxas)
+                            for n, c in launches.items()}, tag, ptxas,
+                   rays.calls[1], hybrid_rays.calls[1])
+    del rays, hybrid_rays
     with torch.no_grad():
         http = pg_http(viewer, dev, tag, tmp)
     gui = pg_training_gui(dev, tag)

@@ -39,7 +39,8 @@ Inference card vs CPU (chip_smoke.infer_card_vs_cpu): frames within
 golden.compare, compacted ids up to census flips on 0.1% of the visible
 count, frozen binnings exactly equal; a scene exported and read back
 onto the card bit-equal, its frame bit for bit. M1 (the playground's mesh
-closest-hit) bit-equal to its plain version; the playground's frames card
+closest-hit) bit-equal to its plain version, its cull's masks equal to
+the plain cull's; the playground's frames card
 vs CPU within golden.compare's value rule at TRACE_FLIP_SHARE."""
 import os
 import shutil
@@ -1329,46 +1330,99 @@ def test_export_round_trip_on_the_card(dev, tmp_path):
 
 def test_mesh_intersect_kernel_matches_plain(dev, tmp_path):
     """M1 against its plain version on the card, bit for bit (the same f32
-    expressions, each rounded: --fmad=false): phase 5c's meshes (mirror
-    floor, glass icosphere of 1,280 faces, the .glb card) under a 256x192
-    grid of the full-width camera and 4,096 random rays; rays through the
-    shared diagonal of a quad with integer corners and a duplicated face
-    (exact ties: the lowest face wins); a mesh of no face."""
+    expressions, each rounded: --fmad=false; the cull drops only faces no
+    ray of a block can hit): phase 5c's meshes (mirror floor, glass
+    icosphere of 1,280 faces, the .glb card) under a 256x192 grid of the
+    full-width camera and 4,096 random rays; the bounce-2 and bounce-3 rays
+    of a trace frame of that scene at 20,000 particles over the whole view
+    at 256x256 (reflections off the floor, rays inside and leaving the
+    ball; the trace keeps a stopped ray's direction) and the hybrid's
+    secondary rays there (zero directions where a ray stops); an
+    all-inactive block and a partial last block; rays through the shared
+    diagonal of a quad with integer corners and a duplicated face (exact
+    ties: the lowest face wins), also with the duplicates tiles apart in a
+    mesh of 20,488 faces (an icosphere of subdivision 5 between them: the
+    kernel's loop over shared-memory tiles); a mesh of no face. The cull's
+    masks (the diagnostic entry) equal block_face_masks_plain's exactly,
+    each launch counted."""
     import chip_smoke
     from threedgrut_torch.ops import mesh_intersect as mi
+    from threedgrut_torch.playground import engine as eng_mod
+    from threedgrut_torch.playground import mesh as mesh_mod
     chip_smoke.write_glb(tmp_path / "card.glb")
-    mesh = chip_smoke.playground_scene(dev, tmp_path / "card.glb").mesh()
+    sg = chip_smoke.playground_scene(dev, tmp_path / "card.glb")
+    mesh = sg.mesh()
     tri = mi.triangles(mesh.vertices, mesh.faces)
     f = 0.9 * 800
     cam = example_camera((256, 192), dev)._replace(
         focal=torch.tensor([f, f], device=dev))
     T = torch.as_tensor(chip_smoke.orbit_T(0), device=dev)
     o, d = chip_smoke.pg_primary_rays(cam, T, (256, 192))
+    p = from_numpy(bench_scene(20_000, seed=2, specular_std=0.1), device=dev)
+    eng = eng_mod.Engine(
+        p.get_positions(), p.get_rotation(), p.get_scale(), p.get_density(),
+        p.get_features(), mesh=mesh, materials=sg.materials(),
+        envmap=chip_smoke.sky_envmap(),
+        config=eng_mod.EngineConfig(max_bounces=3,
+                                    candidate_capacity=1 << 14),
+        device=dev)
+    # The trace frame sees the whole of the full-width view at 256x256.
+    wide = example_camera((256, 256), dev)._replace(
+        focal=torch.tensor([0.9 * 256] * 2, device=dev))
+    with torch.no_grad(), chip_smoke.mesh_rays_recorded(3) as rec:
+        eng.render(wide, T, (256, 256))
+    (o2, d2), (o3, d3) = rec.calls[1], rec.calls[2]
+    with torch.no_grad(), chip_smoke.mesh_rays_recorded(4) as rec:
+        eng.render_hybrid(wide, T, (256, 256))
+    os_, ds = rec.calls[1]          # the secondary rays, 0 where none
+    live = int((ds != 0).any(-1).sum())
+    assert 1000 < live < ds.shape[0], live
     rng = np.random.default_rng(0)
     ro = torch.tensor(rng.normal(0, 2, (4096, 3)), dtype=torch.float32,
                       device=dev)
     rd = torch.nn.functional.normalize(torch.tensor(
         rng.normal(size=(4096, 3)), dtype=torch.float32, device=dev), dim=-1)
+    po, pd = o[:1000].contiguous(), d[:1000].clone()
+    pd[256:512] = 0.0                       # block 1 all inactive
     v = torch.tensor([[-1, -1, 2], [1, -1, 2], [1, 1, 2], [-1, 1, 2]],
                      dtype=torch.float32, device=dev)
     faces = torch.tensor([[0, 1, 2], [0, 2, 3], [3, 2, 0], [0, 1, 2]],
                          dtype=torch.int32, device=dev)
+    quad = mi.triangles(v, faces)
+    ball = mesh_mod.make_icosphere([0.0, 0.0, 6.0], 1.0, subdivisions=5,
+                                   device=dev)
+    big = torch.cat([quad, mi.triangles(ball.vertices, ball.faces),
+                     quad]).contiguous()
+    assert big.shape[0] == 20_488
     xs = torch.tensor([-0.5, -0.25, 0.0, 0.25, 0.5, 0.75], device=dev)
     to = torch.stack([xs, xs, torch.zeros_like(xs)], -1)
     td = torch.tensor([[0.0, 0.0, 1.0]], device=dev).expand(6, 3)
-    cases = [(o, d, tri), (ro, rd, tri),
-             (to, td.contiguous(), mi.triangles(v, faces)),
+    cases = [(o, d, tri), (ro, rd, tri), (o2, d2, tri), (o3, d3, tri),
+             (os_, ds, tri), (po, pd, tri), (to, td.contiguous(), quad),
+             (to, td.contiguous(), big), (o, d, big), (ro, rd, big),
              (ro, rd, tri[:0].contiguous())]
     n0 = cuda_build.launches["mesh_intersect"]
+    m0 = cuda_build.launches["mesh_intersect_masks"]
     for i, (a, b, t) in enumerate(cases):
         got = mi.closest_hits(a, b, t)
         want = mi.closest_hits_plain(a, b, t)
         for x, y in zip(got, want):
             assert torch.equal(x, y), i
+        masks = mi.block_face_masks(a, b, t)
+        assert masks.dtype == torch.bool
+        assert torch.equal(masks, mi.block_face_masks_plain(a, b, t)), i
     assert cuda_build.launches["mesh_intersect"] == n0 + len(cases)
+    assert cuda_build.launches["mesh_intersect_masks"] == m0 + len(cases)
     assert torch.isfinite(got[0]).sum() == 0
     assert torch.isfinite(mi.closest_hits(o, d, tri)[0]).sum() > 1000
-    assert mi.closest_hits(*cases[2])[1].tolist() == [0] * 6
+    assert torch.isfinite(mi.closest_hits(os_, ds, tri)[0]).sum() > 100
+    for t in (quad, big):
+        assert mi.closest_hits(to, td.contiguous(), t)[1].tolist() == [0] * 6
+    masks = mi.block_face_masks(po, pd, tri)
+    assert masks.shape == (4, tri.shape[0])
+    assert not bool(masks[1].any()) and bool(masks[3].any())
+    # The cull has teeth at the full-width camera's tiles.
+    assert float(mi.block_face_masks(o, d, tri).float().mean()) < 0.1
 
 
 def test_playground_frames_card_match_cpu(dev, tmp_path):

@@ -46,8 +46,10 @@ SOURCES: Dict[str, tuple] = {
 # kernel (its C entry and launch counter) -> (source stem, the renderers
 # whose paths launch it: "gut" the tile rasterizer, "grt" the tracer; the
 # pass: "forward" in every render, "backward" only in a train step, "cull"
-# only in the flat 3DGRT cull's compact_kernel leg). M1 is the playground's
-# mesh test ("mesh"), which replaces no TPU kernel.
+# only in the flat 3DGRT cull's compact_kernel leg, "diagnostic" on no
+# path: the tests and chip_smoke.py call it). M1 is the playground's mesh
+# test ("mesh"), which replaces no TPU kernel; mesh_intersect_masks is its
+# cull alone.
 KERNELS: Dict[str, Tuple[str, Tuple[str, ...], str]] = {
     "cull_masks": ("cull_masks", ("gut",), "forward"),              # B3
     "expand_keys": ("expand_keys", ("gut",), "forward"),            # B4
@@ -60,6 +62,7 @@ KERNELS: Dict[str, Tuple[str, Tuple[str, ...], str]] = {
     "bundle_trace_bwd": ("bundle_trace_bwd", ("grt",), "backward"),  # B8
     "compact_streams": ("stream_compact", ("grt",), "cull"),        # B9
     "mesh_intersect": ("mesh_intersect", ("mesh",), "forward"),     # M1
+    "mesh_intersect_masks": ("mesh_intersect", ("mesh",), "diagnostic"),
 }
 
 
