@@ -131,6 +131,23 @@ Phases, each of which fails the run on a miss:
      export (export_last.ply, .ingp, .usdz), and (a)'s export_last.ply read
      back through api.load_scene and rendered within golden.compare of
      the trainer's frame;
+  6d. multi-device training (threedgrut_torch/parallel/) at full width on
+     phase 6's scene, camera and configuration: (a) DPTrainer at mesh (1,
+     1, 1) under NCCL (a world of one process) against Trainer.train_step
+     from the same parameters, 6 steps, loss, image, parameters and
+     moments bit-equal after each; (b) worlds of 2 and of 4 processes
+     sharing cuda:0 over gloo (NCCL takes one rank per card), at (1, 2, 1)
+     and (2, 1, 1) (the second view orbit_T(2)), then (1, 2, 2), 3 steps
+     each: rank 0's gradients against the single-process step (the mean of
+     the two views' at (2, 1, 1)) within 2e-4 max|g| + 5e-8, every rank's
+     parameters and moments bit-equal after each step (a digest), B1 and
+     B2 once a step on each rank on a strip of 2,500 / T tiles, step ms
+     per rank (ranks time-sharing one card: no scaling figure), and which
+     collectives gloo takes for CUDA tensors; (c) `python -m
+     threedgrut_torch.train --multichip 1,2,1 --dist-backend gloo` for 20
+     steps on 6c(a)'s NeRF scene (run at the end of 6c, on its files):
+     exit 0, rank 0's checkpoint, export and test renders, each rank's
+     launches (B2 once a step);
   7. 3DGRT main path: api.trace at tools/bench_grt.py's inference
      configuration (100k Gaussians, 512x512 rays, 16 re-sort passes), 6
      traces, then at its 1M capacities, 3 traces; overflow, launch counts,
@@ -138,11 +155,23 @@ Phases, each of which fails the run on a miss:
      counts, ms, rays/s, peak memory, and a bench_grt-shaped JSON line;
      then the same with its BENCH_PACKED=flat mode (the flat cull, its
      super flat capacities; the super flat total checked too, and
-     "flat_cull": true in the JSON line);
+     "flat_cull": true in the JSON line); then its BENCH_PACKED=1 (the
+     packed cull) and l1 (the packed level-1 sort) modes: card vs CPU at
+     the central 128x128 rays (golden.compare at TRACE_FLIP_SHARE), then
+     at both configurations each bundle's candidate set equal to the
+     exact two-level cull's; the lists' order and the frame against the
+     exact cull's measured (quantized depth reorders near ties by design);
+     ms a trace beside the exact cull's in the same call, a bench_grt-
+     shaped JSON line each;
   8. 3DGRT train main path: bench_grt's fwd+bwd mode (100k, 6 steps; its
      1M capacities, 3 steps; walk_capacity 0.625 of the flat capacity) with
      a bench_grt-shaped JSON line (`grt_trace_rays_per_s_fwd_bwd`), the
-     same on the flat cull, then 6
+     same on the flat cull, then 6 steps of the 100k fwd+bwd with
+     BENCH_PACKED=1 (B7, B8, B6 once a step; its frame within
+     golden.compare of the packed forward trace), measured against the
+     exact cull's fwd+bwd from the same parameters (the frame, the share
+     of particles whose gradient differs by more than f32 reordering, and
+     the largest difference); then 6
      preset_3dgrt Trainer.train_step calls on bench_grt's 100k scene at
      512x512 (the last through gather_rows' backward): per step ms, rays/s,
      peak memory, overflow and capacities, launches (B7, B8, B6 once each),
@@ -834,6 +863,210 @@ def grt_main_path(dev, tag, flat=False):
             keep = (params, o, d, inp)
         del params, o, d, inp, out, acts, p, radius, valid, d_safe
     return launches, keep
+
+
+# bench_grt's BENCH_PACKED modes: "1" the packed cull (both levels on
+# packed keys), "l1" the packed level-1 sort only.
+GRT_PACKED_MODES = {"1": dict(packed_cull=True), "l1": dict(packed_l1=True)}
+
+
+def grt_packed_parity(dev, tag):
+    """The packed modes card vs CPU, as grt_parity holds the exact cull's
+    trace: api.trace on bench_grt's 100k scene over the central 128x128
+    rays of its grid, each mode within golden.compare at TRACE_FLIP_SHARE
+    of the plain path (which tests/test_torch_grt_packed.py holds to the
+    JAX package's packed culls)."""
+    from threedgrut_torch import api, golden
+    cfg = GRT_CONFIGS[0]
+    scenes = {device: grt_bench_scene(cfg["n"], cfg["scales"], device,
+                                      crop=GRT_PARITY_SIDE)
+              for device in (dev, "cpu")}
+    for mode, pkw in GRT_PACKED_MODES.items():
+        outs = []
+        for device, (params, o, d) in scenes.items():
+            with torch.no_grad():
+                outs.append(api.trace(params, o, d, device=device,
+                                      **grt_trace_kw(cfg), **pkw))
+        rep, ok = golden.compare(*outs, golden.TRACE_FLIP_SHARE)
+        print(f"api.trace BENCH_PACKED={mode} card vs CPU, bench_grt 100k, "
+              f"{GRT_PARITY_SIDE}^2 rays: {json.dumps(rep)} {tag}",
+              flush=True)
+        if not ok or any(bool(x.overflow) for x in outs):
+            fail(f"api.trace BENCH_PACKED={mode} on the card disagrees with "
+                 f"the plain path")
+
+
+def grt_packed_main_path(dev, tag):
+    """Phase 7's packed modes: tools/bench_grt.py's BENCH_PACKED=1 and l1 at
+    both configurations through api.trace (100k: 6 traces, 1M: 3), the
+    launch counts cleared just before and read just after each mode's
+    traces. Each bundle's candidate set (grt.prepare's flat layout) must
+    equal the exact two-level cull's, exactly. The lists' order against it
+    (golden.lists_agree) and the frame against the exact cull's
+    (golden.compare at TRACE_FLIP_SHARE) are measured, not held: quantized
+    depth reorders a share of each list (the JAX package's design, the
+    same share there: tests/test_torch_grt_packed.py), and the 16-pass
+    re-sort does not undo every reorder. ms a trace beside the exact
+    cull's, timed in the same call. Card vs CPU: grt_packed_parity. Returns
+    ({"<mode> <name>": launches}, the phase's wall seconds)."""
+    from threedgrut_torch import api, golden
+    from threedgrut_torch.ops import cuda_build
+    from threedgrut_torch.render import grt
+    t_phase = time.time()
+    grt_packed_parity(dev, tag)
+    launches = {}
+    for cfg in GRT_CONFIGS:
+        base = phase_start()
+        params, o, d = grt_bench_scene(cfg["n"], cfg["scales"], dev)
+        acts = grt_acts(params)
+        kw = grt_trace_kw(cfg)
+        prep = {k: v for k, v in kw.items() if k != "sorted_passes"}
+        runs = {}
+        for mode, pkw in [("exact", {})] + list(GRT_PACKED_MODES.items()):
+            with torch.no_grad():
+                inp = grt.prepare(*acts, o, d, **prep, **pkw)
+            if bool(inp.overflow):
+                fail(f"3DGRT {cfg['name']} packed mode {mode}: the cull "
+                     f"overflowed")
+            lists = golden.bundle_lists(inp.flat_idx, inp.valid,
+                                        inp.win_starts, inp.win_ends)
+            del inp
+            cuda_build.launches.clear()
+            ms = []
+            for k in range(cfg["traces"]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    out = api.trace(params, o, d, device=dev, **kw, **pkw)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if bool(out.overflow) or not all(
+                        bool(torch.isfinite(getattr(out, f)).all())
+                        for f in ("rgb", "opacity", "depth")):
+                    fail(f"3DGRT {cfg['name']} packed mode {mode} trace "
+                         f"{k + 1}: overflow or a value not finite")
+            got = dict(cuda_build.launches)
+            if got != {"bundle_trace_fwd": cfg["traces"]}:
+                fail(f"3DGRT {cfg['name']} packed mode {mode}: "
+                     f"{cfg['traces']} traces launched {got}")
+            if mode != "exact":
+                launches[f"packed_{mode} {cfg['name']}"] = got
+            steady = ms[1:5] if len(ms) >= 5 else ms[1:]
+            runs[mode] = (lists, out, float(np.median(steady)), ms)
+        exact_lists, exact_out, exact_ms, _ = runs["exact"]
+        for mode in GRT_PACKED_MODES:
+            lists, out, med, ms = runs[mode]
+            sets_equal = len(lists) == len(exact_lists) and all(
+                len(a) == len(b) and set(a.tolist()) == set(b.tolist())
+                for a, b in zip(lists, exact_lists))
+            lrep, _ = golden.lists_agree(lists, exact_lists,
+                                         golden.TRACE_FLIP_SHARE)
+            frep, fok = golden.compare(out, exact_out,
+                                       golden.TRACE_FLIP_SHARE)
+            print(f"3DGRT {cfg['name']} BENCH_PACKED={mode}: candidate sets "
+                  f"equal to the exact cull's {sets_equal}; lists against "
+                  f"it {json.dumps(lrep)}; frame against it (measured, not "
+                  f"held) {json.dumps(frep)}, within golden.compare at "
+                  f"TRACE_FLIP_SHARE {fok}; trace ms "
+                  f"{[round(x, 3) for x in ms]}, median {med:.3f} (exact "
+                  f"cull {exact_ms:.3f}) {tag}", flush=True)
+            if not sets_equal:
+                fail(f"3DGRT {cfg['name']} BENCH_PACKED={mode}: candidate "
+                     f"sets differ from the exact two-level cull's")
+            n_rays = o.shape[0]
+            print(json.dumps({
+                "metric": "grt_trace_rays_per_s_infer",
+                "value": n_rays / (med / 1e3), "unit": "rays/s/chip",
+                "backend": "cuda", "device": torch.cuda.get_device_name(0),
+                "n_gaussians": cfg["n"], "n_rays": n_rays,
+                "candidate_capacity": cfg["cand"],
+                "flat_capacity": cfg["flat_cap"], "packed_cull": mode,
+                "flat_cull": False, "candidate_overflow": False,
+                "step_ms": med, "exact_cull_step_ms": exact_ms,
+                "max_memory_allocated_gib": phase_peak_gib(base)}),
+                flush=True)
+        del params, o, d, acts, runs, exact_out, exact_lists
+    wall = time.time() - t_phase
+    print(f"phase 7 packed modes wall {wall:.1f} s", flush=True)
+    return launches, wall
+
+
+def grt_packed_fwd_bwd(dev, tag):
+    """Phase 8's packed fwd+bwd: bench_grt's fwd+bwd at 100k (6 steps) with
+    BENCH_PACKED=1 (B7, B8 and B6 once a step), the launch counts cleared
+    just before and read just after; its frame within golden.compare of
+    the packed forward-only trace (api.trace) of the same parameters.
+    Against the exact cull's fwd+bwd from the same parameters (measured,
+    not held: the packed cull orders near-tie depths otherwise, and the
+    16-pass re-sort does not undo every reorder): the frame by
+    golden.compare, and the share of particles whose gradient of positions
+    or opacities differs by more than f32 reordering (2e-4 x max|g| +
+    5e-8, as tests/test_parallel.py) with the largest such difference.
+    Returns ({"packed_1 100k": launches}, the wall seconds)."""
+    from threedgrut_torch import golden
+    from threedgrut_torch.ops import cuda_build, fused_raster
+    from threedgrut_torch.render import grt
+    t_phase = time.time()
+    cfg = GRT_CONFIGS[0]
+    params, o, d = grt_bench_scene(cfg["n"], cfg["scales"], dev)
+    acts = grt_acts(params)
+    del params
+    kw = grt_trace_kw(cfg)
+    walk = grt_walk_capacity(cfg["flat_cap"])
+    want = cuda_build.kernels_of("grt")
+    ex_out, _, ex_g = grt_fwd_bwd(acts, o, d, kw, walk, (0, 3))
+    cuda_build.launches.clear()
+    ms = []
+    for k in range(cfg["traces"]):
+        fused_raster.branches.clear()
+        before = dict(cuda_build.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, loss, g = grt_fwd_bwd(acts, o, d, dict(kw, packed_cull=True),
+                                   walk, (0, 3))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        step = {n: v - before.get(n, 0) for n, v in cuda_build.launches.items()
+                if v != before.get(n, 0)}
+        if step != {n: 1 for n in want} or bool(out.overflow) or not (
+                math.isfinite(float(loss.detach()))
+                and all(bool(torch.isfinite(x).all()) for x in g)):
+            fail(f"3DGRT packed fwd+bwd step {k + 1}: launches {step}, "
+                 f"overflow {bool(out.overflow)}, or a value not finite")
+    launches = {f"packed_1 {cfg['name']}": dict(cuda_build.launches)}
+    with torch.no_grad():
+        fwd = grt.trace(*acts, o, d, packed_cull=True, **kw)
+    crep, cok = golden.compare(out, fwd)
+    frep, fok = golden.compare(out, ex_out, golden.TRACE_FLIP_SHARE)
+    hit = None
+    worst = 0.0
+    for name, gp, ge in zip(("positions", "opacities"), g, ex_g):
+        a = gp.reshape(gp.shape[0], -1).double()
+        b = ge.reshape(ge.shape[0], -1).double()
+        bound = 2e-4 * float(b.abs().max()) + 5e-8
+        diff = (a - b).abs().amax(1)
+        loose = diff > bound
+        hit = loose if hit is None else hit | loose
+        worst = max(worst, float(diff.max()) / max(float(b.abs().max()),
+                                                  1e-30))
+    nz = nonzero_share(ex_g)
+    share = float(hit.double().mean()) / max(nz, 1e-12)
+    med = float(np.median(ms[1:5]))
+    print(f"3DGRT packed fwd+bwd {cfg['name']} (BENCH_PACKED=1): steps ms "
+          f"{[round(x, 3) for x in ms]}, median of 2-5 {med:.3f}; frame vs "
+          f"the packed forward trace {json.dumps(crep)}; against the exact "
+          f"cull's fwd+bwd (measured, not held): frame {json.dumps(frep)} "
+          f"(within TRACE_FLIP_SHARE {fok}), particles whose gradient "
+          f"differs by more than 2e-4 x max|g| + 5e-8: {share:.6f} of those "
+          f"with a gradient ({nz:.4f} of all), the largest difference "
+          f"{worst:.4e} x max|g|; branch {dict(fused_raster.branches)} "
+          f"{tag}", flush=True)
+    if not cok:
+        fail("the packed fwd+bwd's frame is outside golden.compare of the "
+             "packed forward trace")
+    wall = time.time() - t_phase
+    print(f"phase 8 packed fwd+bwd wall {wall:.1f} s", flush=True)
+    return launches, wall
 
 
 def grt_flat_parity(dev, tag):
@@ -3504,7 +3737,7 @@ def h2d_ms(view, dev, iters=20):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def data_entry_points(dev, tag):
+def data_entry_points(dev, tag, extra=None):
     """Phase 6c: the data, entry-point and eval layer at full width. The
     scenes are written into a temporary directory from the seeded ground
     truth scene and the port's own renders. Legs: (a) the
@@ -3517,7 +3750,8 @@ def data_entry_points(dev, tag):
     files and the render entry with the 3DGRT eval overrides; (d) the
     multi-sensor MCMC acceptance run at 800x800, the render entry
     rebuilding its scene, and a fisheye rolling-shutter train step card vs
-    CPU. Returns the legs' records."""
+    CPU. `extra(nerf_dir, runs_dir)`, where given, runs last on (a)'s files
+    (phase 6d(c)), outside the phase's wall. Returns the legs' records."""
     import tempfile
     from threedgrut_torch import datasets
     from threedgrut_torch.ops import cuda_build
@@ -3683,8 +3917,13 @@ def data_entry_points(dev, tag):
             tmp / "eval_ms", dev, gut, MS_VIEWS)
         recs.append(rec)
         print(f"{leg}: {json.dumps(rec)} {tag}", flush=True)
+        extra_s = 0.0
+        if extra is not None:
+            t_extra = time.time()
+            extra(nerf, runs)
+            extra_s = time.time() - t_extra
     print(f"phase 6c (data, entry points and eval) wall "
-          f"{time.time() - t_phase:.1f} s", flush=True)
+          f"{time.time() - t_phase - extra_s:.1f} s", flush=True)
     return recs
 
 
@@ -3708,6 +3947,413 @@ def render_retry(api, params, cam, T, res, cap, dev, **kw):
         cap *= 2
         print(f"isect overflow: capacity -> {cap}", flush=True)
     fail("overflow persists after 8 doublings")
+
+
+# ---- phase 6d: multi-device training on the one card -----------------------
+
+# (a) DPTrainer at (1, 1, 1) under NCCL (a world of one) against phase 6's
+# Trainer, step by step; (b) meshes of ranks sharing cuda:0 over gloo (NCCL
+# takes one rank per card), the steps of each; (c) the train entry's
+# --multichip on 6c(a)'s NeRF scene.
+MESH_PARITY_STEPS = 6
+MESH_STEPS = 3
+MESH_WORLDS = {2: ((1, 2, 1), (2, 1, 1)), 4: ((1, 2, 2),)}
+MESH_ENTRY_SHAPE = "1,2,1"
+MESH_ENTRY_ITERS = 20
+# tests/test_parallel.py's tolerance of a mesh gradient: 2e-4 max|g| + 5e-8.
+MESH_GRAD_RTOL, MESH_GRAD_ATOL = 2e-4, 5e-8
+
+
+def mesh_sizes() -> dict:
+    """The mesh phase's sizes (passed to its ranks): phase 6's."""
+    return dict(n=MAIN_N, res=MAIN_RES, cap=MAIN_CAP, steps=MESH_STEPS)
+
+
+def mesh_views(dev, res):
+    """The data mesh's views: bench.py's camera and orbit_T(2) at `res`,
+    zero ground truth (view 0 is the others' only view)."""
+    from threedgrut_torch.cameras import example_camera, look_at
+    from threedgrut_torch.datasets.protocols import View
+    gt = np.zeros((res[1], res[0], 3), np.float32)
+    T0 = look_at(np.array([0.0, -4.0, 1.0], np.float32),
+                 np.zeros(3, np.float32), np.array([0.0, 0.0, 1.0],
+                                                   np.float32))
+    return [View(T_to_world=T, camera=example_camera(res, dev),
+                 resolution=res, rgb_gt=gt) for T in (T0, orbit_T(2))]
+
+
+def mesh_config(cap):
+    """phase 6's configuration (train_setup's): Config() at capacity `cap`,
+    SH degree 3 from the first step."""
+    from threedgrut_torch.config import Config
+    cfg = Config()
+    cfg.render.isect_capacity = cap
+    cfg.model.progressive_sh_interval = 0
+    return cfg
+
+
+def state_digest(tr) -> str:
+    """A digest of a trainer's parameters and Adam moments, taken on the
+    device: per tensor the sums of its 32-bit words and of the words times
+    odd position weights (any one changed bit changes it)."""
+    import hashlib
+    from threedgrut_torch import optimizers
+    from threedgrut_torch.model.gaussians import FIELDS
+    parts = []
+    tensors = ([getattr(tr.params, f) for f in FIELDS]
+               + [tr.opt_state.exp_avg[f] for f in optimizers.PARAM_FIELDS]
+               + [tr.opt_state.exp_avg_sq[f]
+                  for f in optimizers.PARAM_FIELDS])
+    with torch.no_grad():
+        for t in tensors:
+            t = t.detach().contiguous().reshape(-1)
+            w = (t.to(torch.int64) if t.dtype == torch.bool
+                 else t.view(torch.int32).to(torch.int64))
+            k = torch.arange(w.numel(), device=w.device, dtype=torch.int64)
+            parts += [w.sum(), (w * (2 * k + 1)).sum()]
+            del w, k
+    return hashlib.sha256(torch.stack(parts).cpu().numpy().tobytes()
+                          ).hexdigest()[:16]
+
+
+def mesh_reference(tr, views):
+    """The single-process gradient of a mesh step from the trainer's current
+    parameters: Trainer's step_fn on copies, the mean over `views`."""
+    from threedgrut_torch import optimizers
+    from threedgrut_torch.trainer import step_fn
+    total = None
+    for v in views:
+        p = copy.deepcopy(tr.params)
+        opt = optimizers.AdamState(
+            tr.opt_state.step,
+            {k: x.clone() for k, x in tr.opt_state.exp_avg.items()},
+            {k: x.clone() for k, x in tr.opt_state.exp_avg_sq.items()})
+        T, cam, gt, mask, shutter, T_end = tr._view_tensors(v)
+        _, aux = step_fn(p, opt, T, cam, gt, mask, tr.scene_extent,
+                         v.resolution, tr.active_sh_degree(), tr.cfg,
+                         train=True, shutter=shutter, T_end=T_end,
+                         isect_capacity=tr.isect_capacity)
+        g = aux["grads"]
+        total = g if total is None else {f: total[f] + g[f] for f in g}
+        del p, opt, aux
+    return {f: x / len(views) for f, x in total.items()}
+
+
+def gloo_cuda_collectives(dev) -> dict:
+    """Which torch.distributed collectives gloo takes for tensors on `dev`
+    (cuda:0) here: each tried once on a small int32 tensor in a group of its
+    own (a 60 s timeout), "ok" or the error's first line."""
+    import datetime
+    import torch.distributed as dist
+    world, rank = dist.get_world_size(), dist.get_rank()
+    g = dist.new_group(backend="gloo",
+                       timeout=datetime.timedelta(seconds=60))
+    x = torch.arange(4 * world, dtype=torch.int32, device=dev) + rank
+    ops = {
+        "all_reduce": lambda: dist.all_reduce(x.clone(), group=g),
+        "broadcast": lambda: dist.broadcast(x.clone(), 0, group=g),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(x) for _ in range(world)], x, group=g),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(world * x.numel(), dtype=x.dtype, device=x.device),
+            x, group=g),
+        "reduce": lambda: dist.reduce(x.clone(), 0, group=g),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(4, dtype=x.dtype, device=x.device), x, group=g),
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty_like(x), x, group=g),
+        "barrier": lambda: dist.barrier(group=g),
+    }
+    out = {}
+    for name, op in ops.items():
+        try:
+            op()
+            sync(dev)
+            out[name] = "ok"
+        except Exception as e:     # noqa: BLE001 - recorded, not raised
+            out[name] = (str(e).strip().splitlines() or ["error"])[0][:160]
+    return out
+
+
+def sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def mesh_rank(rank, shapes, probe, device, sizes):
+    """A rank of 6d(b), on cuda:0 beside the others (gloo): bench.py's 1M
+    scene, phase 6's configuration and camera (the data mesh's second view
+    orbit_T(2)); for each mesh of `shapes` a DPTrainer takes MESH_STEPS
+    steps from the scene's parameters. Per step: the host ms after a
+    barrier (ranks time-sharing one card), the loss, this rank's launches
+    and the tile counts of its B1 and B2 launches (the strip), the state's
+    digest; on rank 0 also each field's largest difference from the
+    single-process gradient (mesh_reference) and its bound. `probe`: first
+    record gloo_cuda_collectives(). `device`: the ranks' device (cuda:0;
+    the CPU in a rehearsal); `sizes`: mesh_sizes()."""
+    import torch.distributed as dist
+    from threedgrut_torch.model.gaussians import bench_scene, from_numpy
+    from threedgrut_torch.ops import cuda_build, tile_raster
+    from threedgrut_torch.parallel.trainer import DPTrainer
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rec = {"collectives": gloo_cuda_collectives(dev) if probe else None}
+    strips = []
+    fwd, bwd = tile_raster._launch, tile_raster._launch_backward
+
+    def count_fwd(*a, **k):
+        strips.append(("B1", int(a[3].shape[0])))
+        return fwd(*a, **k)
+
+    def count_bwd(*a, **k):
+        strips.append(("B2", int(a[3].shape[0])))
+        return bwd(*a, **k)
+
+    tile_raster._launch, tile_raster._launch_backward = count_fwd, count_bwd
+    fields = bench_scene(sizes["n"], seed=0)
+    views = mesh_views(dev, sizes["res"])
+    for shape in shapes:
+        batch = views[:shape[0]]
+        tr = DPTrainer(mesh_config(sizes["cap"]), OneView(views[0], 4.0),
+                       params=from_numpy(fields, device=dev), device=dev,
+                       mesh_shape=shape)
+        steps = []
+        for k in range(sizes["steps"]):
+            step = {}
+            if rank == 0:
+                ref = mesh_reference(tr, batch)
+            dist.barrier()
+            strips.clear()
+            cuda_build.launches.clear()
+            sync(dev)
+            t0 = time.perf_counter()
+            aux = tr.train_step_batch(batch)
+            sync(dev)
+            step["ms"] = (time.perf_counter() - t0) * 1e3
+            step["launches"] = dict(cuda_build.launches)
+            step["strips"] = list(strips)
+            step["loss"] = float(aux["terms"]["total"])
+            step["overflow"] = bool(aux["overflow"])
+            step["finite"] = all(bool(torch.isfinite(g).all())
+                                 for g in aux["grads"].values())
+            if rank == 0:
+                step["grads"] = {
+                    f: (float((aux["grads"][f] - ref[f]).abs().max()),
+                        MESH_GRAD_RTOL * float(ref[f].abs().max())
+                        + MESH_GRAD_ATOL) for f in ref}
+                del ref
+            step["digest"] = state_digest(tr)
+            steps.append(step)
+        rec[shape] = dict(steps=steps, coords=tr.mesh.coords, peak_gib=(
+            torch.cuda.max_memory_allocated(dev) / 2**30
+            if dev.type == "cuda" else 0.0))
+        del tr, aux
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_one_rank(dev, tag, backend="nccl"):
+    """6d(a): DPTrainer at (1, 1, 1) under NCCL (a world of one, its
+    collectives run) against phase 6's Trainer.train_step from the same
+    parameters, MESH_PARITY_STEPS steps in turns: loss, image, parameters
+    and Adam's moments bit-equal after every step; the launch counts of
+    the mesh's steps cleared before and read after each."""
+    import torch.distributed as dist
+    from threedgrut_torch import optimizers
+    from threedgrut_torch.model.gaussians import FIELDS, bench_scene, \
+        from_numpy
+    from threedgrut_torch.ops import cuda_build
+    from threedgrut_torch.parallel import multihost
+    from threedgrut_torch.parallel.trainer import DPTrainer
+    from threedgrut_torch.trainer import Trainer
+    fields = bench_scene(MAIN_N, seed=0)
+    views = mesh_views(dev, MAIN_RES)
+    tr = Trainer(mesh_config(MAIN_CAP), OneView(views[0], 4.0),
+                 params=from_numpy(fields, device=dev), device=dev)
+    multihost.init_process_group(
+        backend, f"127.0.0.1:{multihost.free_port()}", 1, 0)
+    launches, ms, tr_ms = {}, [], []
+    try:
+        dtr = DPTrainer(mesh_config(MAIN_CAP), OneView(views[0], 4.0),
+                        params=from_numpy(fields, device=dev), device=dev,
+                        mesh_shape=(1, 1, 1))
+        for k in range(MESH_PARITY_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a = tr.train_step(views[0])
+            torch.cuda.synchronize()
+            tr_ms.append((time.perf_counter() - t0) * 1e3)
+            before = dict(cuda_build.launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            b = dtr.train_step(views[0])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            step = {n: v - before.get(n, 0)
+                    for n, v in cuda_build.launches.items()}
+            for n, v in step.items():
+                launches[n] = launches.get(n, 0) + v
+            same = (float(a["terms"]["total"]) == float(b["terms"]["total"])
+                    and torch.equal(a["pred"], b["pred"])
+                    and all(torch.equal(getattr(tr.params, f),
+                                        getattr(dtr.params, f))
+                            for f in FIELDS)
+                    and all(torch.equal(tr.opt_state.exp_avg[f],
+                                        dtr.opt_state.exp_avg[f])
+                            and torch.equal(tr.opt_state.exp_avg_sq[f],
+                                            dtr.opt_state.exp_avg_sq[f])
+                            for f in optimizers.PARAM_FIELDS))
+            print(f"6d(a) step {k + 1}: DPTrainer (1, 1, 1) under NCCL vs "
+                  f"Trainer: loss {float(b['terms']['total']):.6f} / "
+                  f"{float(a['terms']['total']):.6f}, bit-equal (loss, "
+                  f"image, parameters, moments) {same}; mesh step "
+                  f"{ms[-1]:.3f} ms (Trainer's {tr_ms[-1]:.3f}), launches "
+                  f"{step} {tag}", flush=True)
+            if not same:
+                fail(f"6d(a): DPTrainer at (1, 1, 1) differs from Trainer "
+                     f"at step {k + 1}")
+            if step.get("tile_raster_fwd") != 1 \
+                    or step.get("tile_raster_bwd") != 1:
+                fail(f"6d(a) step {k + 1} launched {step}")
+    finally:
+        dist.destroy_process_group()
+    print(f"6d(a): step ms, median of steps 2-{MESH_PARITY_STEPS}: mesh "
+          f"(1, 1, 1) {float(np.median(ms[1:])):.3f}, Trainer "
+          f"{float(np.median(tr_ms[1:])):.3f} {tag}", flush=True)
+    del tr, dtr
+    torch.cuda.empty_cache()
+    return dict(launches=launches, step_ms=ms, trainer_step_ms=tr_ms)
+
+
+def mesh_ranks(tag, device="cuda:0"):
+    """6d(b): the meshes of MESH_WORLDS, each world of processes sharing
+    cuda:0 over gloo (multihost.spawn). Fails unless every rank ends every
+    step with the same state digest, no step overflows or gives a value
+    that is not finite, rank 0's gradients are within MESH_GRAD_RTOL
+    max|g| + MESH_GRAD_ATOL of the single-process step's (the mean of the
+    two views' at (2, 1, 1)), and every rank launched B1 and B2 once a step
+    on a strip of 2,500 / T tiles. Returns {mesh: launches per rank}."""
+    from threedgrut_torch.parallel import multihost
+    tiles = -(-MAIN_RES[0] // 16) * -(-MAIN_RES[1] // 16)
+    launches, probe = {}, True
+    for world, shapes in MESH_WORLDS.items():
+        t0 = time.time()
+        recs = multihost.spawn(mesh_rank, world,
+                               args=(shapes, probe, device, mesh_sizes()),
+                               backend="gloo", timeout=900)
+        wall = time.time() - t0
+        if probe:
+            print(f"6d(b) gloo on CUDA tensors (torch "
+                  f"{torch.__version__}): {json.dumps(recs[0]['collectives'])}",
+                  flush=True)
+            probe = False
+        for shape in shapes:
+            strip = tiles // shape[1]
+            per_rank = [r[shape] for r in recs]
+            for k in range(len(per_rank[0]["steps"])):
+                st = [p["steps"][k] for p in per_rank]
+                digests = {s["digest"] for s in st}
+                g = st[0]["grads"]
+                worst = max(d / b for d, b in g.values())
+                ok_strips = all(
+                    s["strips"] == [("B1", strip), ("B2", strip)]
+                    and s["launches"].get("tile_raster_fwd") == 1
+                    and s["launches"].get("tile_raster_bwd") == 1
+                    for s in st)
+                print(f"6d(b) mesh {shape} step {k + 1}: loss "
+                      f"{st[0]['loss']:.6f}; ms per rank (ranks "
+                      f"time-sharing one card, not a scaling figure) "
+                      f"{[round(s['ms'], 3) for s in st]}; gradient vs the "
+                      f"single-process step: largest |diff| / bound "
+                      f"{worst:.4f} ({json.dumps(g)}); state digests "
+                      f"{sorted(digests)}; B1/B2 strips of {strip} tiles "
+                      f"{ok_strips}; rank 0 launches {st[0]['launches']} "
+                      f"{tag}", flush=True)
+                if len(digests) != 1:
+                    fail(f"6d(b) {shape} step {k + 1}: the ranks' states "
+                         f"differ ({digests})")
+                if worst > 1.0:
+                    fail(f"6d(b) {shape} step {k + 1}: gradients outside "
+                         f"the tolerance ({g})")
+                if not ok_strips or any(s["overflow"] or not s["finite"]
+                                        for s in st):
+                    fail(f"6d(b) {shape} step {k + 1}: strips "
+                         f"{[s['strips'] for s in st]}, launches "
+                         f"{[s['launches'] for s in st]}, overflow or a "
+                         f"value not finite")
+            launches[str(shape)] = [
+                {n: sum(s["launches"].get(n, 0) for s in p["steps"])
+                 for n in p["steps"][0]["launches"]} for p in per_rank]
+            print(f"6d(b) mesh {shape}: coords "
+                  f"{[p['coords'] for p in per_rank]}, peak memory per "
+                  f"rank {[round(p['peak_gib'], 3) for p in per_rank]} GiB",
+                  flush=True)
+        print(f"6d(b) world of {world} ranks on cuda:0: wall {wall:.1f} s "
+              f"(spawn included)", flush=True)
+    return launches
+
+
+def mesh_entry_leg(nerf, runs, tag):
+    """6d(c): `python -m threedgrut_torch.train --multichip 1,2,1
+    --dist-backend gloo` on 6c(a)'s NeRF scene, MESH_ENTRY_ITERS steps:
+    the run ends 0, rank 0 writes the checkpoint, the export and the test
+    renders, and each rank's printed launches show B1 and B2 (B2 once a
+    step). Returns its record."""
+    from threedgrut_torch.ops import cuda_build
+    argv = [sys.executable, "-m", "threedgrut_torch.train", "--multichip",
+            MESH_ENTRY_SHAPE, "--dist-backend", "gloo", "--device", "cuda",
+            "--config-name", "nerf_synthetic_3dgut", f"path={nerf}",
+            f"out_dir={runs}", "experiment_name=mesh",
+            f"train.iterations={MESH_ENTRY_ITERS}", "train.val_frequency=0"]
+    t0 = time.time()
+    r = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True,
+                       timeout=900)
+    wall = time.time() - t0
+    out = r.stdout + r.stderr
+    if r.returncode != 0:
+        print(out[-6000:], flush=True)
+        fail(f"6d(c): the --multichip train entry exited {r.returncode}")
+    ranks = {int(m.group(1)): json.loads(m.group(3)) for m in re.finditer(
+        r"mesh rank (\d+) of (\d+): launches (\{[^{}]*\})", out)}
+    steps = {int(m.group(1)): float(m.group(2)) for m in re.finditer(
+        r"mesh rank (\d+) of \d+: host step ms median ([\d.]+)", out)}
+    run = Path(runs) / "mesh"
+    missing = [f for f in ("ckpt_last.npz", "export_last.ply",
+                           "export_last.ingp", "export_last.usdz")
+               if not (run / f).exists()]
+    test = re.search(r"final test: (\{.*\})", out)
+    bad = {rk: l for rk, l in ranks.items()
+           if l.get("tile_raster_bwd") != MESH_ENTRY_ITERS
+           or l.get("tile_raster_fwd", 0) < MESH_ENTRY_ITERS
+           or l.get("cull_masks", 0) < MESH_ENTRY_ITERS}
+    rec = dict(wall_s=wall, launches=ranks, step_ms_median=steps,
+               test=json.loads(test.group(1)) if test else None)
+    print(f"6d(c) --multichip {MESH_ENTRY_SHAPE} --dist-backend gloo, "
+          f"{MESH_ENTRY_ITERS} steps on 6c(a)'s scene: {json.dumps(rec)}, "
+          f"wall {wall:.1f} s {tag}", flush=True)
+    if sorted(ranks) != [0, 1] or bad or missing or test is None:
+        print(out[-6000:], flush=True)
+        fail(f"6d(c): ranks {sorted(ranks)}, launches {bad}, missing "
+             f"{missing}, test summary {test is not None}")
+    return rec
+
+
+def multi_device(dev, tag, entry_rec):
+    """Phase 6d (its (c) ran at the end of 6c, on 6c(a)'s files: entry_rec).
+    Returns {"a": ..., "b": launches per mesh and rank, "c": entry_rec}."""
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    rec = {"a": mesh_one_rank(dev, tag)}
+    t_a = time.time() - t0
+    rec["b"] = mesh_ranks(tag)
+    rec["c"] = entry_rec
+    print(f"phase 6d wall: (a) {t_a:.1f} s, (b) {time.time() - t0 - t_a:.1f}"
+          f" s, (c) {entry_rec['wall_s']:.1f} s", flush=True)
+    return rec
 
 
 def train_main_path(dev, tag, cfg=None, mode="default"):
@@ -4499,12 +5145,20 @@ def main() -> int:
     densify_recs = densification(dev, tag)
 
     # ---- 6c. data, entry points and eval ---------------------------------
-    data_recs = data_entry_points(dev, tag)
+    mesh_entry = {}
+    data_recs = data_entry_points(
+        dev, tag, extra=lambda nerf, runs: mesh_entry.update(
+            mesh_entry_leg(nerf, runs, tag)))
+
+    # ---- 6d. multi-device training (its (c) ran on 6c's files) -----------
+    mesh_rec = multi_device(dev, tag, mesh_entry)
 
     # ---- 7. 3DGRT main path: bench_grt's configurations ------------------
     grt_launches, (gp, g_o, g_d, g_inp) = grt_main_path(dev, tag)
     flat_launches, _ = grt_main_path(dev, tag, flat=True)
     grt_launches.update({f"flat_{k}": v for k, v in flat_launches.items()})
+    packed_launches, _ = grt_packed_main_path(dev, tag)
+    grt_launches.update(packed_launches)
 
     # ---- 8. 3DGRT train main path: bench_grt's fwd+bwd, the trainer ------
     fb_launches, grt_walk = grt_fwd_bwd_main_path(dev, tag)
@@ -4512,6 +5166,9 @@ def main() -> int:
     fb_flat, _ = grt_fwd_bwd_main_path(dev, tag, flat=True)
     grt_train_launches.update({f"fwd_bwd_flat_{k}": v
                                for k, v in fb_flat.items()})
+    fb_packed, _ = grt_packed_fwd_bwd(dev, tag)
+    grt_train_launches.update({f"fwd_bwd_{k}": v
+                               for k, v in fb_packed.items()})
     grt_train_launches["trainer_100k"] = grt_train_main_path(dev, tag)
 
     # ---- 8b. the flat cull's legs: B9's main path ------------------------
@@ -4714,6 +5371,20 @@ def main() -> int:
                 entry[run_name] = (0 if option and not r.get("channels")
                                    else counts.get(base, 0))
         r["launches_entry"] = entry
+    # Phase 6d's launches of each kernel, by run: (a) the (1, 1, 1) mesh's
+    # steps, (b) each mesh rank's steps, (c) each rank of the --multichip
+    # entry (training only); B1/B2's default legs only; B6 at 16 channels.
+    for r in records:
+        base, _, option = r["name"].partition("[")
+        runs = {"(1, 1, 1) nccl": mesh_rec["a"]["launches"]}
+        for shape, per_rank in mesh_rec["b"].items():
+            runs.update({f"{shape} gloo rank {i}": c
+                         for i, c in enumerate(per_rank)})
+        runs.update({f"entry {MESH_ENTRY_SHAPE} rank {i}": c
+                     for i, c in mesh_rec["c"]["launches"].items()})
+        r["launches_mesh"] = {
+            name: 0 if option or r.get("channels") == 64
+            else counts.get(base, 0) for name, counts in runs.items()}
     # Phase 5b's launches of each kernel, by run: B1's default leg in every
     # frame but the frozen ones between refreshes, which run its sorted leg
     # (the "[sorted16]" record); B3 and B4 in every refresh, exact and

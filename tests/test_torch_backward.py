@@ -37,6 +37,17 @@ from tests.test_torch_render import CAP, RES, camera_to_world, scene
 ARGS = (2, 1e-4, 0.0113, 1.0 / 255.0, 0.99)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """torch on one intra-op thread for the module (as
+    tests/test_torch_grt.py): under the parallel run's load, the plain
+    versions' many small ops stall on an 8-thread pool's barriers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def J(x):
     return jnp.asarray(np.asarray(x))
 

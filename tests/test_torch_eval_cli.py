@@ -263,7 +263,10 @@ def test_train_and_render_entry_points(nerf_dir, tmp_path):
     .ingp and .usdz; the PLY loads back through api.load_scene as the last
     checkpoint's alive rows), the final test renders, then the render
     entry on the last checkpoint. Without a card, the default device
-    raises; the unported option (--multichip) is refused. --with-gui is
+    raises. --multichip 1,1,1 over gloo trains the same run on a mesh of one
+    process, bit for bit (its last checkpoint equals the run's); a shape
+    that is not D,T,M and a 3DGRT method on the mesh are refused (the
+    meshes of several ranks: tests/test_torch_parallel.py). --with-gui is
     ported: tests/test_torch_viewer.py trains with it."""
     out = str(tmp_path)
     args = ["--device", "cpu", "--config-name", "nerf_synthetic_3dgut",
@@ -305,8 +308,19 @@ def test_train_and_render_entry_points(nerf_dir, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             ttrain.main(args[2:])
+    margs = ["--multichip=1,1,1", "--dist-backend", "gloo"] + [
+        "experiment_name=m" if a == "experiment_name=t" else a for a in args]
+    assert ttrain.main(margs) == 0
+    with np.load(os.path.join(run, "ckpt_last.npz")) as last, \
+            np.load(os.path.join(out, "m", "ckpt_last.npz")) as mesh_last:
+        assert sorted(last.files) == sorted(mesh_last.files)
+        for k in last.files:
+            assert np.array_equal(last[k], mesh_last[k]), k
     with pytest.raises(SystemExit):
-        ttrain.main(["--multichip=2,1,1"] + args)
+        ttrain.main(["--multichip=2,1"] + args)
+    with pytest.raises(ValueError, match=r"'3dgrt'.*\(2, 1, 1\)"):
+        ttrain.main(["--multichip=2,1,1", "--dist-backend", "gloo"] + args
+                    + ["render.method=3dgrt"])
 
 
 def test_multi_sensor_acceptance_in_miniature(tmp_path):

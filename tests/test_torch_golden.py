@@ -23,6 +23,17 @@ from threedgrut_torch.cameras import example_camera, pose_from_matrix
 from threedgrut_torch.model.gaussians import from_numpy
 
 
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """torch on one intra-op thread for the module (as
+    tests/test_torch_grt.py): under the parallel run's load, the plain
+    versions' many small ops stall on an 8-thread pool's barriers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def render_golden_jax(**kw):
     """JAX api.render outputs (hit_visibility=True) of the golden scene, with
     api.render keywords `kw`."""

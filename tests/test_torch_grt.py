@@ -614,20 +614,16 @@ def test_3dgrt_train_step_updates_parameters():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(packed_cull=True), "packed_cull"),
-    (dict(packed_l1=True), "packed_l1"),
     (dict(walk_capacity=1000, flat_capacity=2048), "walk_capacity"),
     (dict(order="sorted"), "order"),
 ])
 def test_unported_trace_options_raise(kw, match):
-    """The options not ported yet raise naming their ROADMAP items; a
-    walk_capacity that is not a multiple of 256 and an unknown order are
-    refused."""
+    """A walk_capacity that is not a multiple of 256 and an unknown order
+    are refused (every option of the JAX package's trace is ported; the
+    packed culls are tests/test_torch_grt_packed.py's)."""
     sc = tt(*layered_scene(n=8))
     o, d = tt(*coherent_rays())
-    err = (ValueError if "order" in kw or "walk_capacity" in kw
-           else NotImplementedError)
-    with pytest.raises(err, match=match):
+    with pytest.raises(ValueError, match=match):
         grt.trace(*sc, o, d, candidate_capacity=8, **kw)
 
 

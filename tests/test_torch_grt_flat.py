@@ -38,6 +38,17 @@ LEGS = {"expand_sort": {}, "member_sort": dict(expand_sort=False),
         "compact_kernel": dict(compact_kernel=True)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """torch on one intra-op thread for the module (as
+    tests/test_torch_grt.py): under the parallel run's load, the plain
+    versions' many small ops stall on an 8-thread pool's barriers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def flat_rays(nb=32, seed=24):
     """tests/test_grt.py's flat-cull rays: nb bundles of 256 from (0, 0,
     -1), fanned on a 6-wide grid."""

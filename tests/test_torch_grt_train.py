@@ -62,6 +62,17 @@ from threedgrut_torch.render import grt
 MIN_T = JC.MIN_TRANSMITTANCE_3DGRT
 
 
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """torch on one intra-op thread for the module (as
+    tests/test_torch_grt.py): under the parallel run's load, the plain
+    versions' many small ops stall on an 8-thread pool's barriers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def cotangent(shape, seed=0):
     """A random output cotangent; rows 6-7 (hits, walked windows) get none."""
     g = np.random.default_rng(seed).normal(size=shape).astype(np.float32)

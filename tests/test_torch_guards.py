@@ -138,3 +138,34 @@ def test_strategies_refuse_a_missing_card(monkeypatch):
         gs.GSStrategy(cfg.strategy, 16)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         mcmc.MCMCStrategy(cfg.strategy, cfg.optimizer, 16)
+
+
+def test_mesh_refuses_a_missing_card(monkeypatch, tmp_path):
+    """The mesh trainer and `--multichip` default to the card and raise
+    without one (before any rank starts); a spawned rank keeps the device
+    its caller asked for (cuda:(rank % card count), or the CPU). The packed
+    3DGRT culls run where the trace does: on the card by default."""
+    from threedgrut_torch import train as ttrain
+    from threedgrut_torch.config import Config
+    from threedgrut_torch.parallel import multihost
+    from threedgrut_torch.parallel.trainer import DPTrainer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DPTrainer(Config(), None, mesh_shape=(1, 1, 1))
+    for backend in ("nccl", "gloo"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ttrain.main(["--multichip=2,1,1", "--dist-backend", backend,
+                         "dataset.type=synthetic", f"out_dir={tmp_path}"])
+    assert multihost.rank_device("cuda", 3).type == "cuda"
+    assert multihost.rank_device("cpu", 3) == torch.device("cpu")
+    rng = np.random.default_rng(0)
+    fields = gaussians.padded_fields(
+        rng.normal(size=(8, 3)).astype(np.float32),
+        rng.normal(size=(8, 4)).astype(np.float32),
+        np.full((8, 3), -2.0, np.float32), np.zeros((8, 1), np.float32),
+        np.zeros((8, 3), np.float32), np.zeros((8, 45), np.float32), 16)
+    params = gaussians.from_numpy(fields, device="cpu")
+    for kw in (dict(packed_cull=True), dict(packed_l1=True)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            api.trace(params, np.zeros((256, 3), np.float32),
+                      np.ones((256, 3), np.float32), **kw)

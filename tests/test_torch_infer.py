@@ -34,6 +34,17 @@ THRESHOLDS = (0.0, 1.0 / 255.0, 0.05)
 FROZEN_T = (0.03, -0.02, 0.01)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """torch on one intra-op thread for the module (as
+    tests/test_torch_grt.py): under the parallel run's load, the plain
+    versions' many small ops stall on an 8-thread pool's barriers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def np_scene(n=256, seed=5):
     return tuple(np.asarray(x) for x in random_scene(n=n, seed=seed))
 

@@ -45,6 +45,17 @@ RES = (16, 16)
 ATOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """torch on one intra-op thread for the module (as
+    tests/test_torch_grt.py): under the parallel run's load, the plain
+    versions' many small ops stall on an 8-thread pool's barriers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def npy(x):
     return np.asarray(x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
                       else x)

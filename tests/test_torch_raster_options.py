@@ -68,6 +68,17 @@ ONE = torch.tensor([1.0, 0.0, 0.0, 0.0])
 IDENTITY = SensorPose(ONE, torch.zeros(3), ONE, torch.zeros(3))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """torch on one intra-op thread for the module (as
+    tests/test_torch_grt.py): under the parallel run's load, the plain
+    versions' many small ops stall on an 8-thread pool's barriers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def J(x):
     return jnp.asarray(np.asarray(x))
 

@@ -1,8 +1,8 @@
 """The forward-render slice end to end: threedgrut_torch.api against
 threedgrut_tpu.api on the same scene (512 Gaussians, SH degree 3, 64x64),
 both visibility modes and the fused path, with the tolerances of
-golden.compare; plus the scene loader and the options that are not ported
-yet."""
+golden.compare; plus the scene loader, the options that are refused, and
+the 3DGRT render's packed culls."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -169,11 +169,36 @@ def test_load_scene_reads_the_jax_checkpoint_format(tmp_path):
     # termination.
     (dict(sorted_passes=-1), "sorted_passes"),
     (dict(method="3dgrt", row_termination=True), "row_termination"),
-    # The 3DGRT render is ported; its packed-key cull is not.
-    (dict(method="3dgrt", packed_cull=True), "3dgrt"),
 ])
 def test_unported_options_raise(kw, match):
     err = {"sorted_passes": ValueError,
-           "row_termination": TypeError}.get(match, NotImplementedError)
+           "row_termination": TypeError}[match]
     with pytest.raises(err, match=match):
         render_torch(from_numpy(scene(), device="cpu"), **kw)
+
+
+@pytest.fixture
+def one_thread():
+    """torch on one intra-op thread: a 3DGRT render on the CPU is many
+    small ops, which under the parallel run's load stall on a pool's
+    barriers (0.2 s alone, 30 s there)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("kw", [dict(packed_cull=True),
+                                dict(packed_l1=True)])
+def test_3dgrt_render_takes_the_packed_culls(one_thread, kw):
+    """api.render(method="3dgrt") passes the packed culls to the trace. The
+    scene's 16 tile bundles take the single-level cull (the two-level one
+    needs 32), which the packed options leave alone: the frame is the
+    exact cull's, bit for bit."""
+    params = from_numpy(scene(), device="cpu")
+    want, want_ovf = render_torch(params, method="3dgrt")
+    got, got_ovf = render_torch(params, method="3dgrt", **kw)
+    assert bool(got_ovf) == bool(want_ovf)
+    for f in ("rgb", "opacity", "depth", "visibility"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert float(got.opacity.max()) > 0.1

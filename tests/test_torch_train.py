@@ -55,6 +55,17 @@ RES = (48, 48)
 CAP = 1 << 13
 
 
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """torch on one intra-op thread for the module (as
+    tests/test_torch_grt.py): under the parallel run's load, the plain
+    versions' many small ops stall on an 8-thread pool's barriers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def rand(seed, *shape, lo=0.0, hi=1.0):
     return np.random.default_rng(seed).uniform(lo, hi, shape).astype(
         np.float32)

@@ -24,9 +24,19 @@ tests.test_torch_golden grt` rewrites it.
 row termination, under the keys "<mode>/<output>". It stores a provenance
 hash as the 3DGRT file does; `python -m tests.test_torch_golden sorted`
 rewrites it.
+
+`dp_2x2.npz` holds one step of the JAX package's data-parallel trainer
+(parallel/dp.make_dp_train_step with debug_grads) on a (data 2, tile 2,
+model 1) mesh of virtual CPU devices, on tests/test_parallel.py's scene
+(64 slots, 32x32, views 0 and 1): the step's inputs ("params/<field>",
+"T_to_world", "rgb_gt", "scene_extent") and outputs ("grads/<field>",
+"loss", "psnr", "pos_grad_norm", "visibility", "overflow"), with a
+provenance hash (`dp_provenance`). `python tools/torch_dp_golden.py`
+rewrites it.
 """
 from __future__ import annotations
 
+import hashlib
 import math
 from pathlib import Path
 from typing import Dict
@@ -39,6 +49,7 @@ from threedgrut_torch.model.gaussians import bench_scene
 PATH = Path(__file__).resolve().parent / "gut_2k_64.npz"
 GRT_PATH = Path(__file__).resolve().parent / "grt_2k_128.npz"
 SORTED_PATH = Path(__file__).resolve().parent / "gut_sorted_2k_64.npz"
+DP_PATH = Path(__file__).resolve().parent / "dp_2x2.npz"
 # api.render keywords of each mode of the sorted golden file.
 SORTED_MODES = {"sorted": dict(sorted_passes=16),
                 "rowterm": dict(row_termination=True)}
@@ -109,6 +120,29 @@ def load_sorted(mode: str) -> Dict[str, np.ndarray]:
     SORTED_MODES (hit_visibility=True render)."""
     with np.load(SORTED_PATH) as d:
         return {k: d[f"{mode}/{k}"] for k in OUTPUTS}
+
+
+def load_dp() -> Dict[str, np.ndarray]:
+    """The stored inputs and outputs of the JAX data-parallel step."""
+    with np.load(DP_PATH) as d:
+        return {k: d[k] for k in d.files}
+
+
+def dp_provenance(sources: Path, arrays: Dict[str, np.ndarray],
+                  settings: Dict) -> str:
+    """sha256 of what the data-parallel golden step was made from: every
+    .py file under `sources` (the JAX package's directory; read as bytes),
+    the step's input arrays and its settings."""
+    h = hashlib.sha256()
+    sources = Path(sources)
+    for f in sorted(sources.rglob("*.py")):
+        h.update(str(f.relative_to(sources)).encode())
+        h.update(f.read_bytes())
+    for k in sorted(arrays):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(arrays[k]).tobytes())
+    h.update(repr(sorted(settings.items())).encode())
+    return h.hexdigest()
 
 
 def load() -> Dict[str, np.ndarray]:

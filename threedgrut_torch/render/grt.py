@@ -8,7 +8,9 @@ stands in for the reference's BVH and gives every bundle a depth-sorted
 candidate list; `flatten_candidates` lays the lists out in one flat array
 of 128-row windows (with `flat_cull`, bundle_candidates_twolevel_flat
 builds that layout directly from flat super lists; its compact_kernel leg
-runs kernel B9, ops/stream_compact.py); `pack_rows64` and a row gather
+runs kernel B9, ops/stream_compact.py; with `packed_cull` the two-level
+cull sorts single int32 keys of quantized depth and list position,
+bundle_candidates_twolevel_packed); `pack_rows64` and a row gather
 give each slot its 64-float row; the bundle compositor (kernel B7,
 ops/bundle_trace.py) composites each ray front to back with a bounded
 per-ray re-sort.
@@ -278,11 +280,41 @@ def _inverse(perm):
     return inv
 
 
+def _quantized(t, hit, bits: int):
+    """Each row's depths t [..., K] quantized to `bits` bits between the
+    row's nearest and farthest hit (the JAX package's expressions, so that
+    the buckets are its own)."""
+    big = 3.4e38
+    lo = torch.where(hit, t, torch.full_like(t, big)).amin(-1, keepdim=True)
+    hi = torch.where(hit, t, torch.full_like(t, -big)).amax(-1, keepdim=True)
+    top = (1 << bits) - 1
+    s = top / torch.clamp(hi - lo, min=1e-12)
+    return torch.clamp((t - lo) * s, 0, top).to(torch.int32)
+
+
+def _packed_sort(hit, t, bits: int, pos_bits: int, keep: int):
+    """One sort of single int32 keys per row: `bits` bits of quantized
+    depth over `pos_bits` bits of list position, misses as _PACKED_FILLER
+    (last). Returns the first `keep` keys' positions [..., keep] int32
+    (those of the fillers are 2^pos_bits - 1): hits nearest first by bucket,
+    a bucket in list order."""
+    pos = torch.arange(t.shape[-1], dtype=torch.int32, device=t.device)
+    key = torch.where(hit, (_quantized(t, hit, bits) << pos_bits) | pos,
+                      torch.full_like(pos, _PACKED_FILLER))
+    key = torch.sort(key, dim=-1).values[..., :keep]
+    return key & ((1 << pos_bits) - 1)
+
+
+# The packed culls' key of a miss: above every hit's.
+_PACKED_FILLER = 0x7FFFFFFF
+
+
 def bundle_candidates_twolevel(positions, radius, valid, rays_o, rays_d,
                                bundle_size: int, capacity: int,
                                super_mult: int = SUPER_MULT,
                                super_capacity: int = 8192,
-                               spread_origins: bool = False):
+                               spread_origins: bool = False,
+                               packed_l1: bool = False):
     """Two-level cull: super bundles of `super_mult` Morton-adjacent
     bundles compact the particles to `super_capacity` candidates each
     (nearest by super-axis depth), then each member bundle tests its
@@ -290,6 +322,10 @@ def bundle_candidates_twolevel(positions, radius, valid, rays_o, rays_d,
     the super-list order). The super cones bound every member ray, so the
     candidate sets are the single-level ones when no list overflowed;
     `visibility` is the super-level hit, a superset of the single-level one.
+    With `packed_l1` (and at most 2^20 particles) the super lists come from
+    one sort of int32 keys, 11 bits of quantized super depth over 20 bits
+    of particle id, instead of the nearest-first sort: the same sets, and
+    within one depth bucket the lists run in id order.
 
     Returns (cand_idx [nb, L] int32 depth-ascending, counts [nb] int32
     clamped to L = min(capacity, super list width), overflow [] bool (either
@@ -307,15 +343,21 @@ def bundle_candidates_twolevel(positions, radius, valid, rays_o, rays_d,
     counts1 = hit1.sum(1, dtype=torch.int32)
     overflow1 = (counts1 > s_cap).any()
     visibility = hit1.any(0)
-    sup_idx = _nearest_first(
-        torch.where(hit1, -t_ax1, torch.full_like(t_ax1, -math.inf)), s_cap)
+    if packed_l1 and n <= (1 << 20):
+        sup_idx = _packed_sort(hit1, t_ax1, 11, 20, s_cap)
+    else:
+        sup_idx = _nearest_first(
+            torch.where(hit1, -t_ax1, torch.full_like(t_ax1, -math.inf)),
+            s_cap)
     del hit1, t_ax1
     sup_mask = (torch.arange(s_cap, device=positions.device)[None, :]
                 < torch.clamp(counts1, max=s_cap)[:, None])
 
-    # Level 2: each permuted bundle against its super's list.
+    # Level 2: each permuted bundle against its super's list (the packed
+    # keys' fillers, past the hits, are masked).
     pr = torch.cat([positions, radius[:, None]], dim=-1)
-    pr_s = pr[sup_idx.reshape(-1).long()].reshape(ns, s_cap, 4)
+    pr_s = pr[torch.clamp(sup_idx.reshape(-1), max=n - 1).long()].reshape(
+        ns, s_cap, 4)
     hit2, t_ax = _member_hits(pr_s[..., :3], pr_s[..., 3],
                               *_members(bundles, perm, super_mult))
     hit2 &= sup_mask[:, None, :]
@@ -333,6 +375,78 @@ def bundle_candidates_twolevel(positions, radius, valid, rays_o, rays_d,
     counts = torch.clamp(counts2, max=keep).reshape(nb)
     iperm = _inverse(perm)
     return cand_idx[iperm], counts[iperm], overflow, visibility
+
+
+def bundle_candidates_twolevel_packed(positions, radius, valid, rays_o,
+                                      rays_d, bundle_size: int,
+                                      capacity: int,
+                                      super_mult: int = SUPER_MULT,
+                                      super_capacity: int = 8192,
+                                      spread_origins: bool = False):
+    """The two-level cull with both compaction sorts on single int32 keys:
+    level 1 sorts 11 bits of quantized super depth over 20 bits of particle
+    id, level 2 13 bits of quantized member depth over 18 bits of super-list
+    position. The hit tests are bundle_candidates_twolevel's, so the
+    candidate sets are its own; within one depth bucket a list runs in list
+    order instead of exact depth (near ties; B7's per-ray re-sort undoes
+    most of it but not all, so frames differ somewhat from the exact
+    cull's, as the JAX package's do). The lists hold positions into the
+    super lists: `resolve_packed` turns a flat layout of them into
+    particle ids.
+
+    Returns (cand_local [nb, keep] int32 positions into the bundle's super
+    list, counts [nb] int32, overflow [] bool, visibility [N] bool, sup_idx
+    [ns, s_cap] int32 particle ids (the key fillers' 2^20 - 1 past each
+    list's hits), sup_of [nb] int32 super of each caller-order bundle)."""
+    n = positions.shape[0]
+    nb = rays_o.shape[0] // bundle_size
+    ns = nb // super_mult
+    if ns * super_mult != nb:
+        raise ValueError(f"{nb} bundles are not a multiple of {super_mult}")
+    if n > (1 << 20):
+        raise ValueError(f"packed cull: {n} particles exceed the 2^20 that "
+                         f"level 1's 20 position bits hold")
+    s_cap = min(super_capacity, n)
+    if s_cap > (1 << 18):
+        raise ValueError(f"packed cull: a super list of {s_cap} exceeds the "
+                         f"2^18 that level 2's 18 position bits hold")
+    bundles = make_bundles(rays_o, rays_d, bundle_size, spread_origins)
+    perm = bundle_morton_order(bundles)
+    sup = make_super_bundles(bundles, perm, super_mult)
+    hit1, t_ax1 = _cone_hit(positions, radius, valid, sup)        # [ns, N]
+    counts1 = hit1.sum(1, dtype=torch.int32)
+    overflow1 = (counts1 > s_cap).any()
+    visibility = hit1.any(0)
+    sup_idx = _packed_sort(hit1, t_ax1, 11, 20, s_cap)           # [ns, s_cap]
+    del hit1, t_ax1
+    sup_mask = (torch.arange(s_cap, device=positions.device)[None, :]
+                < torch.clamp(counts1, max=s_cap)[:, None])
+
+    pr = torch.cat([positions, radius[:, None]], dim=-1)
+    pr_s = pr[torch.clamp(sup_idx.reshape(-1), max=n - 1).long()].reshape(
+        ns, s_cap, 4)
+    hit2, t_ax = _member_hits(pr_s[..., :3], pr_s[..., 3],
+                              *_members(bundles, perm, super_mult))
+    hit2 &= sup_mask[:, None, :]
+    counts2 = hit2.sum(-1, dtype=torch.int32)                    # [ns, m]
+    overflow = overflow1 | (counts2 > capacity).any()
+    keep = min(capacity, s_cap)
+    cand_local = _packed_sort(hit2, t_ax, 13, 18, keep).reshape(nb, keep)
+    counts = torch.clamp(counts2, max=keep).reshape(nb)
+    iperm = _inverse(perm)
+    sup_of = (iperm // super_mult).to(torch.int32)
+    return (cand_local[iperm], counts[iperm], overflow, visibility, sup_idx,
+            sup_of)
+
+
+def resolve_packed(flat_local, valid, win_bundle, sup_idx, sup_of):
+    """The packed cull's flat layout of super-list positions -> particle
+    ids: one gather of flat size (slots that hold no candidate take 0)."""
+    s_cap = sup_idx.shape[1]
+    sup_slot = sup_of.long()[win_bundle.long()]                    # [nw]
+    g = (sup_slot * s_cap).repeat_interleave(CHUNK) + flat_local.long()
+    return torch.where(valid, sup_idx.reshape(-1)[g],
+                       torch.zeros_like(flat_local))
 
 
 def _segments(counts, capacity: int):
@@ -622,13 +736,6 @@ def pack_rows64(positions, quats, scales, opacities, features):
                       coeffs[:, :, 1], coeffs[:, :, 2]], dim=-1)
 
 
-def _unported(packed_cull, packed_l1):
-    if packed_cull or packed_l1:
-        raise NotImplementedError(
-            "3dgrt packed_cull/packed_l1 (the packed-key two-level cull) is "
-            "not ported yet: ROADMAP queue A item 6, the packed 3DGRT culls")
-
-
 class BundleInputs(NamedTuple):
     """The bundle compositor's inputs for a set of rays (grt.prepare)."""
     rays: torch.Tensor        # [nb, 8, 256] o, d (0 if inactive), t_max, T0
@@ -660,15 +767,16 @@ def candidate_lists(positions, radius, valid, rays_o, rays_d,
                     bundle_size: int, candidate_capacity: int,
                     super_capacity: int = 8192,
                     two_level_above: Optional[int] = None,
-                    spread_origins: bool = False):
+                    spread_origins: bool = False, packed_l1: bool = False):
     """Per-bundle candidate lists (bundle_candidates' outputs): the two-level
-    cull when it pays (`_two_level`), else the single-level one."""
+    cull when it pays (`_two_level`; `packed_l1` packs its level-1 sort),
+    else the single-level one."""
     nb = rays_o.shape[0] // bundle_size
     if _two_level(positions.shape[0], nb, super_capacity, two_level_above):
         return bundle_candidates_twolevel(
             positions, radius, valid, rays_o, rays_d, bundle_size,
             candidate_capacity, super_capacity=super_capacity,
-            spread_origins=spread_origins)
+            spread_origins=spread_origins, packed_l1=packed_l1)
     return bundle_candidates(
         positions, radius, valid,
         make_bundles(rays_o, rays_d, bundle_size, spread_origins),
@@ -688,7 +796,8 @@ def _cull_inputs(positions, scales, opacities, rays_dn, active,
 
 def _cull(positions, scales, opacities, rays_o, rays_dn, active,
           kernel_degree, bundle_size, candidate_capacity, super_capacity,
-          density_clamping, two_level_above=None, spread_origins=False):
+          density_clamping, two_level_above=None, spread_origins=False,
+          packed_l1=False):
     """`candidate_lists` of the particles' bounding radii, without
     autograd."""
     with torch.no_grad(), record_function("3dgrt.cull"):
@@ -698,7 +807,7 @@ def _cull(positions, scales, opacities, rays_o, rays_dn, active,
         return candidate_lists(p, radius, valid, rays_o, d_safe,
                                bundle_size, candidate_capacity,
                                super_capacity, two_level_above,
-                               spread_origins)
+                               spread_origins, packed_l1)
 
 
 def prepare(positions, quats, scales, opacities, features, rays_o, rays_d,
@@ -710,14 +819,19 @@ def prepare(positions, quats, scales, opacities, features, rays_o, rays_d,
             two_level_above: Optional[int] = None,
             flat_cull: bool = False,
             super_flat_capacity: Optional[int] = None,
-            spread_origins: bool = False) -> BundleInputs:
+            spread_origins: bool = False, packed_cull: bool = False,
+            packed_l1: bool = False) -> BundleInputs:
     """Everything of the bundle route before the row gather (256-ray
     bundles): cull, flat layout, packed rows and rays. With `flat_cull`
     and the two-level condition the flat cull
     (bundle_candidates_twolevel_flat, `super_flat_capacity` rows of super
     lists) gives the flat layout directly; it does not take
-    `spread_origins` (ValueError). Differentiable in the five parameter
-    tensors through the packed rows."""
+    `spread_origins` (ValueError). Otherwise, with `packed_cull` and the
+    two-level condition, the packed cull (bundle_candidates_twolevel_packed)
+    lists super-list positions, which `resolve_packed` turns into particle
+    ids after the flat layout; `packed_l1` packs the two-level cull's
+    level-1 sort only. Differentiable in the five parameter tensors through
+    the packed rows."""
     if flat_cull and spread_origins:
         raise ValueError("flat_cull does not take spread_origins: its cone "
                          "tests keep JAX's rear bound (ROADMAP C17)")
@@ -725,8 +839,10 @@ def prepare(positions, quats, scales, opacities, features, rays_o, rays_d,
     nb = r_total // 256
     dev = rays_o.device
     rays_dn, active = _rays_unit(rays_d)
-    if flat_cull and _two_level(positions.shape[0], nb, super_capacity,
-                                two_level_above):
+    two_level = _two_level(positions.shape[0], nb, super_capacity,
+                           two_level_above)
+    resolver = None
+    if flat_cull and two_level:
         with torch.no_grad(), record_function("3dgrt.cull"):
             p, radius, valid, d_safe = _cull_inputs(
                 positions, scales, opacities, rays_dn, active, kernel_degree,
@@ -739,16 +855,30 @@ def prepare(positions, quats, scales, opacities, features, rays_o, rays_d,
                 flat_capacity=flat_capacity)
             counts = _bundle_counts(valid, win_starts, win_ends)
     else:
-        cand_idx, counts, overflow, visibility = _cull(
-            positions, scales, opacities, rays_o, rays_dn, active,
-            kernel_degree, 256, candidate_capacity, super_capacity,
-            density_clamping, two_level_above, spread_origins)
+        if packed_cull and two_level:
+            with torch.no_grad(), record_function("3dgrt.cull"):
+                p, radius, valid, d_safe = _cull_inputs(
+                    positions, scales, opacities, rays_dn, active,
+                    kernel_degree, density_clamping)
+                (cand_idx, counts, overflow, visibility,
+                 *resolver) = bundle_candidates_twolevel_packed(
+                    p, radius, valid, rays_o, d_safe, 256,
+                    candidate_capacity, super_capacity=super_capacity,
+                    spread_origins=spread_origins)
+        else:
+            cand_idx, counts, overflow, visibility = _cull(
+                positions, scales, opacities, rays_o, rays_dn, active,
+                kernel_degree, 256, candidate_capacity, super_capacity,
+                density_clamping, two_level_above, spread_origins, packed_l1)
         if flat_capacity is None:
             flat_capacity = nb * (-(-cand_idx.shape[1] // CHUNK) * CHUNK)
         with torch.no_grad(), record_function("3dgrt.flatten"):
             (flat_idx, valid, win_starts, win_ends, ovf_flat,
-             _) = flatten_candidates(cand_idx, counts, flat_capacity)
+             win_bundle) = flatten_candidates(cand_idx, counts, flat_capacity)
             overflow = overflow | ovf_flat
+            if resolver:
+                flat_idx = resolve_packed(flat_idx, valid, win_bundle,
+                                          *resolver)
     with record_function("3dgrt.pack"):
         rows64 = pack_rows64(positions, quats, scales, opacities, features)
         t0 = _per_ray(initial_transmittance, r_total, 1.0, dev)
@@ -830,7 +960,12 @@ def trace(positions, quats, scales, opacities, features, rays_o, rays_d,
     (bundle_candidates_twolevel_flat: the same candidates and order, laid
     out directly in the flat layout; its super lists take
     `super_flat_capacity` rows, None the dense worst case); the ray route
-    ignores it, as the JAX package does.
+    ignores it, as the JAX package does. Otherwise `packed_cull` makes the
+    bundle route's two-level cull the packed one
+    (bundle_candidates_twolevel_packed: the same candidate sets, each list
+    ordered by quantized depth, near ties in list order); `packed_l1` packs
+    only the two-level cull's level-1 sort, on either route (the ray route
+    ignores `packed_cull`, as the JAX package does).
 
     The bundle route is differentiable in the five parameter tensors: B8
     is the compositor's backward, and the row gather's is the sort by
@@ -838,7 +973,6 @@ def trace(positions, quats, scales, opacities, features, rays_o, rays_d,
     256) the gather and compositor are fused_raster.composite_bundles,
     whose backward sums only the rows of the windows the forward walked
     when they fit in walk_capacity rows."""
-    _unported(packed_cull, packed_l1)
     if order not in ("bundle", "ray"):
         raise ValueError(f"unknown order {order!r}")
     r_total = rays_o.shape[0]
@@ -851,7 +985,8 @@ def trace(positions, quats, scales, opacities, features, rays_o, rays_d,
                       rays_d, kernel_degree, candidate_capacity,
                       initial_transmittance, t_max, density_clamping,
                       super_capacity, flat_capacity, two_level_above,
-                      flat_cull, super_flat_capacity, spread_origins)
+                      flat_cull, super_flat_capacity, spread_origins,
+                      packed_cull, packed_l1)
         fused = (walk_capacity is not None
                  and 0 < walk_capacity < inp.flat_idx.shape[0])
         if fused:
@@ -881,7 +1016,7 @@ def trace(positions, quats, scales, opacities, features, rays_o, rays_d,
     cand_idx, counts, overflow, visibility = _cull(
         positions, scales, opacities, rays_o, rays_dn, active, kernel_degree,
         bundle_size, candidate_capacity, super_capacity, density_clamping,
-        two_level_above, spread_origins)
+        two_level_above, spread_origins, packed_l1)
     return _trace_ray_order(
         positions, quats, scales, opacities, features, rays_o, rays_dn,
         active, cand_idx, counts, overflow, visibility, sh_degree,

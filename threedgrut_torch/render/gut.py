@@ -7,6 +7,12 @@ Projection and binning run without autograd (binning is a discrete
 decision; its outputs are integers, and the JAX package's gradients do not
 flow through them either). Packing and the SH colours stay differentiable.
 
+A train step spread over a (data, tile, model) mesh of processes
+(parallel/dp.py) passes its rank's `shard`: projection, SH colours and
+packing then run on the rank's particle shard and are gathered over the
+model axis, and the compositor (B1, B2) runs on the rank's strip of tiles,
+whose output is gathered over the tile axis. Binning runs on the full set.
+
 Each stage runs under a `torch.profiler.record_function` label
 ("3dgut.project", "3dgut.bin", "3dgut.pack", "3dgut.gather", "3dgut.rays",
 "3dgut.composite"; in the backward "3dgut.bwd_composite" and
@@ -77,39 +83,49 @@ def pack_particles(positions, quats, scales, opacities,
 def prepare_packed(positions, quats, scales, opacities, features,
                    cam: Camera, pose: SensorPose, resolution, isect_capacity,
                    shutter=ShutterType.GLOBAL, sh_degree=3,
-                   tile_culling=True):
+                   tile_culling=True, shard=None):
     """Projection + binning + packing (no slot gather). Returns
-    (proj, binning, packed [N, 16], tile_grid)."""
+    (proj, binning, packed [N, 16], tile_grid). With a mesh rank's `shard`
+    (parallel/dp.RankShard) the projection and the packing run on its
+    particle shard and are gathered; the results are those of the whole
+    set."""
     if isect_capacity % tile_raster.CHUNK:
         raise ValueError(f"isect_capacity must be a multiple of "
                          f"{tile_raster.CHUNK}, got {isect_capacity}")
     wp, hp = pad_to_tiles(resolution)
     tile_grid = (wp // C.TILE_X, hp // C.TILE_Y)
+    local = (positions, quats, scales, opacities, features)
+    if shard is not None:
+        local = shard.local_particles(local)
     with torch.no_grad():
         with record_function("3dgut.project"):
-            proj = proj_ops.project(positions, quats, scales, opacities, cam,
-                                    pose, shutter, resolution)
+            proj = proj_ops.project(*local[:4], cam, pose, shutter,
+                                    resolution)
+            if shard is not None:
+                proj = shard.gather_projection(proj)
         with record_function("3dgut.bin"):
             binning = tile_ops.bin_particles(proj, tile_grid, isect_capacity,
                                              tile_culling=tile_culling)
     with record_function("3dgut.pack"):
         cam_center = camera_center_world(pose)
-        colors = precomputed_features(positions, features, cam_center,
+        colors = precomputed_features(local[0], local[4], cam_center,
                                       sh_degree)
-        packed = pack_particles(positions, quats, scales, opacities, colors)
+        packed = pack_particles(*local[:4], colors)
+        if shard is not None:
+            packed = shard.gather_particles(packed)
     return proj, binning, packed, tile_grid
 
 
 def prepare(positions, quats, scales, opacities, features, cam: Camera,
             pose: SensorPose, resolution, isect_capacity,
             shutter=ShutterType.GLOBAL, sh_degree=3, tile_culling=True,
-            low_precision_grads=False):
+            low_precision_grads=False, shard=None):
     """Everything before compositing. Returns (proj, binning,
     data_sorted [cap, 16], tile_grid); `data_sorted` is differentiable in
     the particle inputs through sorted_gather's scatter-free backward."""
     proj, binning, packed, tile_grid = prepare_packed(
         positions, quats, scales, opacities, features, cam, pose, resolution,
-        isect_capacity, shutter, sh_degree, tile_culling)
+        isect_capacity, shutter, sh_degree, tile_culling, shard)
     with record_function("3dgut.gather"):
         data_sorted = sorted_gather(
             packed, binning.sorted_particle_idx, binning.particle_ends,
@@ -172,7 +188,7 @@ def render(positions, quats, scales, opacities, features, cam: Camera,
            aux_gradients: bool = True, aux_outputs: bool = True,
            low_precision_grads: bool = False, hit_visibility: bool = False,
            visibility_threshold: float = 0.0, row_termination: bool = False,
-           walk_capacity=None,
+           walk_capacity=None, shard=None,
            device="cuda") -> Tuple[RenderOutputs, torch.Tensor]:
     """Render one frame on `device`. Returns (outputs, overflow flag).
 
@@ -198,6 +214,8 @@ def render(positions, quats, scales, opacities, features, cam: Camera,
     in the order of that many odd-even passes on their depths (the "sorted"
     k-buffer mode); `row_termination` stops each pixel at the last slot
     whose projected footprint reaches its row (ops/tiles.row_last_touch).
+    `shard` (parallel/dp.RankShard) renders one mesh rank's part of the
+    frame and gathers the whole (not with `hit_visibility`).
     """
     dev = resolve(device)
     positions, quats, scales, opacities, features = (
@@ -207,16 +225,20 @@ def render(positions, quats, scales, opacities, features, cam: Camera,
     use_fused = (walk_capacity is not None
                  and 0 < walk_capacity < isect_capacity
                  and not hit_visibility)
+    if shard is not None and hit_visibility:
+        raise ValueError("hit_visibility reads every tile's slots: a mesh "
+                         "rank's render (shard) does not take it")
 
     if use_fused:
         proj, binning, packed, tile_grid = prepare_packed(
             positions, quats, scales, opacities, features, cam, pose,
-            resolution, isect_capacity, shutter, sh_degree, tile_culling)
+            resolution, isect_capacity, shutter, sh_degree, tile_culling,
+            shard)
     else:
         proj, binning, data_sorted, tile_grid = prepare(
             positions, quats, scales, opacities, features, cam, pose,
             resolution, isect_capacity, shutter, sh_degree, tile_culling,
-            low_precision_grads)
+            low_precision_grads, shard)
     hp, wp = tile_grid[1] * C.TILE_Y, tile_grid[0] * C.TILE_X
     if t_max is not None:
         t_max = torch.as_tensor(t_max, dtype=torch.float32, device=dev)
@@ -237,11 +259,16 @@ def render(positions, quats, scales, opacities, features, cam: Camera,
         if row_termination:
             with torch.no_grad():
                 rays[:, 7] = tile_ops.row_last_touch(binning, proj, tile_grid)
+    tile_starts, tile_ends = binning.tile_starts, binning.tile_ends
+    strip = None if shard is None else shard.local_tiles(rays.shape[0])
+    if strip is not None:
+        rays, tile_starts, tile_ends = (x[strip] for x in (rays, tile_starts,
+                                                           tile_ends))
     with record_function("3dgut.composite"):
         if use_fused:
             out = fused_raster.composite_particles(
                 packed, binning.sorted_particle_idx, binning.particle_ends,
-                binning.tile_starts, binning.tile_ends, rays, kernel_degree,
+                tile_starts, tile_ends, rays, kernel_degree,
                 min_transmittance, has_t_max=t_max is not None,
                 aux_grads=aux_gradients, aux_outputs=aux_outputs,
                 low_precision_grads=low_precision_grads,
@@ -250,11 +277,13 @@ def render(positions, quats, scales, opacities, features, cam: Camera,
             flags_slot = None
         else:
             out, flags_slot = tile_raster.tile_composite(
-                data_sorted, binning.tile_starts, binning.tile_ends, rays,
+                data_sorted, tile_starts, tile_ends, rays,
                 kernel_degree, min_transmittance,
                 has_t_max=t_max is not None, aux_outputs=aux_outputs,
                 emit_flags=hit_visibility, aux_grads=aux_gradients,
                 sorted_passes=sorted_passes, row_termination=row_termination)
+    if shard is not None:
+        out = shard.gather_tiles(out)
 
     img = tile_unpack(out, tile_grid)[:h, :w]
     # Visibility: projected to a renderable splat this frame; with

@@ -77,13 +77,24 @@ def step_fn(params: Gaussians, opt_state: optimizers.AdamState, T_to_world,
             camera, rgb_gt, mask, scene_extent: float, resolution,
             sh_degree: int, cfg: Config, train: bool,
             generator: Optional[torch.Generator] = None, shutter=0,
-            T_end=None, isect_capacity: Optional[int] = None):
+            T_end=None, isect_capacity: Optional[int] = None, shard=None):
     """One train (or eval) step on the device of `params`, the counterpart
     of the JAX package's _step_fn. Inputs are tensors on that device. A
     train step updates `params` in place and returns (new opt_state, aux);
     an eval step returns (opt_state, aux) with the prediction and the
-    hit-based visibility."""
+    hit-based visibility.
+
+    `shard` (parallel/dp.RankShard, train steps of the 3DGUT rasterizer
+    only) makes it one rank's part of a step over a (data, tile, model)
+    mesh: the render runs on the rank's particle shard and tile strip, and
+    before Adam the gradients, visibility, overflow flag and metrics are
+    reduced over the mesh (RankShard.reduce: the mean over the data rows'
+    views, the same on every rank); aux then also holds each view's
+    position-gradient norm and visibility ("view_pos_grad_norm",
+    "view_visibility", [B, N])."""
     dev = params.positions.device
+    if shard is not None:
+        shard.check_step(cfg, train)
     pose = pose_from_matrix(T_to_world)
     shutter = ShutterType(shutter)
     if isect_capacity is None:
@@ -136,7 +147,7 @@ def step_fn(params: Gaussians, opt_state: optimizers.AdamState, T_to_world,
                     hit_visibility=not train,
                     walk_capacity=(walk_capacity_for(cfg, isect_capacity)
                                    if train else None),
-                    device=dev)
+                    shard=shard, device=dev)
             pred = background.compose(out.rgb, out.opacity,
                                       cfg.model.background_color,
                                       train=train, generator=generator)
@@ -154,6 +165,14 @@ def step_fn(params: Gaussians, opt_state: optimizers.AdamState, T_to_world,
     with record_function("train.backward"):
         grads = dict(zip(optimizers.PARAM_FIELDS,
                          torch.autograd.grad(loss, fields)))
+    terms = {k: v.detach() for k, v in terms.items()}
+    psnr = losses.psnr(pred.detach(), rgb_gt)
+    cone_vis = out.visibility
+    extra = {}
+    if shard is not None:
+        with record_function("train.reduce"):
+            grads, cone_vis, overflow, terms, psnr, extra = shard.reduce(
+                grads, cone_vis, overflow, terms, psnr)
     # Hit-based visibility: a particle composited with weight > 0 this
     # frame. Occluded, culled and unwalked particles get exactly-zero
     # gradients through every path, so nonzero gradient == contributed.
@@ -161,14 +180,14 @@ def step_fn(params: Gaussians, opt_state: optimizers.AdamState, T_to_world,
     hit_vis = torch.zeros(cap, dtype=torch.bool, device=dev)
     for g in grads.values():
         hit_vis |= (g.reshape(cap, -1) != 0.0).any(-1)
-    visibility = out.visibility & hit_vis
+    visibility = cone_vis & hit_vis
     with record_function("train.adam"):
         new_opt = optimizers.step(params, grads, opt_state, cfg.optimizer,
                                   scene_extent, visibility=visibility)
-    aux = dict(terms={k: v.detach() for k, v in terms.items()},
-               psnr=losses.psnr(pred.detach(), rgb_gt), pred=pred.detach(),
+    aux = dict(terms=terms, psnr=psnr, pred=pred.detach(),
                visibility=visibility, overflow=overflow, grads=grads,
-               pos_grad_norm=torch.linalg.norm(grads["positions"], dim=-1))
+               pos_grad_norm=torch.linalg.norm(grads["positions"], dim=-1),
+               **extra)
     return new_opt, aux
 
 
@@ -262,8 +281,19 @@ class Trainer:
             generator=self.generator, shutter=shutter, T_end=T_end,
             isect_capacity=self.isect_capacity)
         self.global_step += 1
+        self._grow_on_overflow(aux["overflow"])
+        t_s = time.perf_counter()
+        if self.strategy is not None:
+            self.strategy.post_backward(self, view, aux)
+            self.strategy.post_optimizer_step(self, view, aux)
+        self._strategy_s = time.perf_counter() - t_s
+        return aux
+
+    def _grow_on_overflow(self, overflow) -> None:
+        """Act on the previous step's overflow flag (read one step late):
+        double the capacity, up to MAX_ISECT_CAPACITY."""
         prev_ovf, self._pending_overflow = (self._pending_overflow,
-                                            aux["overflow"])
+                                            overflow)
         if prev_ovf is not None and bool(prev_ovf):
             grown = min(self.isect_capacity * 2, MAX_ISECT_CAPACITY)
             if grown == self.isect_capacity:
@@ -278,12 +308,13 @@ class Trainer:
             # The step just run also used the old capacity; its flag
             # reports the shortage already answered.
             self._pending_overflow = None
-        t_s = time.perf_counter()
-        if self.strategy is not None:
-            self.strategy.post_backward(self, view, aux)
-            self.strategy.post_optimizer_step(self, view, aux)
-        self._strategy_s = time.perf_counter() - t_s
-        return aux
+
+    # Views a step of run() takes, and the step on them (DPTrainer takes
+    # one per data row).
+    views_per_step = 1
+
+    def _step_views(self, views) -> Dict[str, Any]:
+        return self.train_step(views[0])
 
     def eval_view(self, view) -> Dict[str, Any]:
         """Eval step with grow-and-retry: a truncated eval image is never
@@ -333,9 +364,10 @@ class Trainer:
         t0 = time.time()
         for _ in range(iters):
             t_d = time.perf_counter()
-            view = self.dataset[next(stream)]
+            views = [self.dataset[next(stream)]
+                     for _ in range(self.views_per_step)]
             t_s = time.perf_counter()
-            aux = self.train_step(view)
+            aux = self._step_views(views)
             t_e = time.perf_counter()
             entry = dict(step=self.global_step, data_ms=1e3 * (t_s - t_d),
                          step_ms=1e3 * (t_e - t_s),
@@ -447,13 +479,15 @@ class Trainer:
 
     @classmethod
     def load_checkpoint(cls, path: str, dataset=None, val_dataset=None,
-                        device="cuda", strategy=None) -> "Trainer":
+                        device="cuda", strategy=None,
+                        **trainer_kw) -> "Trainer":
         """Resume from a checkpoint written by this class or by the JAX
         package's Trainer (same keys; its .json config beside it). With no
         dataset the trainer can evaluate views (render_eval.Renderer); its
         scene extent is the checkpoint's, as it is for a resumed run. The
         `strategy/<field>` keys, where present, restore `strategy`'s state
-        on the device its state already lives on."""
+        on the device its state already lives on. `trainer_kw` go to the
+        class's constructor."""
         with open(path.replace(".npz", ".json")) as fh:
             cfg = from_dict(json.load(fh))
         dev = resolve(device)
@@ -461,7 +495,7 @@ class Trainer:
             params = from_numpy({f: data[f"params/{f}"] for f in FIELDS},
                                 dev)
             trainer = cls(cfg, dataset, val_dataset, params=params,
-                          strategy=strategy, device=dev)
+                          strategy=strategy, device=dev, **trainer_kw)
             trainer.opt_state = optimizers.state_from_numpy(
                 {f: data[f"m/{f}"] for f in optimizers.PARAM_FIELDS},
                 {f: data[f"v/{f}"] for f in optimizers.PARAM_FIELDS},
